@@ -8,17 +8,26 @@ Run from the repository root, with no arguments:
 Phases; any failure raises and the script exits non-zero:
   1. start: require CUDA, print the card's name and power limit;
   2. build the CUDA kernels from zkcnn_tpu_torch/csrc with nvcc;
-  3. each kernel against its plain PyTorch version on the card at edge
-     sizes (2, 4, a non-multiple of the block size, 2^18): exact;
-  4. the three tiny models proven and verified on the card: transcript
-     digest and proof size equal to their 1-device pins;
+  3. each kernel entry (the one-round steps and the multi-round ladders)
+     against its plain PyTorch version on the card at edge sizes: 2, 4,
+     1554 (folded while the row count is even), 2^12 and 2^18 rows with
+     as many rounds as they allow, so that wide rounds, the hand-over to
+     the one-block tail and tail-only ladders are covered, 2^21 rows,
+     rows of p - 1, and the tunings that send other sizes to each kernel
+     (lazily reduced dots or not, all rounds wide, the longest tail):
+     exact;
+  4. the three tiny models proven and verified on the card, on the
+     ladder path and on the per-round path (Prover(ladders=False), with
+     the launch counts reset before and read after): transcript digest
+     and proof size equal to their 1-device pins on both;
   5. LeNet5, pic_cnt=1, through the port's demo_lenet entry
      (--synthetic --seed 17 --no-pcs) on the card, with the kernel launch
      counts reset just before and read just after: it must verify, with
-     WS 201734(2^18), PS 45.7188 KB, the pinned digest, and every kernel
-     launched;
-  6. each kernel against its plain version at every shape the LeNet run
-     launched it at (exact), timed with CUDA events;
+     WS 201734(2^18), PS 45.7188 KB, the pinned digest, every ladder
+     launched, and at most one fetch per side per phase;
+  6. each entry against its plain version at every shape its run
+     launched it at (exact), timed with CUDA events, with the least time
+     the card could take for the same work beside it;
   7. one JSON line of kernel results, the nvidia-smi name/power line, and
      the final JSON status line.
 """
@@ -55,12 +64,23 @@ PINNED_LENET = {
     "WS": "201734(2^18)", "PS": "45.7188"}
 
 SOURCE = "zkcnn_tpu_torch/csrc/round_kernels.cu"
-REPLACES = {
-    "round_step": "zkcnn_tpu/field/pallas_round2.py:171",
-    "fold": "zkcnn_tpu/field/pallas_round2.py:171",
-    "cubic_round_step": "zkcnn_tpu/field/pallas_round.py:402",
-}
-P_TOP_WORD = 0x73EDA753     # top 32-bit word of the Fr modulus
+QUAD = "zkcnn_tpu/field/pallas_round2.py:237"       # and pallas_round.py:249
+CUBIC = "zkcnn_tpu/field/pallas_round.py:475"
+REPLACES = {"round_step": QUAD, "fold": QUAD, "cubic_round_step": CUBIC,
+            "round_ladder": QUAD, "fold_ladder": QUAD,
+            "cubic_ladder": CUBIC}
+STEPS = {"round_step": "round_ladder", "fold": "fold_ladder",
+         "cubic_round_step": "cubic_ladder"}      # step -> its ladder
+P_WORDS = [0x00000001, 0xFFFFFFFF, 0xFFFE5BFE, 0x53BDA402,
+           0x09A1D805, 0x3339D808, 0x299D7D48, 0x73EDA753]   # Fr modulus
+
+# The card's published rates (NVIDIA H100 SXM): device memory 3.35 TB/s;
+# 32-bit integer multiply-adds on the CUDA cores at half the FP32 lane
+# count, so half of 67 TFLOP/s / 2 flops an FMA = 16.75e12 a second.
+MEM_BYTES_S = 3.35e12
+INT32_MULS_S = 16.75e12
+ROW_BYTES = 32
+PRODUCT_MULS = 128      # 32x32->64 multiplies of one CIOS Montgomery product
 
 
 def say(msg):
@@ -79,8 +99,16 @@ def rand_fe(torch, n: int, gen):
     """[n, 8] random canonical residues on the card (top word < p's)."""
     w = torch.randint(0, 1 << 32, (n, 8), dtype=torch.int64,
                       device="cuda", generator=gen)
-    w[:, 7] %= P_TOP_WORD
+    w[:, 7] %= P_WORDS[7]
     return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def pm1_fe(torch, n: int, gen=None):
+    """[n, 8] rows of p - 1: every product and partial sum as large as it
+    can be."""
+    w = torch.tensor(P_WORDS, dtype=torch.int64, device="cuda")
+    w[0] -= 1
+    return (w - ((w >> 31) << 32)).to(torch.int32).repeat(n, 1)
 
 
 def max_err(torch, a, b) -> int:
@@ -103,32 +131,85 @@ def time_ms(torch, fn, iters: int) -> float:
     return s.elapsed_time(e) / iters
 
 
-def compare(torch, rk, name, shape, gen, rng):
-    """Kernel vs plain on the same card tensors; raises on a mismatch.
-    Returns (max_abs_err, kernel_fn, plain_fn)."""
-    r = rng.getrandbits(254)
-    if name == "cubic_round_step":
-        K, M = shape
-        args = (rand_fe(torch, M, gen), rand_fe(torch, K, gen),
-                rand_fe(torch, K, gen), r)
-        kern, plain = rk.cubic_round_step, rk.cubic_round_step_plain
-    elif name == "round_step":
-        (m,) = shape
-        args = (rand_fe(torch, m, gen), rand_fe(torch, m, gen), r)
-        kern, plain = rk.round_step, rk.round_step_plain
+def rounds_of(shape) -> int:
+    """A shape is (rows, R) or (K, M, R); a one-round step has R = 1."""
+    return shape[-1]
+
+
+def bound(name: str, shape):
+    """(bound_ms, bound_by): the larger of the bytes the function must
+    move (inputs read once, outputs written once) over the memory rate
+    and its 32-bit multiplies (full products) over the integer rate."""
+    R = rounds_of(shape)
+    if "cubic" in name:
+        K, M, _ = shape
+        rows_in, rows_out = 2 * K + M + R, 2 * (K >> R) + (M >> R) + 4 * R
+        products = sum(12 * (K >> (j + 1)) + (M >> (j + 1))
+                       for j in range(R))
+    elif "fold" in name:
+        rows, _ = shape
+        rows_in, rows_out = rows + R, rows >> R
+        products = sum(rows >> (j + 1) for j in range(R))
     else:
-        (m,) = shape
-        args = (rand_fe(torch, m, gen), r)
-        kern, plain = rk.fold, rk.fold_plain
+        rows, _ = shape
+        rows_in, rows_out = 2 * rows + R, 2 * (rows >> R) + 4 * R
+        products = sum(6 * (rows >> (j + 1)) for j in range(R))
+    by_bytes = (rows_in + rows_out) * ROW_BYTES / MEM_BYTES_S * 1e3
+    by_ops = products * PRODUCT_MULS / INT32_MULS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def compare(torch, rk, name, shape, gen, rng, fill=rand_fe):
+    """Kernel vs plain on the same card tensors; raises on a mismatch.
+    Returns (max_abs_err, kernel_fn, plain_fn).  shape: (rows, R) or
+    (K, M, R); a one-round step takes R = 1."""
+    rs = [rng.getrandbits(254) for _ in range(rounds_of(shape))]
+    ch = rs if name.endswith("ladder") else rs[0]
+    if "cubic" in name:
+        K, M, _ = shape
+        args = (fill(torch, M, gen), fill(torch, K, gen),
+                fill(torch, K, gen), ch)
+    elif "fold" in name:
+        args = (fill(torch, shape[0], gen), ch)
+    else:
+        args = (fill(torch, shape[0], gen), fill(torch, shape[0], gen), ch)
+    kern, plain = getattr(rk, name), getattr(rk, name + "_plain")
     got, want = kern(*args), plain(*args)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    if len(got) != len(want) or any(g.shape != w.shape
+                                    for g, w in zip(got, want)):
+        raise AssertionError(f"{name} at {shape}: output shapes differ")
     err = max(max_err(torch, g, w) for g, w in zip(got, want))
-    if err or any(g.shape != w.shape for g, w in zip(got, want)):
+    if err:
         raise AssertionError(f"{name} at {shape}: kernel differs from its "
                              f"plain version (max abs err {err})")
     return err, (lambda: kern(*args)), (lambda: plain(*args))
+
+
+def even_rounds(rows: int) -> int:
+    """The rounds a row count allows: folded while it is even."""
+    return (rows & -rows).bit_length() - 1
+
+
+def edge_shapes():
+    """Edge shapes per entry: the steps at R = 1, the ladders at every
+    round their row counts allow."""
+    rows = [2, 4, 1554, 1 << 12, 1 << 18]
+    cubic = [(2, 2), (4, 2), (4, 4), (1554, 14), (1 << 11, 1 << 9),
+             (1 << 12, 1 << 5), (1 << 12, 1 << 12), (1 << 18, 1 << 11)]
+    quad = [(m, even_rounds(m)) for m in rows] + [(1 << 18, 3), (1 << 21, 2)]
+    return {
+        "round_step": [(m, 1) for m in rows],
+        "fold": [(m, 1) for m in rows],
+        "cubic_round_step": [(K, M, 1) for K, M in cubic],
+        "round_ladder": quad,
+        "fold_ladder": quad,
+        "cubic_ladder": [(K, M, even_rounds(M)) for K, M in cubic]
+                        + [(1 << 21, 1 << 11, 2)],
+    }
 
 
 def tiny_models(zoo, NeuralNetwork, P):
@@ -175,92 +256,165 @@ def main():
     lib_path = cuda_build.build(verbose=True)
     say(f"build: {lib_path.name} in {time.time() - t0:.1f}s")
     from zkcnn_tpu_torch.field import round_kernels as rk
+    from zkcnn_tpu_torch.gkr import engine
     rk._lib()
 
     # 3. kernels against their plain versions at edge sizes
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
     rng = random.Random(17)
-    edge = {"round_step": [(2,), (4,), (1554,), (1 << 18,)],
-            "fold": [(2,), (4,), (1554,), (1 << 18,)],
-            "cubic_round_step": [(2, 2), (4, 2), (4, 4), (1554, 14),
-                                 (1 << 18, 1 << 11)]}
+    edge = edge_shapes()
     worst = {k: 0 for k in edge}
     for name, shapes in edge.items():
         for shape in shapes:
-            err, _, _ = compare(torch, rk, name, shape, gen, rng)
-            worst[name] = max(worst[name], err)
-        say(f"edge sizes exact (tolerance 0): {name} at {shapes}")
+            for fill in (rand_fe, pm1_fe):
+                err, _, _ = compare(torch, rk, name, shape, gen, rng, fill)
+                worst[name] = max(worst[name], err)
+        say(f"edge sizes exact (tolerance 0; random rows and rows of "
+            f"p - 1): {name} at {shapes}")
+    # the kernels that the default tuning gives other sizes: lazy dots
+    # in every wide round and in none, every round wide, the longest tail
+    keep = dict(rk.TUNING)
+    for tuning in (dict(lazy_rows=1), dict(lazy_rows=0), dict(tail_rows=1),
+                   dict(tail_rows=1 << 12)):
+        rk.set_tuning(**tuning)
+        for name, shape in (("round_ladder", (1 << 18, 18)),
+                            ("round_ladder", (1 << 21, 2)),
+                            ("cubic_ladder", (1 << 18, 1 << 11, 11)),
+                            ("cubic_ladder", (1 << 21, 1 << 11, 2))):
+            for fill in (rand_fe, pm1_fe):
+                err, _, _ = compare(torch, rk, name, shape, gen, rng, fill)
+                worst[name] = max(worst[name], err)
+        rk.set_tuning(**keep)
+        say(f"exact under tuning {tuning}: both ladders at 2^18 and 2^21 "
+            f"rows")
 
     from zkcnn_tpu_torch.nn import random_source, NeuralNetwork
     from zkcnn_tpu_torch.nn import models as zoo
     from zkcnn_tpu_torch.nn import params as P
     from zkcnn_tpu_torch.gkr import Prover, Verifier, Tape
 
-    # 4. tiny models on the card
-    for name, build in tiny_models(zoo, NeuralNetwork, P):
-        nn = build()
-        C, vals = nn.create(random_source(24), device="cuda")
-        p = Prover(C, vals)
-        tape = Tape(b"dryrun-" + name.encode())
-        bl = C.layers[0].bit_length
-        tape.fields(1 << (bl - (bl >> 1)))   # the PCS setup's draws
-        v = Verifier(p, C, tape)
-        if not v.verify():
-            raise AssertionError(f"{name}: verification failed on cuda")
-        pin = PINNED_1CHIP[name]
-        if (v.transcript_digest, p.proof_size) != (pin["digest"],
-                                                   pin["proof_size"]):
-            raise AssertionError(
-                f"{name}: digest {v.transcript_digest} / proof size "
-                f"{p.proof_size} differ from the pin {pin}")
-        say(f"tiny model {name}: verified, digest and proof size "
-            f"{p.proof_size} equal PINNED_1CHIP")
+    # 4. tiny models on the card: the ladder path, then the per-round
+    # path, whose counts cover exactly its three proofs
+    for ladders in (True, False):
+        if not ladders:
+            rk.reset_launches()
+        for name, build in tiny_models(zoo, NeuralNetwork, P):
+            nn = build()
+            C, vals = nn.create(random_source(24))   # default: the card
+            p = Prover(C, vals, ladders=ladders)
+            tape = Tape(b"dryrun-" + name.encode())
+            bl = C.layers[0].bit_length
+            tape.fields(1 << (bl - (bl >> 1)))   # the PCS setup's draws
+            v = Verifier(p, C, tape)
+            if not v.verify():
+                raise AssertionError(f"{name}: verification failed on cuda")
+            pin = PINNED_1CHIP[name]
+            if (v.transcript_digest, p.proof_size) != (pin["digest"],
+                                                       pin["proof_size"]):
+                raise AssertionError(
+                    f"{name}: digest {v.transcript_digest} / proof size "
+                    f"{p.proof_size} differ from the pin {pin}")
+            say(f"tiny model {name} ({'ladders' if ladders else 'per round'}"
+                f"): verified, digest and proof size {p.proof_size} equal "
+                f"PINNED_1CHIP")
+    torch.cuda.synchronize()
+    launches = {k: rk.LAUNCHES[k] for k in STEPS}
+    shapes = {k: sorted(rk.SHAPES[k]) for k in STEPS}
+    say(f"per-round path launches (three tiny proofs): {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the per-round path never launched {name}")
 
     # 5. LeNet through the demo entry; counts cover exactly this run
     from zkcnn_tpu_torch.cli import demo_lenet
     rk.reset_launches()
+    engine.FETCHES["rounds"] = 0
     res = demo_lenet.main(["--synthetic", "--seed", "17", "--no-pcs",
-                           "--pic-cnt", "1"])      # cuda: it is available
+                           "--pic-cnt", "1"])      # no --cpu: the card
     torch.cuda.synchronize()
-    launches = dict(rk.LAUNCHES)
-    shapes = {k: sorted(v) for k, v in rk.SHAPES.items()}
+    lenet = {k: rk.LAUNCHES[k] for k in rk.NAMES}
+    launches.update({k: lenet[k] for k in STEPS.values()})
+    shapes.update({k: sorted(rk.SHAPES[k]) for k in STEPS.values()})
+    device_launches = sum(rk.KERNEL_LAUNCHES.values())
+    fetches = engine.FETCHES["rounds"]
     row = res["row"]
     say(f"lenet: Verification pass, WS {row['WS']}, PS {row['PS']} KB, "
         f"PT {row['PT']} s, VT {row['VT']} s, witness "
         f"{res['witness_s']:.2f} s, digest {res['digest']}")
     say(f"lenet row: {res['line']}")
-    say(f"lenet launches: {launches}")
+    say(f"lenet wrapper calls that launched: {lenet}")
+    say(f"lenet round loops: {device_launches} device launches "
+        f"({dict(rk.KERNEL_LAUNCHES)}), {fetches} host fetches, for "
+        f"{lenet['round_ladder']} quadratic sides and "
+        f"{lenet['cubic_ladder']} cubic phases")
     if row["WS"] != PINNED_LENET["WS"] or row["PS"] != PINNED_LENET["PS"]:
         raise AssertionError(f"lenet WS/PS {row['WS']}/{row['PS']} differ "
                              f"from {PINNED_LENET}")
     if res["digest"] != PINNED_LENET["digest"]:
         raise AssertionError(f"lenet digest {res['digest']} differs from "
                              f"the CPU pin {PINNED_LENET['digest']}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in STEPS.values():
+        if lenet[name] <= 0:
             raise AssertionError(f"lenet never launched kernel {name}")
+    for name in STEPS:
+        if lenet[name]:
+            raise AssertionError(f"lenet ran {name} {lenet[name]} times: "
+                                 f"its rounds should all run in ladders")
+    # a phase fetches once for all its sides
+    if fetches > lenet["round_ladder"] + lenet["cubic_ladder"]:
+        raise AssertionError(f"{fetches} fetches for "
+                             f"{lenet['round_ladder']} sides")
 
-    # 6. kernels against their plain versions at the LeNet shapes, timed
+    # 6. every entry against its plain version at the shapes of its run,
+    # timed; a step is also timed at the first round of the largest
+    # LeNet ladder, the shape it had before the ladders took its rounds
     kernels = []
-    for name, seen in shapes.items():
-        say(f"lenet shapes of {name}: {seen}")
+    for name in rk.NAMES:
+        seen = shapes[name]
+        say(f"shapes of {name} in its run: {seen}")
         err, times = worst[name], []
         for shape in seen:
-            e, kern, plain = compare(torch, rk, name, shape, gen, rng)
+            e, kern, _ = compare(torch, rk, name, shape, gen, rng)
             err = max(err, e)
-            times.append((shape, time_ms(torch, kern, 20),
-                          time_ms(torch, plain, 5)))
-        for shape, ms, pms in times:
-            say(f"time {name} {shape}: kernel {ms:.4f} ms, plain "
-                f"{pms:.4f} ms ({smi})")
-        shape, ms, pms = times[-1]          # the largest LeNet shape
-        say(f"reported time of {name}: its largest LeNet shape {shape}")
+            times.append((shape, time_ms(torch, kern, 20)))
+        for shape, ms in times:
+            say(f"time {name} {shape}: kernel {ms:.4f} ms ({smi})")
+        if name in STEPS:
+            shape = max(shapes[STEPS[name]])[:-1] + (1,)
+        else:
+            shape = max(seen)
+        e, kern, plain = compare(torch, rk, name, shape, gen, rng)
+        ms, pms = time_ms(torch, kern, 20), time_ms(torch, plain, 3)
+        b_ms, b_by = bound(name, shape)
+        say(f"reported time of {name}: the largest LeNet shape {shape}: "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.6f} ms "
+            f"by {b_by} ({smi})")
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
-                        "launches": launches[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": pms})
-    say("kernels exact (tolerance 0) at every LeNet shape")
+                        "launches": launches[name],
+                        "max_abs_err": max(err, e), "ms": ms,
+                        "plain_ms": pms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None,
+                        "shape": list(shape)})
+    say("kernels exact (tolerance 0) at every shape of their runs")
+
+    # what a ladder saves at LeNet's largest side: its rounds one by one,
+    # each fetched before the next, against one ladder and one fetch
+    rows, R = max(shapes["round_ladder"])
+    A, V = rand_fe(torch, rows, gen), rand_fe(torch, rows, gen)
+    rs = [rng.getrandbits(254) for _ in range(R)]
+
+    def per_round():
+        a, v = A, V
+        for r in rs:
+            d, a, v = rk.round_step(a, v, r)
+            d.cpu()
+
+    per_ms = time_ms(torch, per_round, 10)
+    lad_ms = time_ms(torch, lambda: rk.round_ladder(A, V, rs)[0].cpu(), 10)
+    say(f"{R} rounds from {rows} rows, dots fetched: per round "
+        f"{per_ms:.4f} ms, one ladder {lad_ms:.4f} ms ({smi})")
 
     # 7. results
     say(json.dumps({"kernels": kernels}))

@@ -20,7 +20,7 @@ def test_eval_normal_layer_matches_integer_replay():
     """The field-domain layer evaluation reproduces NeuralNetwork's
     exact integer replay on every normal layer (pre-subset gates)."""
     nn = zoo.ccnn(4, 4, 1, 1, PoolType.MAX)
-    C, vals = nn.create(random_source(24), only_compute=True)
+    C, vals = nn.create(random_source(24), only_compute=True, device="cpu")
     checked = 0
     for i in range(1, C.size):
         ly = C.layers[i]
@@ -55,7 +55,7 @@ def test_field_matmul_matches_python():
 
 def test_corrupted_witness_is_rejected():
     nn = zoo.singleConv(6, 1, 1, 3, 2, ConvType.NAIVE_FAST)
-    C, vals = nn.create(random_source(26))
+    C, vals = nn.create(random_source(26), device="cpu")
     bad = vals[1].clone()
     bad[3] = FR.const(12345, "cpu")
     p = Prover(C, [vals[0], bad])

@@ -62,7 +62,7 @@ def _prove(name, C, vals):
 
 def test_tiny_models_match_1chip_pins():
     for name, build in TINY.items():
-        C, vals = build().create(random_source(24))
+        C, vals = build().create(random_source(24), device="cpu")
         ok, digest, ps = _prove(name, C, vals)
         assert ok, name
         assert (digest, ps) == (PINNED_1CHIP[name]["digest"],
@@ -75,7 +75,7 @@ def test_jax_built_circuit_proves_to_the_same_digest():
     name = "sconv_muladd"
     Cj, vj = j_zoo.singleConv(6, 1, 1, 3, 2, JConvType.NAIVE).create(
         j_random_source(24))
-    C, vals = TINY[name]().create(random_source(24))
+    C, vals = TINY[name]().create(random_source(24), device="cpu")
     for a, b in zip(vj, vals):
         np.testing.assert_array_equal(limbs16_to_words(np.asarray(a)),
                                       b.numpy())
@@ -94,7 +94,7 @@ def test_dotprod_gate_path_matches_structural_path():
     takes the per-gate path (dotprod_p1_V0_gates); the transcript must
     not change."""
     name = "tiny_fc_fft"
-    C, vals = TINY[name]().create(random_source(24))
+    C, vals = TINY[name]().create(random_source(24), device="cpu")
     dp = [ly for ly in C.layers if ly.ty == LayerType.DOT_PROD]
     assert dp
     for ly in dp:

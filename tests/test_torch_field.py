@@ -67,15 +67,16 @@ def test_sum_and_dot_match_python():
 def test_conversions_and_signed_view_match_python():
     v = np.array([0, 1, -1, 2 ** 62, -(2 ** 62), 123456789012345, -5],
                  np.int64)
-    assert _u(FR.from_int64(v)) == [int(x) % P for x in v]
+    assert _u(FR.from_int64(v, "cpu")) == [int(x) % P for x in v]
     big = np.array([2 ** 300 + 5, -7, P + 3, 0], object)
-    W = FR.from_bigint(big)
+    W = FR.from_bigint(big, "cpu")
     assert _u(W) == [int(x) % P for x in big]
     assert list(FR.to_int_host(W)) == [int(x) % P for x in big]
-    assert list(FR.to_signed_host(FR.from_int64(v))) == [int(x) for x in v]
+    assert list(FR.to_signed_host(FR.from_int64(v, "cpu"))) == [
+        int(x) for x in v]
 
     s = np.array([0, 5, -5, 2 ** 40 + 3, -(2 ** 50)], np.int64)
-    neg, hi, lo = SIGNED_FR.to_hilo(FR.from_int64(s))
+    neg, hi, lo = SIGNED_FR.to_hilo(FR.from_int64(s, "cpu"))
     got = [(-1 if n else 1) * ((int(h) << 32) | int(l))
            for n, h, l in zip(neg.tolist(), hi.tolist(), lo.tolist())]
     assert got == [int(x) for x in s]

@@ -28,7 +28,7 @@ def test_beta_tables_match_jax_and_definition():
     rng = np.random.default_rng(11)
     r = _ints(rng, 4)
     init = 987654321
-    got = beta_table(r, init)
+    got = beta_table(r, init, "cpu")
     np.testing.assert_array_equal(got.numpy(), _w(j_beta(r, init)))
     vals = FR.unpack_mont_host(got.numpy())
     for i, v in enumerate(vals):
@@ -36,14 +36,15 @@ def test_beta_tables_match_jax_and_definition():
         for k, rk in enumerate(r):
             want = want * (rk if (i >> k) & 1 else 1 - rk) % FR_P
         assert v == want
-    assert beta_table([], 5).shape == (1, 8)
-    assert FR.unpack_mont_host(beta_table(r, 0).numpy()) == [0] * 16
+    assert beta_table([], 5, "cpu").shape == (1, 8)
+    assert FR.unpack_mont_host(beta_table(r, 0, "cpu").numpy()) == [0] * 16
 
     # the two-point table, with the second point absent (beta = 0)
     for beta in (0, 424242):
         rng = np.random.default_rng(12 + beta)
         r0, r1 = _ints(rng, 3), _ints(rng, 3)
-        got = beta_table_2pt(r0, r1 if beta else None, 31337, beta)
+        got = beta_table_2pt(r0, r1 if beta else None, 31337, beta,
+                             "cpu")
         want = j_beta_2pt(r0, r1 if beta else None, 31337, beta)
         np.testing.assert_array_equal(got.numpy(), _w(want))
 
@@ -53,7 +54,7 @@ def test_phi_table_matches_jax():
     for inverse in (False, True):
         rng = np.random.default_rng(13 + inverse)
         r = _ints(rng, n_bits)
-        got = phi_table(r, 777, n_bits, inverse)
+        got = phi_table(r, 777, n_bits, inverse, "cpu")
         np.testing.assert_array_equal(got.numpy(),
                                       _w(j_phi(r, 777, n_bits, inverse)))
 

@@ -27,7 +27,7 @@ def _two_mul_host(q_bit_size: int):
     return FR.pack_mont_host(Circuit.init(q_bit_size, 1).two_mul)
 
 
-def two_mul_table(device="cpu", q_bit_size: int = 220):
+def two_mul_table(device, q_bit_size: int = 220):
     """[2(q+1), 8] table of the +-2^k gate constants on `device`."""
     return torch.from_numpy(_two_mul_host(q_bit_size)).to(device)
 

@@ -10,6 +10,7 @@ import time
 
 import torch
 
+from .. import resolve_device
 from ..circuit import ceil_pow2_bit_length
 from ..gkr import Prover, Verifier, Tape
 from ..nn import TensorSource, csv_source, random_source
@@ -40,14 +41,14 @@ def base_arg_parser(desc):
                     help="skip the Hyrax polynomial commitment (required: "
                     "the commitment is not ported yet)")
     ap.add_argument("--cpu", action="store_true",
-                    help="run on the CPU (default: cuda when available)")
+                    help="run on the CPU (default: the first CUDA device; "
+                    "an error when there is none)")
     ap.add_argument("--log", action="store_true")
     return ap
 
 
 def finish_args(args):
-    args.device = "cpu" if args.cpu or not torch.cuda.is_available() \
-        else "cuda"
+    args.device = resolve_device("cpu" if args.cpu else None)
     if args.pic_cnt_kw is not None:
         args.pic_cnt = args.pic_cnt_kw
     if not args.synthetic and not args.input_file:
@@ -70,7 +71,7 @@ def run(nn, args, mo_info: str, psize: int, ksize: int):
     if not args.no_pcs:
         sys.exit("the Hyrax polynomial commitment is not ported to "
                  "zkcnn_tpu_torch yet: run with --no-pcs")
-    device = torch.device(args.device)
+    device = args.device
 
     t0 = time.time()
     C, vals = nn.create(make_source(args), device=device)

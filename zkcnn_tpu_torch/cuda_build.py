@@ -59,13 +59,14 @@ def load() -> ctypes.CDLL:
     """Build if needed and load the library, with argtypes declared."""
     lib = ctypes.CDLL(str(build()))
     P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.zk_threads.argtypes, lib.zk_threads.restype = [], I
     lib.zk_error_string.argtypes = [I]
     lib.zk_error_string.restype = ctypes.c_char_p
-    lib.zk_round_step.argtypes = [P, P, P, P, P, P, L, I, P, P]
-    lib.zk_round_step.restype = I
-    lib.zk_fold.argtypes = [P, P, L, I, P, P]
-    lib.zk_fold.restype = I
-    lib.zk_cubic_round_step.argtypes = [P, P, P, P, P, P, P, L, L, I, P, P]
-    lib.zk_cubic_round_step.restype = I
+    lib.zk_set_tuning.argtypes, lib.zk_set_tuning.restype = [L, L], None
+    lib.zk_ladder_scratch_bytes.argtypes = [L, L, I, I]
+    lib.zk_ladder_scratch_bytes.restype = L
+    N = ctypes.POINTER(I)
+    lib.zk_round_ladder.argtypes = [P, P, P, P, P, P, P, L, I, I, P, N]
+    lib.zk_round_ladder.restype = I
+    lib.zk_cubic_ladder.argtypes = [P, P, P, P, P, P, P, P, P, L, L, I, P, N]
+    lib.zk_cubic_ladder.restype = I
     return lib

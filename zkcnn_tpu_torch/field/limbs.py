@@ -122,10 +122,9 @@ class Field:
 
     def pack_mont_host(self, xs) -> np.ndarray:
         """[k] python ints -> [k, 8] Montgomery words."""
-        out = np.empty((len(xs), N_WORDS), np.int32)
-        for i, x in enumerate(xs):
-            out[i] = self.to_mont_host(x)
-        return out
+        raw = b"".join(((x % self.p) * self.R % self.p).to_bytes(
+            4 * N_WORDS, "little") for x in xs)
+        return np.frombuffer(raw, "<i4").reshape(len(xs), N_WORDS).copy()
 
     def unpack_mont_host(self, arr) -> list:
         arr = np.asarray(arr).reshape(-1, N_WORDS)
@@ -260,7 +259,7 @@ class Field:
         x = torch.from_numpy(np.ascontiguousarray(plain16.T)).to(device)
         return words(self.times_r(x))
 
-    def from_int64(self, v, device="cpu"):
+    def from_int64(self, v, device):
         """Signed int64 numpy array -> Montgomery words on `device`.
         Exact for |v| < 2^63; negative values map to p - |v|."""
         v = np.asarray(v, np.int64)
@@ -282,7 +281,7 @@ class Field:
         return self._plain_to_mont(plain, device).reshape(
             v.shape + (N_WORDS,))
 
-    def from_bigint(self, v, device="cpu"):
+    def from_bigint(self, v, device):
         """Object array of python ints (any size, any sign) -> Montgomery
         words on `device`; values are reduced mod p."""
         v = np.asarray(v, object)

@@ -1,49 +1,86 @@
-"""The two sumcheck round kernels: CUDA wrappers and plain versions.
+"""The sumcheck round kernels: CUDA wrappers and plain versions.
 
 Counterparts of the JAX package's Pallas kernels (the CUDA source
 `csrc/round_kernels.cu` says which kernel each replaces and why it is
-shaped as it is):
+shaped as it is).  A ladder runs R rounds at R challenges known
+beforehand, with nothing returning to the host in between:
 
-  * `round_step(A, V, r) -> (dots [4, 8], A', V')`: one quadratic
-    sumcheck round.  dots[2x + y] = sum_i mont(A[2i+x], V[2i+y]), the
-    value `FR.dot_mont` gives, and X'_i = (1-r) X[2i] + r X[2i+1].
-  * `fold(X, r) -> X'`: the same kernel with the dots compiled out.
-  * `cubic_round_step(m, V0, V1, r) -> (coeffs [4, 8], V0', V1')`: one
-    DOT_PROD phase-1 round (m is indexed modulo its row count; fold m
-    itself with `fold`).
+  * `round_ladder(A, V, rs) -> (dots [R, 4, 8], A_R, V_R)`: R quadratic
+    sumcheck rounds.  Row j of dots is
+    dots[j, 2x + y] = sum_i mont(A_j[2i+x], V_j[2i+y]), the value
+    `FR.dot_mont` gives on the operands of round j, and each round folds
+    X'_i = (1-r) X[2i] + r X[2i+1].
+  * `fold_ladder(X, rs) -> X_R`: the same kernels with the dots compiled
+    out.
+  * `cubic_ladder(m, V0, V1, rs) -> (coeffs [R, 4, 8], m_R, V0_R,
+    V1_R)`: R DOT_PROD phase-1 rounds (m is indexed modulo its row
+    count and folds with the operands).
+  * `round_step`, `fold`, `cubic_round_step`: the R = 1 cases of the
+    same kernels, for a caller that learns each challenge only after
+    the round before it.  `cubic_round_step` returns no folded m (fold
+    it with `fold`, or take `cubic_ladder`).
 
-`r` is a host int (the verifier's challenge).  A wrapper runs its
-plain PyTorch version for a tensor on the CPU and launches the CUDA
-kernel for a tensor on a CUDA device: there is no fallback from one to
-the other.  Sizes go down to one pair; every output is a canonical
-residue, equal bit for bit to the JAX package.  `LAUNCHES` counts the
-kernel launches of each wrapper and `SHAPES` records the operand row
-counts they launched at ((m,) or (K, M)).
+Challenges are host ints (the verifier's).  A wrapper runs its plain
+PyTorch version for a tensor on the CPU and launches the CUDA kernels
+for a tensor on a CUDA device: there is no fallback from one to the
+other.  Sizes go down to one pair; every output is a canonical residue,
+equal bit for bit to the JAX package.
+
+Counts, all set to 0 by `reset_launches`: `LAUNCHES` is the number of
+calls of each wrapper that launched, `KERNEL_LAUNCHES` the device
+kernels those calls launched, and `SHAPES` the shapes they launched at
+((rows, R), or (K, M, R) for the cubic ones).
 """
 
 import ctypes
-import math
 
-import numpy as np
 import torch
 
 from .limbs import FR, N_WORDS
 
-LAUNCHES = {"round_step": 0, "fold": 0, "cubic_round_step": 0}
-SHAPES = {k: set() for k in LAUNCHES}
-MAX_BLOCKS = 1024          # per-block partials stay <= 128 KiB
+NAMES = ("round_step", "fold", "cubic_round_step",
+         "round_ladder", "fold_ladder", "cubic_ladder")
+LAUNCHES = {k: 0 for k in NAMES}
+KERNEL_LAUNCHES = {k: 0 for k in NAMES}
+SHAPES = {k: set() for k in NAMES}
+
+# How a ladder's rounds are dealt to the kernels (csrc/round_kernels.cu);
+# `set_tuning` changes them.  The values are the best measured on an
+# H100 (tools/h100_round_bench.py).
+#   tail_rows: a round on more rows is one launch over the whole card; the
+#     rounds from this many rows down run in one block, in shared memory,
+#     as one launch.  At most 2^12 (2^11 for the three operands of a cubic
+#     ladder, 144 KiB of the 227 KiB a block may have).
+#   lazy_rows: from this many rows on a wide round's dots use lazy
+#     reduction (0: never).
+TUNING = {"tail_rows": 1 << 8, "lazy_rows": 1 << 18}
 
 _LIB = None
 
 
+def set_tuning(**kw):
+    """Changes entries of TUNING, for this process."""
+    unknown = set(kw) - set(TUNING)
+    if unknown:
+        raise ValueError(f"set_tuning: unknown {sorted(unknown)}")
+    TUNING.update(kw)
+    if _LIB is not None:
+        _push_tuning()
+
+
+def _push_tuning():
+    _LIB.zk_set_tuning(TUNING["tail_rows"], TUNING["lazy_rows"])
+
+
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for k in NAMES:
+        LAUNCHES[k] = KERNEL_LAUNCHES[k] = 0
         SHAPES[k].clear()
 
 
-def _count(name: str, shape):
+def _count(name: str, shape, kernels: int):
     LAUNCHES[name] += 1
+    KERNEL_LAUNCHES[name] += kernels
     SHAPES[name].add(shape)
 
 
@@ -52,6 +89,7 @@ def _lib():
     if _LIB is None:
         from ..cuda_build import load
         _LIB = load()
+        _push_tuning()
     return _LIB
 
 
@@ -100,11 +138,38 @@ def cubic_round_step_plain(m, V0, V1, r: int):
     return cubic_terms_plain(m, V1, V0), fold_plain(V0, r), fold_plain(V1, r)
 
 
+def round_ladder_plain(A, V, rs):
+    dots = []
+    for r in rs:
+        d, A, V = round_step_plain(A, V, r)
+        dots.append(d)
+    return torch.stack(dots), A, V
+
+
+def fold_ladder_plain(X, rs):
+    for r in rs:
+        X = fold_plain(X, r)
+    return X
+
+
+def cubic_ladder_plain(m, V0, V1, rs):
+    coeffs = []
+    for r in rs:
+        c, V0, V1 = cubic_round_step_plain(m, V0, V1, r)
+        m = fold_plain(m, r)
+        coeffs.append(c)
+    return torch.stack(coeffs), m, V0, V1
+
+
 # ---------------------------------------------------------------------
 # CUDA wrappers
 
 
-def _check(name, *xs):
+def _check(name, R, *xs):
+    """Validates the operands of R rounds; True when they lie on a CUDA
+    device."""
+    if R < 1:
+        raise ValueError(f"{name}: needs at least one round")
     for x in xs:
         if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != N_WORDS:
             raise ValueError(f"{name}: expected [rows, 8] int32 field "
@@ -113,17 +178,33 @@ def _check(name, *xs):
             raise ValueError(f"{name}: operand must be contiguous")
         if x.device != xs[0].device:
             raise ValueError(f"{name}: operands on different devices")
-        if x.shape[0] < 2 or x.shape[0] % 2:
-            raise ValueError(f"{name}: row count must be even and >= 2, "
-                             f"got {x.shape[0]}")
+        if x.shape[0] < (1 << R) or x.shape[0] % (1 << R):
+            raise ValueError(f"{name}: the row count must be even and >= 2 "
+                             f"in each of {R} round(s), a positive multiple "
+                             f"of {1 << R}; got {x.shape[0]}")
     dev = xs[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev.type == "cuda"
 
 
-def _blocks(npairs: int, threads: int) -> int:
-    return max(1, min(MAX_BLOCKS, math.ceil(npairs / threads)))
+def _check_quad(name, R, A, V):
+    on_cuda = _check(name, R, A, V)
+    if A.shape != V.shape:
+        raise ValueError(f"{name}: A {tuple(A.shape)} and V "
+                         f"{tuple(V.shape)} differ")
+    return on_cuda
+
+
+def _check_cubic(name, R, m, V0, V1):
+    on_cuda = _check(name, R, m, V0, V1)
+    if V0.shape != V1.shape:
+        raise ValueError(f"{name}: V0 {tuple(V0.shape)} and V1 "
+                         f"{tuple(V1.shape)} differ")
+    M, K = m.shape[0], V0.shape[0]
+    if M > K or K % M:
+        raise ValueError(f"{name}: need M | K and M <= K; got M={M}, K={K}")
+    return on_cuda
 
 
 def _launch(fn, *args):
@@ -133,74 +214,109 @@ def _launch(fn, *args):
                            + _lib().zk_error_string(rc).decode())
 
 
-def _r8(r: int):
-    return (ctypes.c_uint32 * N_WORDS)(
-        *FR.to_mont_host(r).view(np.uint32).tolist())
+def _rs_host(rs):
+    """The challenges as one [R, 8] Montgomery array (one conversion) and
+    its address; the C entries copy them into the kernels' parameters."""
+    arr = FR.pack_mont_host(rs)
+    return arr, arr.ctypes.data
 
 
 def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _empty(rows: int, dev):
-    return torch.empty((rows, N_WORDS), dtype=torch.int32, device=dev)
+def _empty(dev, *shape):
+    return torch.empty(shape + (N_WORDS,), dtype=torch.int32, device=dev)
+
+
+def _scratch(lib, dev, rows, m_rows, n_ops, R):
+    """The ladder's device scratch (None when it is one tail launch) and
+    its address."""
+    nbytes = lib.zk_ladder_scratch_bytes(rows, m_rows, n_ops, R)
+    if not nbytes:
+        return None, None
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    return buf, buf.data_ptr()
+
+
+def _quad_ladder(name, A, V, rs):
+    """R rounds on (A, V), or R folds of A alone when V is None."""
+    R, dev, rows = len(rs), A.device, A.shape[0]
+    lib = _lib()
+    with_dots = V is not None
+    out = _empty(dev, 1 + with_dots, rows >> R)
+    dots = _empty(dev, R, 4) if with_dots else None
+    rs_h, rs_ptr = _rs_host(rs)
+    scratch, scratch_ptr = _scratch(lib, dev, rows, 0, 1 + with_dots, R)
+    n = ctypes.c_int(0)
+    _launch(lib.zk_round_ladder, A.data_ptr(),
+            V.data_ptr() if with_dots else None, out[0].data_ptr(),
+            out[1].data_ptr() if with_dots else None,
+            dots.data_ptr() if with_dots else None, rs_ptr,
+            scratch_ptr, rows, R, int(with_dots), _stream(dev),
+            ctypes.byref(n))
+    _count(name, (rows, R), n.value)
+    return dots, out[0], (out[1] if with_dots else None)
+
+
+def _cubic_ladder(name, m, V0, V1, rs):
+    R, dev = len(rs), m.device
+    M, K = m.shape[0], V0.shape[0]
+    lib = _lib()
+    Vout = _empty(dev, 2, K >> R)
+    m_out = _empty(dev, M >> R)
+    coeffs = _empty(dev, R, 4)
+    rs_h, rs_ptr = _rs_host(rs)
+    scratch, scratch_ptr = _scratch(lib, dev, K, M, 3, R)
+    n = ctypes.c_int(0)
+    _launch(lib.zk_cubic_ladder, m.data_ptr(), V0.data_ptr(), V1.data_ptr(),
+            m_out.data_ptr(), Vout[0].data_ptr(), Vout[1].data_ptr(),
+            coeffs.data_ptr(), rs_ptr, scratch_ptr, K, M, R, _stream(dev),
+            ctypes.byref(n))
+    _count(name, (K, M, R), n.value)
+    return coeffs, m_out, Vout[0], Vout[1]
+
+
+def round_ladder(A, V, rs):
+    """R = len(rs) quadratic rounds: (dots [R, 4, 8], A_R, V_R)."""
+    if not _check_quad("round_ladder", len(rs), A, V):
+        return round_ladder_plain(A, V, rs)
+    return _quad_ladder("round_ladder", A, V, rs)
+
+
+def fold_ladder(X, rs):
+    """R = len(rs) folds alone: [2^R m, 8] -> [m, 8]."""
+    if not _check("fold_ladder", len(rs), X):
+        return fold_ladder_plain(X, rs)
+    return _quad_ladder("fold_ladder", X, None, rs)[1]
+
+
+def cubic_ladder(m, V0, V1, rs):
+    """R = len(rs) DOT_PROD phase-1 rounds:
+    (coeffs [R, 4, 8], m_R, V0_R, V1_R)."""
+    if not _check_cubic("cubic_ladder", len(rs), m, V0, V1):
+        return cubic_ladder_plain(m, V0, V1, rs)
+    return _cubic_ladder("cubic_ladder", m, V0, V1, rs)
 
 
 def round_step(A, V, r: int):
     """One quadratic sumcheck round: (dots [4, 8], A', V')."""
-    on_cuda = _check("round_step", A, V)
-    if A.shape != V.shape:
-        raise ValueError(f"round_step: A {tuple(A.shape)} and V "
-                         f"{tuple(V.shape)} differ")
-    if not on_cuda:
+    if not _check_quad("round_step", 1, A, V):
         return round_step_plain(A, V, r)
-    lib, dev = _lib(), A.device
-    npairs = A.shape[0] // 2
-    nb = _blocks(npairs, lib.zk_threads())
-    A2, V2 = _empty(npairs, dev), _empty(npairs, dev)
-    partials = torch.empty((nb, 4, N_WORDS), dtype=torch.int32, device=dev)
-    dots = _empty(4, dev)
-    _launch(lib.zk_round_step, A.data_ptr(), V.data_ptr(), A2.data_ptr(),
-            V2.data_ptr(), partials.data_ptr(), dots.data_ptr(), npairs, nb,
-            _r8(r), _stream(dev))
-    _count("round_step", (A.shape[0],))
-    return dots, A2, V2
+    dots, A2, V2 = _quad_ladder("round_step", A, V, [r])
+    return dots[0], A2, V2
 
 
 def fold(X, r: int):
     """The fold alone: [2m, 8] -> [m, 8]."""
-    if not _check("fold", X):
+    if not _check("fold", 1, X):
         return fold_plain(X, r)
-    lib, dev = _lib(), X.device
-    npairs = X.shape[0] // 2
-    X2 = _empty(npairs, dev)
-    _launch(lib.zk_fold, X.data_ptr(), X2.data_ptr(), npairs,
-            _blocks(npairs, lib.zk_threads()), _r8(r), _stream(dev))
-    _count("fold", (X.shape[0],))
-    return X2
+    return _quad_ladder("fold", X, None, [r])[1]
 
 
 def cubic_round_step(m, V0, V1, r: int):
     """One DOT_PROD phase-1 round: (coeffs [4, 8], V0', V1')."""
-    on_cuda = _check("cubic_round_step", m, V0, V1)
-    if V0.shape != V1.shape:
-        raise ValueError(f"cubic_round_step: V0 {tuple(V0.shape)} and V1 "
-                         f"{tuple(V1.shape)} differ")
-    M, K = m.shape[0], V0.shape[0]
-    if M > K or (K // 2) % (M // 2):
-        raise ValueError(f"cubic_round_step: need M/2 | K/2 and M <= K; "
-                         f"got M={M}, K={K}")
-    if not on_cuda:
+    if not _check_cubic("cubic_round_step", 1, m, V0, V1):
         return cubic_round_step_plain(m, V0, V1, r)
-    lib, dev = _lib(), m.device
-    npairs = K // 2
-    nb = _blocks(npairs, lib.zk_threads())
-    V0o, V1o = _empty(npairs, dev), _empty(npairs, dev)
-    partials = torch.empty((nb, 4, N_WORDS), dtype=torch.int32, device=dev)
-    coeffs = _empty(4, dev)
-    _launch(lib.zk_cubic_round_step, m.data_ptr(), V0.data_ptr(),
-            V1.data_ptr(), V0o.data_ptr(), V1o.data_ptr(),
-            partials.data_ptr(), coeffs.data_ptr(), npairs, M // 2, nb,
-            _r8(r), _stream(dev))
-    _count("cubic_round_step", (K, M))
-    return coeffs, V0o, V1o
+    coeffs, _, V0o, V1o = _cubic_ladder("cubic_round_step", m, V0, V1, [r])
+    return coeffs[0], V0o, V1o

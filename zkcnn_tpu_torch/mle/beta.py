@@ -22,7 +22,7 @@ from ..field import FR, root_of_unity
 from ..field.params import FR_P
 
 
-def beta_table(r, init=1, device="cpu"):
+def beta_table(r, init, device):
     """beta[i] = init * prod_k (r_k if bit_k(i) else 1-r_k), i < 2^l."""
     ell = len(r)
     if init % FR_P == 0:
@@ -35,7 +35,7 @@ def beta_table(r, init=1, device="cpu"):
     return B
 
 
-def beta_table_2pt(r0, r1, alpha, beta, device="cpu"):
+def beta_table_2pt(r0, r1, alpha, beta, device):
     """alpha-scaled eq at r0 plus beta-scaled eq at r1 (same length).
 
     Mirrors the two-point initBetaTable overload (src/utils.cpp:148-165):
@@ -67,7 +67,7 @@ def _omega_powers(n_bits: int, inverse: bool):
     return FR.pack_mont_host(pows)
 
 
-def phi_table(r, scale: int, n_bits: int, inverse: bool, device="cpu"):
+def phi_table(r, scale: int, n_bits: int, inverse: bool, device):
     """Closed-form FFT wiring predicate table (reference phiGInit).
 
     Forward (FFT layer): table over u in [0, 2^(n-1)) with

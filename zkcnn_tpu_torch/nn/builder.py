@@ -40,6 +40,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..field import FR
 from ..field.params import FR_P
 from ..field.ops import SIGNED_FR
@@ -912,12 +913,13 @@ class NeuralNetwork:
     # ------------------------------------------------------------------
 
     def create(self, source: TensorSource, only_compute: bool = False,
-               device="cpu"):
+               device=None):
         """Reference neuralNetwork::create (src/neuralNetwork.cpp:60-142).
-        Field tensors are built on `device`."""
+        Field tensors are built on `device`: the first CUDA device
+        unless another is given."""
         assert len(self.pool) >= len(self.conv_section) - 1
         self.source = source
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._init_param()
         C = Circuit.init(self.Q_BIT_SIZE, self.SIZE)
         self.C = C

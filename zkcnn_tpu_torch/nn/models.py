@@ -10,6 +10,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from .. import resolve_device
 from .builder import NeuralNetwork
 from .params import ConvType, PoolType, ConvKernel, FconKernel, PoolKernel
 
@@ -190,12 +191,11 @@ class singleConv(NeuralNetwork):
         self.total_in_size = pos
         self.SIZE = 1 + conv_layer_cnt
 
-    def create(self, source, only_compute: bool = False, device="cpu"):
+    def create(self, source, only_compute: bool = False, device=None):
         """createConv (reference src/models.cpp:208-258): conv stages
         only; FFT path has no ADD_BIAS."""
-        import torch
         self.source = source
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._init_param()
         from ..circuit import Circuit
         C = Circuit.init(self.Q_BIT_SIZE, self.SIZE)
