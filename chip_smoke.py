@@ -11,15 +11,16 @@ Phases; any failure raises and the script exits non-zero:
   3. each kernel entry (the one-round steps and the multi-round ladders)
      against its plain PyTorch version on the card at edge sizes: 2, 4,
      1554 (folded while the row count is even), 2^12 and 2^18 rows with
-     as many rounds as they allow, so that wide rounds, the hand-over to
-     the one-block tail and tail-only ladders are covered, 2^21 rows,
-     rows of p - 1, and the tunings that send other sizes to each kernel
-     (lazily reduced dots or not, all rounds wide, the longest tail):
-     exact;
-  4. the three tiny models proven and verified on the card, on the
-     ladder path and on the per-round path (Prover(ladders=False), with
-     the launch counts reset before and read after): transcript digest
-     and proof size equal to their 1-device pins on both;
+     as many rounds as they allow, so that wide rounds with lazily
+     reduced dots (from 2^18 rows) and without, the hand-over to the
+     one-block tail and tail-only ladders are covered, 2^21 rows, and
+     rows of p - 1: exact;
+  4. the three tiny models proven and verified on the card: transcript
+     digest and proof size equal to their 1-device pins; then the
+     per-round engines (PhaseEngine.step, DotProdPhase1.step) driven on
+     card tensors at the shapes of LeNet's largest phases, with the
+     launch counts reset before and read after: every round message
+     equal to run_all's;
   5. LeNet5, pic_cnt=1, through the port's demo_lenet entry
      (--synthetic --seed 17 --no-pcs) on the card, with the kernel launch
      counts reset just before and read just after: it must verify, with
@@ -28,8 +29,9 @@ Phases; any failure raises and the script exits non-zero:
   6. each entry against its plain version at every shape its run
      launched it at (exact), timed with CUDA events, with the least time
      the card could take for the same work beside it;
-  7. one JSON line of kernel results, the nvidia-smi name/power line, and
-     the final JSON status line.
+  7. one JSON line of kernel results (each entry's launches, shape and
+     times belong to the run its `run` key names), the nvidia-smi
+     name/power line, and the final JSON status line.
 """
 
 import json
@@ -80,7 +82,18 @@ P_WORDS = [0x00000001, 0xFFFFFFFF, 0xFFFE5BFE, 0x53BDA402,
 MEM_BYTES_S = 3.35e12
 INT32_MULS_S = 16.75e12
 ROW_BYTES = 32
-PRODUCT_MULS = 128      # 32x32->64 multiplies of one CIOS Montgomery product
+# 32x32->64 multiplies: a full Montgomery product (8x8 for the product,
+# 8x8 for its reduction) and a product that is summed unreduced (a dot's;
+# the one reduction of the whole sum is not counted)
+FULL_MULS = 128
+DOT_MULS = 64
+QUAD_PAIR_MULS = 4 * DOT_MULS + 2 * FULL_MULS     # four dots, two folds
+# per pair of V: e0, e1 (two products), e2; six table dots; two folds
+CUBIC_PAIR_MULS = 4 * FULL_MULS + 6 * DOT_MULS + 2 * FULL_MULS
+FOLD_PAIR_MULS = FULL_MULS
+# the runs that the `launches`, shapes and times of an entry come from
+STEP_RUN = "per-round engines at the shapes of LeNet's largest phases"
+LENET_RUN = "lenet"
 
 
 def say(msg):
@@ -139,23 +152,25 @@ def rounds_of(shape) -> int:
 def bound(name: str, shape):
     """(bound_ms, bound_by): the larger of the bytes the function must
     move (inputs read once, outputs written once) over the memory rate
-    and its 32-bit multiplies (full products) over the integer rate."""
+    and the 32-bit multiplies it needs (64 for a product that a dot sums
+    unreduced, 128 for a fold's or a cubic term's) over the integer
+    rate."""
     R = rounds_of(shape)
     if "cubic" in name:
         K, M, _ = shape
         rows_in, rows_out = 2 * K + M + R, 2 * (K >> R) + (M >> R) + 4 * R
-        products = sum(12 * (K >> (j + 1)) + (M >> (j + 1))
-                       for j in range(R))
+        muls = sum(CUBIC_PAIR_MULS * (K >> (j + 1))
+                   + FOLD_PAIR_MULS * (M >> (j + 1)) for j in range(R))
     elif "fold" in name:
         rows, _ = shape
         rows_in, rows_out = rows + R, rows >> R
-        products = sum(rows >> (j + 1) for j in range(R))
+        muls = sum(FOLD_PAIR_MULS * (rows >> (j + 1)) for j in range(R))
     else:
         rows, _ = shape
         rows_in, rows_out = 2 * rows + R, 2 * (rows >> R) + 4 * R
-        products = sum(6 * (rows >> (j + 1)) for j in range(R))
+        muls = sum(QUAD_PAIR_MULS * (rows >> (j + 1)) for j in range(R))
     by_bytes = (rows_in + rows_out) * ROW_BYTES / MEM_BYTES_S * 1e3
-    by_ops = products * PRODUCT_MULS / INT32_MULS_S * 1e3
+    by_ops = muls / INT32_MULS_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -232,6 +247,28 @@ def tiny_models(zoo, NeuralNetwork, P):
     ]
 
 
+def per_round_phases(torch, engine, how):
+    """A quadratic phase (sides of 2^18 and 2^12 rows, a nonzero add_term,
+    one round past the longer side) and a DOT_PROD phase 1 ((K, M) =
+    (2^16, 2^9)) on card tensors made from a fixed seed, run by a loop of
+    `step` or by `run_all`; returns both lists of round messages."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    rng = random.Random(24)
+    sides = [engine.Side(rand_fe(torch, 1 << nb, gen),
+                         rand_fe(torch, 1 << nb, gen), nb) for nb in (18, 12)]
+    quad = engine.PhaseEngine(sides, add_term=rng.getrandbits(254))
+    cubic = engine.DotProdPhase1(rand_fe(torch, 1 << 9, gen),
+                                 rand_fe(torch, 1 << 16, gen),
+                                 rand_fe(torch, 1 << 16, gen), 9, 16)
+    out = []
+    for phase, R in ((quad, 19), (cubic, 16)):
+        rs = [rng.getrandbits(254) for _ in range(R)]
+        out.append([phase.step(r) for r in rs] if how == "step"
+                   else phase.run_all(rs))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -272,59 +309,52 @@ def main():
                 worst[name] = max(worst[name], err)
         say(f"edge sizes exact (tolerance 0; random rows and rows of "
             f"p - 1): {name} at {shapes}")
-    # the kernels that the default tuning gives other sizes: lazy dots
-    # in every wide round and in none, every round wide, the longest tail
-    keep = dict(rk.TUNING)
-    for tuning in (dict(lazy_rows=1), dict(lazy_rows=0), dict(tail_rows=1),
-                   dict(tail_rows=1 << 12)):
-        rk.set_tuning(**tuning)
-        for name, shape in (("round_ladder", (1 << 18, 18)),
-                            ("round_ladder", (1 << 21, 2)),
-                            ("cubic_ladder", (1 << 18, 1 << 11, 11)),
-                            ("cubic_ladder", (1 << 21, 1 << 11, 2))):
-            for fill in (rand_fe, pm1_fe):
-                err, _, _ = compare(torch, rk, name, shape, gen, rng, fill)
-                worst[name] = max(worst[name], err)
-        rk.set_tuning(**keep)
-        say(f"exact under tuning {tuning}: both ladders at 2^18 and 2^21 "
-            f"rows")
 
     from zkcnn_tpu_torch.nn import random_source, NeuralNetwork
     from zkcnn_tpu_torch.nn import models as zoo
     from zkcnn_tpu_torch.nn import params as P
     from zkcnn_tpu_torch.gkr import Prover, Verifier, Tape
 
-    # 4. tiny models on the card: the ladder path, then the per-round
-    # path, whose counts cover exactly its three proofs
-    for ladders in (True, False):
-        if not ladders:
-            rk.reset_launches()
-        for name, build in tiny_models(zoo, NeuralNetwork, P):
-            nn = build()
-            C, vals = nn.create(random_source(24))   # default: the card
-            p = Prover(C, vals, ladders=ladders)
-            tape = Tape(b"dryrun-" + name.encode())
-            bl = C.layers[0].bit_length
-            tape.fields(1 << (bl - (bl >> 1)))   # the PCS setup's draws
-            v = Verifier(p, C, tape)
-            if not v.verify():
-                raise AssertionError(f"{name}: verification failed on cuda")
-            pin = PINNED_1CHIP[name]
-            if (v.transcript_digest, p.proof_size) != (pin["digest"],
-                                                       pin["proof_size"]):
-                raise AssertionError(
-                    f"{name}: digest {v.transcript_digest} / proof size "
-                    f"{p.proof_size} differ from the pin {pin}")
-            say(f"tiny model {name} ({'ladders' if ladders else 'per round'}"
-                f"): verified, digest and proof size {p.proof_size} equal "
-                f"PINNED_1CHIP")
+    # 4. tiny models on the card
+    for name, build in tiny_models(zoo, NeuralNetwork, P):
+        nn = build()
+        C, vals = nn.create(random_source(24))   # default: the card
+        p = Prover(C, vals)
+        tape = Tape(b"dryrun-" + name.encode())
+        bl = C.layers[0].bit_length
+        tape.fields(1 << (bl - (bl >> 1)))   # the PCS setup's draws
+        v = Verifier(p, C, tape)
+        if not v.verify():
+            raise AssertionError(f"{name}: verification failed on cuda")
+        pin = PINNED_1CHIP[name]
+        if (v.transcript_digest, p.proof_size) != (pin["digest"],
+                                                   pin["proof_size"]):
+            raise AssertionError(
+                f"{name}: digest {v.transcript_digest} / proof size "
+                f"{p.proof_size} differ from the pin {pin}")
+        say(f"tiny model {name}: verified, digest and proof size "
+            f"{p.proof_size} equal PINNED_1CHIP")
+
+    # the per-round engines, whose counts cover exactly their two phases
+    rk.reset_launches()
+    step_polys = per_round_phases(torch, engine, "step")
     torch.cuda.synchronize()
     launches = {k: rk.LAUNCHES[k] for k in STEPS}
     shapes = {k: sorted(rk.SHAPES[k]) for k in STEPS}
-    say(f"per-round path launches (three tiny proofs): {launches}")
+    ladder_ran = {k: rk.LAUNCHES[k] for k in STEPS.values()}
+    say(f"per-round engines, wrapper calls that launched: {launches}")
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"the per-round path never launched {name}")
+            raise AssertionError(f"the per-round engines never launched "
+                                 f"{name}")
+    if any(ladder_ran.values()):
+        raise AssertionError(f"the per-round engines ran ladders: "
+                             f"{ladder_ran}")
+    if step_polys != per_round_phases(torch, engine, "run_all"):
+        raise AssertionError("a loop of step and run_all give different "
+                             "round messages")
+    say(f"per-round engines: {len(step_polys[0])} quadratic and "
+        f"{len(step_polys[1])} cubic round messages equal to run_all's")
 
     # 5. LeNet through the demo entry; counts cover exactly this run
     from zkcnn_tpu_torch.cli import demo_lenet
@@ -367,8 +397,7 @@ def main():
                              f"{lenet['round_ladder']} sides")
 
     # 6. every entry against its plain version at the shapes of its run,
-    # timed; a step is also timed at the first round of the largest
-    # LeNet ladder, the shape it had before the ladders took its rounds
+    # timed; the reported time is at the largest of them
     kernels = []
     for name in rk.NAMES:
         seen = shapes[name]
@@ -380,14 +409,13 @@ def main():
             times.append((shape, time_ms(torch, kern, 20)))
         for shape, ms in times:
             say(f"time {name} {shape}: kernel {ms:.4f} ms ({smi})")
-        if name in STEPS:
-            shape = max(shapes[STEPS[name]])[:-1] + (1,)
-        else:
-            shape = max(seen)
+        shape = max(seen)
+        run = STEP_RUN if name in STEPS else LENET_RUN
         e, kern, plain = compare(torch, rk, name, shape, gen, rng)
         ms, pms = time_ms(torch, kern, 20), time_ms(torch, plain, 3)
         b_ms, b_by = bound(name, shape)
-        say(f"reported time of {name}: the largest LeNet shape {shape}: "
+        say(f"reported time of {name}: the largest shape of its run "
+            f"({run}) {shape}: "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.6f} ms "
             f"by {b_by} ({smi})")
         kernels.append({"name": name, "route": "cuda", "source": SOURCE,
@@ -396,7 +424,7 @@ def main():
                         "max_abs_err": max(err, e), "ms": ms,
                         "plain_ms": pms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None,
-                        "shape": list(shape)})
+                        "shape": list(shape), "run": run})
     say("kernels exact (tolerance 0) at every shape of their runs")
 
     # what a ladder saves at LeNet's largest side: its rounds one by one,

@@ -181,19 +181,3 @@ def test_run_all_equals_loop_of_step_and_oracle():
         assert FR.unpack_mont_host(claim.numpy()) == V1_f
         assert FR.unpack_mont_host(v_u1.numpy()) == [V1_f[0] * m_f[0] % FR_P]
         assert FR.unpack_mont_host(e.V0.numpy()) == V0_f
-
-    # the same claim for a whole proof: each round run and fetched on
-    # its own (Prover(ladders=False)) gives the ladder path's transcript
-    from test_torch_e2e import TINY, PINNED_1CHIP
-    from zkcnn_tpu_torch.gkr import Prover, Verifier, Tape
-    from zkcnn_tpu_torch.nn import random_source
-    name = "tiny_fc_fft"
-    C, vals = TINY[name]().create(random_source(24), device="cpu")
-    p = Prover(C, vals, ladders=False)
-    tape = Tape(b"dryrun-" + name.encode())
-    bl = C.layers[0].bit_length
-    tape.fields(1 << (bl - (bl >> 1)))     # the PCS setup's draws
-    v = Verifier(p, C, tape)
-    assert v.verify()
-    assert (v.transcript_digest, p.proof_size) == (
-        PINNED_1CHIP[name]["digest"], PINNED_1CHIP[name]["proof_size"])

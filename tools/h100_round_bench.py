@@ -7,23 +7,12 @@ Needs a CUDA device and nvcc (it builds zkcnn_tpu_torch's kernels).  It
 prints one line per measurement and writes them all as JSON to --out
 (default .chip_scratch/h100_round_bench.json).  Sections:
 
-  tail    one ladder per tail threshold (2^6 .. 2^12 rows): the rounds on
-          more rows are wide launches, the rest one shared-memory block.
-          `ms` times the wrapper (host work included), `raw_ms` the C
-          entry alone on preallocated buffers (device time once the
-          device is the slower side);
-  rounds  one quadratic and one cubic round from 2^2 to 2^24 rows through
-          the C entry, as a wide launch and, up to 2^11 rows, as a
-          one-round tail launch: where the hand-over should lie;
-  lazy    one wide round from 2^14 to 2^24 rows with the dots reduced
-          lazily and with full CIOS products, in turns, quadratic and
-          cubic;
-  sizes   the one-round entries from 2^12 to 2^24 rows;
+  sizes   the one-round entries from 2^12 to 2^24 rows, each with the
+          least time the card could take (chip_smoke.bound);
   loop    LeNet's largest side (2^18 rows, 18 rounds): one ladder and one
           fetch against 18 one-round calls each fetched before the next;
-  proof   LeNet5 proofs in this process on one witness, with the rounds
-          as ladders and one by one (Prover(ladders=False)), in turns:
-          PT and the part of it spent in the round loops;
+  proof   LeNet5 proofs in this process on one witness: PT and the part
+          of it spent in the round loops;
   lenet   (with --parent, a checkout of the commit to compare with) the
           LeNet5 demo's PT from a warm-up run, then parent, change,
           change, parent twice over, each in a process of its own.
@@ -32,7 +21,6 @@ Every time is the mean of back-to-back calls between two CUDA events.
 """
 
 import argparse
-import ctypes
 import json
 import os
 import random
@@ -46,7 +34,7 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from chip_smoke import rand_fe, smi_line, time_ms  # noqa: E402
+from chip_smoke import bound, rand_fe, smi_line, time_ms  # noqa: E402
 from zkcnn_tpu_torch.field import round_kernels as rk  # noqa: E402
 
 RESULTS = []
@@ -55,45 +43,6 @@ RESULTS = []
 def record(section, **kw):
     RESULTS.append({"section": section, **kw})
     print(section, json.dumps(kw), flush=True)
-
-
-def raw_ladder(kind, rows, m_rows, R, rs_host, ops):
-    """A closure that calls the C entry of one ladder on preallocated
-    outputs and scratch (no Python wrapper work, no allocation), under
-    the tuning in force when it is made."""
-    lib, dev = rk._lib(), ops[0].device
-    n_ops = {"round": 2, "fold": 1, "cubic": 3}[kind]
-    nbytes = lib.zk_ladder_scratch_bytes(rows, m_rows, n_ops, R)
-    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=dev)
-    out = [torch.empty((max(x.shape[0] >> R, 1), 8), dtype=torch.int32,
-                       device=dev) for x in ops]
-    vals = torch.empty((R, 4, 8), dtype=torch.int32, device=dev)
-    n = ctypes.c_int(0)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    if kind == "cubic":
-        m, V0, V1 = ops
-
-        def call():
-            rc = lib.zk_cubic_ladder(
-                m.data_ptr(), V0.data_ptr(), V1.data_ptr(),
-                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                vals.data_ptr(), rs_host.ctypes.data, scratch.data_ptr(), rows,
-                m_rows, R, stream, ctypes.byref(n))
-            assert rc == 0, rc
-    else:
-        A = ops[0]
-        V = ops[1] if kind == "round" else None
-
-        def call():
-            rc = lib.zk_round_ladder(
-                A.data_ptr(), V.data_ptr() if V is not None else None,
-                out[0].data_ptr(),
-                out[1].data_ptr() if V is not None else None,
-                vals.data_ptr() if V is not None else None,
-                rs_host.ctypes.data, scratch.data_ptr(), rows, R,
-                int(V is not None), stream, ctypes.byref(n))
-            assert rc == 0, rc
-    return call, n
 
 
 def ladder_case(kind, rows, m_rows, R, gen, rng):
@@ -111,83 +60,6 @@ def ladder_case(kind, rows, m_rows, R, gen, rng):
     return ops, rs, wrapped
 
 
-def tail_sweep(gen, rng, smi):
-    cases = [("round", 1 << 18, 0, 18), ("round", 1 << 14, 0, 14),
-             ("round", 1 << 11, 0, 11), ("round", 1 << 8, 0, 8),
-             ("fold", 1 << 11, 0, 11), ("cubic", 1 << 16, 1 << 9, 9),
-             ("cubic", 1 << 11, 1 << 9, 9)]
-    keep = dict(rk.TUNING)
-    for kind, rows, m_rows, R in cases:
-        ops, rs, wrapped = ladder_case(kind, rows, m_rows, R, gen, rng)
-        rs_host = rk._rs_host(rs)[0]
-        for lg in range(6, 13):
-            if kind == "cubic" and lg > 11:
-                continue        # three operands of 2^12 rows do not fit
-            rk.set_tuning(tail_rows=1 << lg)
-            call, n = raw_ladder(kind, rows, m_rows, R, rs_host, ops)
-            raw = time_ms(torch, call, 50)
-            record("tail", kind=kind, rows=rows, m_rows=m_rows, R=R,
-                   tail_rows=1 << lg, launches=n.value, raw_ms=raw,
-                   ms=time_ms(torch, wrapped, 50), card=smi)
-    rk.set_tuning(**keep)
-
-
-def host_ms(fn, iters: int) -> float:
-    """Host time of one call: `iters` calls issued without waiting for
-    the device."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    ms = (time.perf_counter() - t0) / iters * 1e3
-    torch.cuda.synchronize()
-    return ms
-
-
-PATHS = {"tail": dict(tail_rows=1 << 12), "wide": dict(tail_rows=1)}
-
-
-def round_sweep(gen, rng, smi):
-    keep = dict(rk.TUNING)
-    for kind in ("round", "cubic"):
-        for lg in range(2, 25, 2):
-            rows = 1 << lg
-            m_rows = min(rows, 1 << 11) if kind == "cubic" else 0
-            ops, rs, _ = ladder_case(kind, rows, m_rows, 1, gen, rng)
-            rs_host = rk._rs_host(rs)[0]
-            out = {}
-            for path, tuning in PATHS.items():
-                if path == "tail" and rows > (1 << 11):
-                    continue
-                rk.set_tuning(lazy_rows=0, **tuning)
-                call, _ = raw_ladder(kind, rows, m_rows, 1, rs_host, ops)
-                iters = 100 if lg < 20 else 20
-                out[path + "_ms"] = time_ms(torch, call, iters)
-                out[path + "_host_ms"] = host_ms(call, iters)
-                rk.set_tuning(**keep)
-            record("rounds", kind=kind, rows=rows, card=smi, **out)
-            del ops
-
-
-def lazy_sweep(gen, rng, smi):
-    keep = dict(rk.TUNING)
-    for lg in range(14, 25, 2):
-        for kind, m_rows in (("round", 0), ("cubic", 1 << 11)):
-            rows = 1 << lg
-            ops, rs, _ = ladder_case(kind, rows, m_rows, 1, gen, rng)
-            rs_host = rk._rs_host(rs)[0]
-            times = {"lazy": [], "cios": []}
-            for mode in ("cios", "lazy", "lazy", "cios"):
-                rk.set_tuning(tail_rows=1,
-                              lazy_rows=1 if mode == "lazy" else 0)
-                call, _ = raw_ladder(kind, rows, m_rows, 1, rs_host, ops)
-                times[mode].append(time_ms(torch, call, 20))
-                rk.set_tuning(**keep)
-            record("lazy", kind=kind, rows=rows, m_rows=m_rows,
-                   lazy_ms=times["lazy"], cios_ms=times["cios"], card=smi)
-            del ops
-
-
 def size_sweep(gen, rng, smi):
     r = rng.getrandbits(254)
     for lg in (12, 16, 18, 20, 22, 24):
@@ -195,6 +67,10 @@ def size_sweep(gen, rng, smi):
         A, V = rand_fe(torch, rows, gen), rand_fe(torch, rows, gen)
         m = rand_fe(torch, 1 << 11, gen)
         record("sizes", rows=rows, card=smi,
+               round_step_bound=bound("round_step", (rows, 1)),
+               fold_bound=bound("fold", (rows, 1)),
+               cubic_round_step_bound=bound("cubic_round_step",
+                                            (rows, 1 << 11, 1)),
                round_step_ms=time_ms(torch, lambda: rk.round_step(A, V, r),
                                      20),
                fold_ms=time_ms(torch, lambda: rk.fold(A, r), 20),
@@ -232,25 +108,27 @@ def proof_sweep(gen, rng, smi):
     from zkcnn_tpu_torch.nn.params import PoolType
     nn = models.lenet(32, 32, 1, 1, PoolType.MAX)
     C, vals = nn.create(random_source(17))
-    modes = ["ladders", "per_round", "per_round", "ladders"]
-    for mode in ["warm-up"] + 2 * modes:
-        p = Prover(C, vals, ladders=mode != "per_round")
+    for run_no in range(5):
+        p = Prover(C, vals)
         spent = [0.0]
-        run = p._run_rounds
 
-        def timed(rs, run=run, spent=spent):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = run(rs)
-            spent[0] += time.perf_counter() - t0
-            return out
+        def timed(run, spent=spent):
+            def call(rs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run(rs)
+                spent[0] += time.perf_counter() - t0
+                return out
+            return call
 
-        p._run_rounds = timed
+        p.run_rounds_quad = timed(p.run_rounds_quad)
+        p.run_rounds_cubic = timed(p.run_rounds_cubic)
         rk.reset_launches()
         engine.FETCHES["rounds"] = 0
         v = Verifier(p, C, Tape(b"zkcnn-demo-17"))
         assert v.verify()
-        record("proof", mode=mode, PT=p.prove_time, rounds_s=spent[0],
+        record("proof", run="warm-up" if run_no == 0 else run_no,
+               PT=p.prove_time, rounds_s=spent[0],
                kernel_launches=sum(rk.KERNEL_LAUNCHES.values()),
                fetches=engine.FETCHES["rounds"], digest=v.transcript_digest,
                card=smi)
@@ -291,9 +169,8 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
     rng = random.Random(17)
-    sections = {"tail": tail_sweep, "rounds": round_sweep,
-                "lazy": lazy_sweep, "sizes": size_sweep,
-                "loop": loop_vs_ladder, "proof": proof_sweep}
+    sections = {"sizes": size_sweep, "loop": loop_vs_ladder,
+                "proof": proof_sweep}
     for name, fn in sections.items():
         if args.only is None or name in args.only:
             fn(gen, rng, smi)

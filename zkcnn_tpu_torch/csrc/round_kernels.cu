@@ -65,9 +65,10 @@
 //     shared buffers with one __syncthreads a round; the last round
 //     writes the result.  A ladder that starts under the threshold is
 //     one launch in all.  A block has one SM's throughput, so the
-//     threshold is low (2^8 rows measured best; up to 2^12 rows fit a
-//     block's 227 KB with the opt-in attribute);
-//   * lazy reduction of the dots from 2^18 rows (LAZY): a thread adds
+//     threshold is low: TAIL_ROWS = 2^8 rows measured best of 2^6..2^12
+//     (18 KiB of shared memory for the three operands of a cubic tail);
+//   * lazy reduction of the dots from LAZY_ROWS = 2^18 rows, below which
+//     it measured slower (LAZY): a thread adds
 //     the unreduced 512-bit products a*b (64 multiplies each) into a
 //     17-word accumulator and reduces once at the end (two Montgomery
 //     divisions and one product with R^2), instead of 128 multiplies a
@@ -90,14 +91,13 @@ constexpr int QUAD_THREADS = 384;  // a block of six roles (role_sweep)
 constexpr int ROLE_THREADS = 64;   // threads (two warps) of one role
 constexpr int CUBIC_THREADS = 256;  // a block of four cubic roles
 constexpr int CUBIC_TERMS = 3;      // the cubic roles that form a term
-constexpr int TAIL_ROUNDS = 12;    // most rounds of a tail: 2^12 rows
+constexpr int TAIL_ROWS = 1 << 8;  // rounds on at most this many rows: tail
+constexpr int TAIL_ROUNDS = 8;     // most rounds of a tail: log2(TAIL_ROWS)
+constexpr int LAZY_ROWS = 1 << 18;  // wide rounds from here up: lazy dots
 constexpr int NVAL = 4;            // dot / coefficient outputs per round
 constexpr int NACC = 2 * NW + 1;   // words of a lazy accumulator
 constexpr int LAZY_PAIRS = 8;      // least pairs per thread of a lazy round
 constexpr int MAX_BLOCKS = 1024;   // blocks of a wide launch: 128 KiB partials
-// dynamic shared memory above this needs the opt-in attribute (48 KiB
-// less the kernels' static shared memory)
-constexpr size_t SMEM_OPT_IN = 40 * 1024;
 
 // BLS12-381 Fr modulus, little-endian 32-bit words; -p^-1 mod 2^32; and
 // R^2 mod p (R = 2^256).
@@ -690,12 +690,6 @@ cubic_tail_kernel(const u32* M, const u32* V0, const u32* V1, u32* M_out,
 // ---------------------------------------------------------------------
 // host side
 
-// How a ladder's rounds are dealt to the kernels (zk_set_tuning).
-struct Tuning {
-  long long tail_rows = 1 << 8;    // rounds on at most this many rows: tail
-  long long lazy_rows = 1 << 18;   // wide rounds from: lazy dots (0: never)
-} g_tune;
-
 // Carves the scratch of one ladder; with base 0 it only measures.
 struct Bump {
   uintptr_t base;
@@ -709,13 +703,10 @@ struct Bump {
 };
 
 // The rounds of a ladder that run as wide launches: round j while its
-// operand has more than tail_rows rows, or more than fit a block's
-// shared memory (2^12 rows of two operands, 2^11 of three).
-int wide_rounds(long long rows, int R, int n_ops) {
-  long long tail = 1 << (n_ops == 3 ? TAIL_ROUNDS - 1 : TAIL_ROUNDS);
-  if (g_tune.tail_rows < tail) tail = g_tune.tail_rows;
+// operand has more than TAIL_ROWS rows.
+int wide_rounds(long long rows, int R) {
   int w = 0;
-  while (w < R && (rows >> w) > tail) ++w;
+  while (w < R && (rows >> w) > TAIL_ROWS) ++w;
   return w;
 }
 
@@ -732,9 +723,7 @@ Challenges to_challenges(const u32* rs, int rounds) {
   return c;
 }
 
-bool lazy_round(long long rows) {
-  return g_tune.lazy_rows > 0 && rows >= g_tune.lazy_rows;
-}
+bool lazy_round(long long rows) { return rows >= LAZY_ROWS; }
 
 // Blocks of a wide launch over npairs pairs, pairs_per_block a sweep; a
 // lazy round gives each thread at least LAZY_PAIRS pairs.
@@ -759,7 +748,7 @@ struct Scratch {
 
 Scratch carve(Bump& b, long long rows, long long m_rows, int n_ops, int R) {
   Scratch s;
-  s.wide = wide_rounds(rows, R, n_ops);
+  s.wide = wide_rounds(rows, R);
   if (s.wide == 0) return s;
   if (n_ops > 1) {
     s.tickets = b.take<unsigned>(s.wide);
@@ -775,13 +764,6 @@ Scratch carve(Bump& b, long long rows, long long m_rows, int n_ops, int R) {
     if (handed >= 2) s.op[o][1] = b.take<u32>((size_t)(n / 4) * NW);
   }
   return s;
-}
-
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  if (bytes <= SMEM_OPT_IN) return 0;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 // Round j of a quadratic ladder as a wide launch.
@@ -836,8 +818,6 @@ int quad_ladder(const u32* A, const u32* V, u32* A_out, u32* V_out,
     const int tr = (int)(rows >> sc.wide), rounds = R - sc.wide;
     const size_t smem = rounds == 1 ? 0 :
         (size_t)(DOTS ? 2 : 1) * (tr / 2 + tr / 4) * NW * sizeof(u32);
-    err = allow_smem(tail_kernel<DOTS>, smem);
-    if (err) return err;
     tail_kernel<DOTS><<<1, QUAD_THREADS, smem, s>>>(
         srcA, srcV, A_out, V_out,
         DOTS ? dots + (size_t)sc.wide * NVAL * NW : nullptr,
@@ -877,14 +857,6 @@ extern "C" {
 
 const char* zk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// Rounds on more than tail_rows rows (at most 2^12; 2^11 for a cubic
-// ladder) are wide launches, the rest of a ladder one tail launch; a wide
-// round on at least lazy_rows rows reduces its dots lazily (0: never).
-void zk_set_tuning(long long tail_rows, long long lazy_rows) {
-  g_tune.tail_rows = tail_rows;
-  g_tune.lazy_rows = lazy_rows;
 }
 
 // Bytes of scratch that a ladder of R rounds needs: n_ops operands of
@@ -958,8 +930,6 @@ int zk_cubic_ladder(const void* m, const void* V0, const void* V1,
     const int rounds = R - sc.wide;
     const size_t smem = rounds == 1 ? 0 :
         (size_t)(2 * (tr / 2 + tr / 4) + tm / 2 + tm / 4) * NW * sizeof(u32);
-    err = allow_smem(cubic_tail_kernel, smem);
-    if (err) return err;
     cubic_tail_kernel<<<1, CUBIC_THREADS, smem, s>>>(
         srcM, src0, src1, static_cast<u32*>(m_out),
         static_cast<u32*>(V0_out), static_cast<u32*>(V1_out),

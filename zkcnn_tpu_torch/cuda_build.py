@@ -61,7 +61,6 @@ def load() -> ctypes.CDLL:
     P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.zk_error_string.argtypes = [I]
     lib.zk_error_string.restype = ctypes.c_char_p
-    lib.zk_set_tuning.argtypes, lib.zk_set_tuning.restype = [L, L], None
     lib.zk_ladder_scratch_bytes.argtypes = [L, L, I, I]
     lib.zk_ladder_scratch_bytes.restype = L
     N = ctypes.POINTER(I)

@@ -44,32 +44,7 @@ LAUNCHES = {k: 0 for k in NAMES}
 KERNEL_LAUNCHES = {k: 0 for k in NAMES}
 SHAPES = {k: set() for k in NAMES}
 
-# How a ladder's rounds are dealt to the kernels (csrc/round_kernels.cu);
-# `set_tuning` changes them.  The values are the best measured on an
-# H100 (tools/h100_round_bench.py).
-#   tail_rows: a round on more rows is one launch over the whole card; the
-#     rounds from this many rows down run in one block, in shared memory,
-#     as one launch.  At most 2^12 (2^11 for the three operands of a cubic
-#     ladder, 144 KiB of the 227 KiB a block may have).
-#   lazy_rows: from this many rows on a wide round's dots use lazy
-#     reduction (0: never).
-TUNING = {"tail_rows": 1 << 8, "lazy_rows": 1 << 18}
-
 _LIB = None
-
-
-def set_tuning(**kw):
-    """Changes entries of TUNING, for this process."""
-    unknown = set(kw) - set(TUNING)
-    if unknown:
-        raise ValueError(f"set_tuning: unknown {sorted(unknown)}")
-    TUNING.update(kw)
-    if _LIB is not None:
-        _push_tuning()
-
-
-def _push_tuning():
-    _LIB.zk_set_tuning(TUNING["tail_rows"], TUNING["lazy_rows"])
 
 
 def reset_launches():
@@ -89,7 +64,6 @@ def _lib():
     if _LIB is None:
         from ..cuda_build import load
         _LIB = load()
-        _push_tuning()
     return _LIB
 
 

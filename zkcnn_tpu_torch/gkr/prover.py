@@ -40,14 +40,8 @@ F_BYTE_SIZE = 32
 
 
 class Prover:
-    def __init__(self, C: Circuit, vals: List, own_vals: bool = False,
-                 ladders: bool = True):
+    def __init__(self, C: Circuit, vals: List, own_vals: bool = False):
         self.C = C
-        # ladders: a phase's rounds run as one device-side ladder per
-        # side (every challenge is known beforehand); False runs and
-        # fetches each round on its own, as a verifier that draws each
-        # challenge from the round before it needs.  Same messages.
-        self.ladders = ladders
         self.val = list(vals)
         self.device = vals[0].device
         # own_vals: the caller relinquishes the layer values, letting the
@@ -255,15 +249,10 @@ class Prover:
     # ------------------------------------------------------------------
     # rounds
 
-    def _run_rounds(self, rs: List[int]):
-        if self.ladders:
-            return self.phase.run_all(rs)
-        return [self.phase.step(r) for r in rs]
-
     def run_rounds_quad(self, rs: List[int]):
         """All round polys of the current quadratic phase at the known
         challenges rs: a list of host-int 3-tuples."""
-        polys = self._run_rounds(rs)
+        polys = self.phase.run_all(rs)
         self.proof_size += F_BYTE_SIZE * 3 * len(rs)
         return polys
 
@@ -271,7 +260,7 @@ class Prover:
         """As run_rounds_quad, 4-tuples.  The reference omits a zero
         cubic coefficient from the proof size (prover.cpp:137); that
         accounting is applied by account_cubic."""
-        polys = self._run_rounds(rs)
+        polys = self.phase.run_all(rs)
         self.proof_size += F_BYTE_SIZE * 3 * len(rs)
         return polys
 
