@@ -7,28 +7,43 @@ Run from the repository root, with no arguments:
 
 Phases; any failure raises and the script exits non-zero:
   1. start: require CUDA, print the card's name and power limit;
-  2. build the CUDA kernels from zkcnn_tpu_torch/csrc with nvcc;
-  3. each kernel entry (the one-round steps and the multi-round ladders)
-     against its plain PyTorch version on the card at edge sizes: 2, 4,
-     1554 (folded while the row count is even), 2^12 and 2^18 rows with
-     as many rounds as they allow, so that wide rounds with lazily
-     reduced dots (from 2^18 rows) and without, the hand-over to the
-     one-block tail and tail-only ladders are covered, 2^21 rows, and
-     rows of p - 1: exact;
-  4. the three tiny models proven and verified on the card: transcript
-     digest and proof size equal to their 1-device pins; then the
-     per-round engines (PhaseEngine.step, DotProdPhase1.step) driven on
-     card tensors at the shapes of LeNet's largest phases, with the
-     launch counts reset before and read after: every round message
-     equal to run_all's;
-  5. LeNet5, pic_cnt=1, through the port's demo_lenet entry
-     (--synthetic --seed 17 --no-pcs) on the card, with the kernel launch
-     counts reset just before and read just after: it must verify, with
-     WS 201734(2^18), PS 45.7188 KB, the pinned digest, every ladder
-     launched, and at most one fetch per side per phase;
+  2. build the CUDA kernels from zkcnn_tpu_torch/csrc with nvcc (one
+     compiler a source, side by side);
+  3. each round-kernel entry (the one-round steps and the multi-round
+     ladders) against its plain PyTorch version on the card at edge
+     sizes: 2, 4, 1554 (folded while the row count is even), 2^12 and
+     2^18 rows with as many rounds as they allow, so that wide rounds
+     with lazily reduced dots (from 2^18 rows) and without, the hand-over
+     to the one-block tail and tail-only ladders are covered, 2^21 rows,
+     and rows of p - 1: exact.  Then the curve kernels (g1_add,
+     g1_scalar_mul, g1_msm) against their plain versions on the card, as
+     group elements, and against Python integers on the host: the four
+     edge cases of the addition, n = 1, 2, 3, 1554 and 2^18; scalars 0,
+     1, p - 1 and one with bit 254 set at 255 bits against py_mul, random
+     ones at 16 and 32 bits against the plain version, a shared point and
+     a shared scalar; (R, N) = (1, 1), (3, 5), (2, 512) for the MSM
+     (py_mul at full-size scalars, the plain version at 32-bit ones);
+  4. the three tiny models proven and verified on the card with a real
+     sqrt commitment and opening (HyraxPCS): transcript digest and proof
+     size equal to their 1-device pins, a wrong evaluation rejected; one
+     of them again with the inner-product opening; then the per-round
+     engines (PhaseEngine.step, DotProdPhase1.step) driven on card
+     tensors at the shapes of LeNet's largest phases, with the launch
+     counts reset before and read after: every round message equal to
+     run_all's;
+  5. LeNet5, pic_cnt=1, through the port's demo_lenet entry (--synthetic
+     --seed 17) on the card, twice, each with the kernel launch counts
+     reset just before and read just after.  With --no-pcs: it must
+     verify, with WS 201734(2^18), PS 45.7188 KB, the pinned digest,
+     every ladder launched, and at most one fetch per side per phase.
+     With the commitment (inner-product opening): the same WS and PS,
+     POLY_PS 24.8750 KB, its own pinned digest, every curve kernel and
+     every ladder launched, and no curve operation through a plain or
+     host version;
   6. each entry against its plain version at every shape its run
-     launched it at (exact), timed with CUDA events, with the least time
-     the card could take for the same work beside it;
+     launched it at (exact; the curve kernels at the largest), timed with
+     CUDA events, with the least time the card could take for the same
+     work beside it;
   7. one JSON line of kernel results (each entry's launches, shape and
      times belong to the run its `run` key names), the nvidia-smi
      name/power line, and the final JSON status line.
@@ -65,7 +80,20 @@ PINNED_LENET = {
               "6878983c6c2242648af12647",
     "WS": "201734(2^18)", "PS": "45.7188"}
 
+# the same with the Hyrax commitment (512 generator draws before the GKR
+# proof), pinned in tests/test_torch_pcs_e2e.py
+PINNED_LENET_PCS = {
+    "digest": "709e96e190e563e67c417485bf3484939e1f0f87a77bcd4a1af7"
+              "1376318bf695",
+    "POLY_PS": "24.8750"}
+
 SOURCE = "zkcnn_tpu_torch/csrc/round_kernels.cu"
+G1_SOURCE = "zkcnn_tpu_torch/csrc/g1_kernels.cu"
+G1_REPLACES = {"g1_add": "zkcnn_tpu/pcs/curve.py:81",         # and pdouble :58
+               "g1_scalar_mul": "zkcnn_tpu/pcs/curve.py:147",
+               "g1_msm": "zkcnn_tpu/pcs/msm.py:271"}    # and ipa._msm_small :45
+FR_P = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
+FP_P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
 QUAD = "zkcnn_tpu/field/pallas_round2.py:237"       # and pallas_round.py:249
 CUBIC = "zkcnn_tpu/field/pallas_round.py:475"
 REPLACES = {"round_step": QUAD, "fold": QUAD, "cubic_round_step": CUBIC,
@@ -91,9 +119,17 @@ QUAD_PAIR_MULS = 4 * DOT_MULS + 2 * FULL_MULS     # four dots, two folds
 # per pair of V: e0, e1 (two products), e2; six table dots; two folds
 CUBIC_PAIR_MULS = 4 * FULL_MULS + 6 * DOT_MULS + 2 * FULL_MULS
 FOLD_PAIR_MULS = FULL_MULS
+# Curve work in Fp products of 288 multiplies (a 12 x 12 word product and
+# its 12 x 12 word reduction): a Jacobian doubling is 7, an addition 16;
+# a point is 144 bytes
+FP_MULS = 288
+DOUBLE_PRODUCTS = 7
+ADD_PRODUCTS = 16
+POINT_BYTES = 144
 # the runs that the `launches`, shapes and times of an entry come from
 STEP_RUN = "per-round engines at the shapes of LeNet's largest phases"
-LENET_RUN = "lenet"
+LENET_RUN = "lenet --no-pcs"
+LENET_PCS_RUN = "lenet with the commitment"
 
 
 def say(msg):
@@ -269,6 +305,196 @@ def per_round_phases(torch, engine, how):
     return out
 
 
+def time_once_ms(torch, fn):
+    """One timed call with no warm-up, for a plain version that takes
+    seconds; returns (ms, result)."""
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e), out
+
+
+def plain_words(torch, ks):
+    """host ints -> [k, 8] plain scalar words on the card."""
+    rows = [[(k >> (32 * j)) & 0xFFFFFFFF for j in range(8)] for k in ks]
+    w = torch.tensor(rows, dtype=torch.int64, device="cuda")
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def same_points(msm_mod, got, want, what) -> int:
+    """The number of positions at which the two point tensors hold
+    different group elements; raises unless it is 0."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: output shapes differ")
+    wrong = int((~msm_mod.points_equal(got, want)).sum().item())
+    if wrong:
+        raise AssertionError(f"{what}: kernel and plain version give "
+                             f"different points at {wrong} positions")
+    return wrong
+
+
+def g1_inputs(torch, curve, msm_mod, name, shape, gen):
+    """Random operands of a curve kernel at `shape` on the card: (the
+    plain scalars or None, the kernel call, the plain call).  Points are
+    k G from the scalar-multiplication kernel, so their Z is not 1."""
+    base = curve.base_point("cuda")
+    if name == "g1_add":
+        a = curve.scalar_mul(base, rand_fe(torch, shape[0], gen))
+        b = curve.scalar_mul(base, rand_fe(torch, shape[0], gen))
+        return (None, lambda: curve.padd(a, b),
+                lambda: curve.padd_plain(a, b))
+    if name == "g1_scalar_mul":
+        n, nbits = shape
+        pts = curve.scalar_mul(base, rand_fe(torch, n, gen))
+        k = rand_fe(torch, n, gen)
+        return (k, lambda: curve.scalar_mul(pts, k, nbits),
+                lambda: curve.scalar_mul_plain(pts, k, nbits))
+    R, N = shape
+    pts = curve.scalar_mul(base, rand_fe(torch, N, gen))
+    k = rand_fe(torch, R * N, gen).reshape(R, N, 8)
+    fixed = msm_mod.FixedBaseMSM(pts)
+    return (msm_mod.plain_scalars(k), lambda: fixed.compute(k),
+            lambda: msm_mod.msm_plain(pts, k))
+
+
+def g1_bound(torch, curve, name, shape, scalars):
+    """(bound_ms, bound_by) of a curve kernel on this run's operands: the
+    bytes it must move against the multiplies of a windowed scalar
+    multiplication on these scalars with its table for free (bit length
+    - 1 doublings and one addition less than its nonzero 4-bit digits a
+    scalar, N - 1 more additions a row of the MSM; 7 and 16 Fp products
+    of 288 multiplies)."""
+    if name == "g1_add":
+        n = shape[0]
+        products, nbytes = ADD_PRODUCTS * n, 3 * POINT_BYTES * n
+    else:
+        nbits = shape[1] if name == "g1_scalar_mul" else 255
+        bits = curve.scalar_bits(scalars, nbits)
+        pos = torch.arange(1, nbits + 1, device=bits.device)
+        doublings = ((bits * pos).amax(-1) - 1).clamp(min=0).sum().item()
+        pad = torch.zeros(bits.shape[:-1] + (-nbits % 4,), dtype=bits.dtype,
+                          device=bits.device)
+        digits = torch.cat([bits, pad], -1).reshape(*bits.shape[:-1], -1, 4)
+        adds = ((digits.sum(-1) > 0).sum(-1) - 1).clamp(min=0).sum().item()
+        if name == "g1_scalar_mul":
+            nbytes = shape[0] * (2 * POINT_BYTES + 32)
+        else:
+            R, N = shape
+            adds += R * (N - 1)
+            nbytes = N * POINT_BYTES + R * N * 32 + R * POINT_BYTES
+        products = DOUBLE_PRODUCTS * doublings + ADD_PRODUCTS * adds
+    by_bytes = nbytes / MEM_BYTES_S * 1e3
+    by_ops = products * FP_MULS / INT32_MULS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def g1_checks(torch, curve, msm_mod, FR, gen, rng):
+    """The curve kernels against Python integers on the host and against
+    their plain versions on the card (as group elements); raises on a
+    mismatch."""
+    G = (curve.G1_X, curve.G1_Y)
+    base = curve.base_point("cuda")
+    neg = lambda P: None if P is None else (P[0], (-P[1]) % FP_P)
+
+    # g1_scalar_mul at 255 bits against py_mul: one shared point, then
+    # a point a thread, then one shared scalar
+    ks = [0, 1, FR_P - 1, (1 << 254) | 3, 3] + \
+        [rng.randrange(FR_P) for _ in range(3)]
+    pts = curve.scalar_mul(base, plain_words(torch, ks))
+    aff = [curve.py_mul(G, k) for k in ks]
+    if curve.to_affine_host(pts) != aff:
+        raise AssertionError("g1_scalar_mul: k G differs from py_mul")
+    ks2 = [rng.randrange(FR_P) for _ in ks]
+    ks2[1:4] = [FR_P - 1, 1, 0]
+    got = curve.scalar_mul(pts, plain_words(torch, ks2))
+    if curve.to_affine_host(got) != [curve.py_mul(P, k) if P else None
+                                     for P, k in zip(aff, ks2)]:
+        raise AssertionError("g1_scalar_mul: k P differs from py_mul")
+    got = curve.scalar_mul(pts, plain_words(torch, ks2[:1])[0])
+    if curve.to_affine_host(got) != [curve.py_mul(P, ks2[0]) if P else None
+                                     for P in aff]:
+        raise AssertionError("g1_scalar_mul: shared scalar differs from "
+                             "py_mul")
+    say("g1_scalar_mul equals py_mul at 255 bits: scalars 0, 1, p - 1, "
+        "bit 254 set, random; a shared point, a point a thread (infinity "
+        "among them), a shared scalar")
+    # ... and at 16 and 32 bits against the plain version (a 255-bit
+    # plain run is about 10^6 launches)
+    for n in (1, 2, 3, 512):
+        for nbits in (16, 32):
+            _, kern, plain = g1_inputs(torch, curve, msm_mod,
+                                       "g1_scalar_mul", (n, nbits), gen)
+            same_points(msm_mod, kern(), plain(),
+                        f"g1_scalar_mul n={n} nbits={nbits}")
+    say("g1_scalar_mul equals its plain version at 16 and 32 bits, "
+        "n = 1, 2, 3, 512")
+
+    # g1_add: the edge cases against Python integers and the plain
+    # version, then random points
+    P, Q = aff[1], aff[5]
+    pa = [None, None, P, P, P, Q, Q]
+    pb = [None, P, None, P, neg(P), P, neg(Q)]
+    jac = lambda ps: torch.stack(
+        [pts[aff.index(X)] if X in aff else
+         curve.pneg(pts[aff.index(neg(X))]) for X in ps])
+    a, b = jac(pa), jac(pb)
+    got = curve.padd(a, b)
+    if curve.to_affine_host(got) != [curve.py_add(x, y)
+                                     for x, y in zip(pa, pb)]:
+        raise AssertionError("g1_add: edge cases differ from py_add")
+    if curve.to_affine_host(curve.pdouble(a)) != [curve.py_add(x, x)
+                                                  for x in pa]:
+        raise AssertionError("g1_add without a second operand differs "
+                             "from py_add(P, P)")
+    same_points(msm_mod, got, curve.padd_plain(a, b), "g1_add edge cases")
+    worst = max_err(torch, got, curve.padd_plain(a, b))
+    for n in (1, 2, 3, 1554, 1 << 18):
+        _, kern, plain = g1_inputs(torch, curve, msm_mod,
+                                   "g1_add", (n,), gen)
+        g, w = kern(), plain()
+        same_points(msm_mod, g, w, f"g1_add n={n}")
+        worst = max(worst, max_err(torch, g, w))
+        a = g
+        same_points(msm_mod, curve.pdouble(a), curve.pdouble_plain(a),
+                    f"g1_add (doubling) n={n}")
+    say(f"g1_add equals py_add on inf + inf, inf + P, P + inf, P + P, "
+        f"P + (-P), and its plain version at n = 1, 2, 3, 1554, 2^18 (as "
+        f"points; its coordinates differ from the plain version's by at "
+        f"most {worst})")
+
+    # g1_msm against Python integers (known discrete logs) at full-size
+    # scalars, and against the plain version at 32-bit scalars (at 255
+    # bits a plain run takes a minute; phase 6 makes one at the LeNet
+    # shape)
+    for R, N in ((1, 1), (3, 5), (2, 512)):
+        gk = [rng.randrange(FR_P) for _ in range(N)]
+        if N > 1:
+            gk[1] = gk[0]                      # a repeated base
+        bases = curve.scalar_mul(base, plain_words(torch, gk))
+        fixed = msm_mod.FixedBaseMSM(bases)
+        for bits in (255, 32):
+            coeffs = [rng.getrandbits(bits) % FR_P for _ in range(R * N)]
+            coeffs[0] = 0
+            k = torch.from_numpy(FR.pack_mont_host(coeffs)).cuda().reshape(
+                R, N, 8)
+            got = fixed.compute(k)
+            want = [curve.py_mul(G, sum(c * g for c, g in zip(
+                coeffs[r * N:(r + 1) * N], gk)) % FR_P) for r in range(R)]
+            if curve.to_affine_host(got) != want:
+                raise AssertionError(f"g1_msm ({R}, {N}) differs from "
+                                     f"py_mul at {bits}-bit scalars")
+        same_points(msm_mod, got, msm_mod.msm_plain(bases, k, 32),
+                    f"g1_msm ({R}, {N})")
+    say("g1_msm equals py_mul (255- and 32-bit scalars) and its plain "
+        "version (32-bit) at (R, N) = (1, 1), (3, 5), (2, 512), with a zero "
+        "scalar and a repeated base")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -290,11 +516,15 @@ def main():
     # 2. build
     from zkcnn_tpu_torch import cuda_build
     t0 = time.time()
-    lib_path = cuda_build.build(verbose=True)
-    say(f"build: {lib_path.name} in {time.time() - t0:.1f}s")
-    from zkcnn_tpu_torch.field import round_kernels as rk
+    libs = cuda_build.build(verbose=True)
+    say(f"build: {sorted(p.name for p in libs.values())} in "
+        f"{time.time() - t0:.1f}s")
+    from zkcnn_tpu_torch.field import FR, round_kernels as rk
     from zkcnn_tpu_torch.gkr import engine
+    from zkcnn_tpu_torch.pcs import HyraxPCS, curve
+    from zkcnn_tpu_torch.pcs import msm as msm_mod
     rk._lib()
+    curve.g1_lib()
 
     # 3. kernels against their plain versions at edge sizes
     gen = torch.Generator(device="cuda")
@@ -310,30 +540,39 @@ def main():
         say(f"edge sizes exact (tolerance 0; random rows and rows of "
             f"p - 1): {name} at {shapes}")
 
+    # the curve kernels against Python integers and their plain versions
+    g1_checks(torch, curve, msm_mod, FR, gen, rng)
+
     from zkcnn_tpu_torch.nn import random_source, NeuralNetwork
     from zkcnn_tpu_torch.nn import models as zoo
     from zkcnn_tpu_torch.nn import params as P
     from zkcnn_tpu_torch.gkr import Prover, Verifier, Tape
 
-    # 4. tiny models on the card
+    # 4. tiny models on the card, with a real commitment and opening
     for name, build in tiny_models(zoo, NeuralNetwork, P):
-        nn = build()
-        C, vals = nn.create(random_source(24))   # default: the card
-        p = Prover(C, vals)
-        tape = Tape(b"dryrun-" + name.encode())
-        bl = C.layers[0].bit_length
-        tape.fields(1 << (bl - (bl >> 1)))   # the PCS setup's draws
-        v = Verifier(p, C, tape)
-        if not v.verify():
-            raise AssertionError(f"{name}: verification failed on cuda")
-        pin = PINNED_1CHIP[name]
-        if (v.transcript_digest, p.proof_size) != (pin["digest"],
-                                                   pin["proof_size"]):
-            raise AssertionError(
-                f"{name}: digest {v.transcript_digest} / proof size "
-                f"{p.proof_size} differ from the pin {pin}")
-        say(f"tiny model {name}: verified, digest and proof size "
-            f"{p.proof_size} equal PINNED_1CHIP")
+        for mode in ("sqrt", "ipa") if name == "sconv_muladd" else ("sqrt",):
+            nn = build()
+            C, vals = nn.create(random_source(24))   # default: the card
+            p = Prover(C, vals, own_vals=True)
+            pcs = HyraxPCS(mode=mode)
+            v = Verifier(p, C, Tape(b"dryrun-" + name.encode()), pcs=pcs)
+            if not v.verify():
+                raise AssertionError(f"{name} ({mode}): verification failed "
+                                     f"on cuda")
+            pin = PINNED_1CHIP[name]
+            if (v.transcript_digest, p.proof_size) != (pin["digest"],
+                                                       pin["proof_size"]):
+                raise AssertionError(
+                    f"{name} ({mode}): digest {v.transcript_digest} / proof "
+                    f"size {p.proof_size} differ from the pin {pin}")
+            if pcs.open_and_verify(v.commitment, p.val[0], v.r_u[0],
+                                   v.eval_in + 1, v.tape):
+                raise AssertionError(f"{name} ({mode}): a wrong evaluation "
+                                     f"of the input was accepted")
+            say(f"tiny model {name}, {mode} commitment of {pcs.n_rows} x "
+                f"{pcs.n_cols}: verified, digest and proof size "
+                f"{p.proof_size} equal PINNED_1CHIP, commitment and opening "
+                f"{pcs.ps} bytes, a wrong evaluation rejected")
 
     # the per-round engines, whose counts cover exactly their two phases
     rk.reset_launches()
@@ -396,6 +635,43 @@ def main():
         raise AssertionError(f"{fetches} fetches for "
                              f"{lenet['round_ladder']} sides")
 
+    # LeNet again with the commitment (inner-product opening); the counts
+    # of the curve kernels and of the ladders cover exactly this run
+    rk.reset_launches()
+    curve.reset_launches()
+    res = demo_lenet.main(["--synthetic", "--seed", "17", "--pic-cnt", "1"])
+    torch.cuda.synchronize()
+    g1_launches = dict(curve.LAUNCHES)
+    g1_shapes = {k: sorted(curve.SHAPES[k]) for k in curve.NAMES}
+    row = res["row"]
+    say(f"lenet with the commitment: Verification pass, WS {row['WS']}, PS "
+        f"{row['PS']} KB, POLY_PS {row['POLY_PS']} KB, PT {row['PT']} s, "
+        f"POLY_PT {row['POLY_PT']} s, POLY_VT {row['POLY_VT']} s ({smi}), "
+        f"digest {res['digest']}")
+    say(f"lenet row: {res['line']}")
+    say(f"lenet with the commitment, curve wrapper calls that launched: "
+        f"{g1_launches} (device kernels {dict(curve.KERNEL_LAUNCHES)}), "
+        f"not through a kernel: {dict(curve.PLAIN_CALLS)}; ladders: "
+        f"{ {k: rk.LAUNCHES[k] for k in STEPS.values()} }")
+    if (row["WS"], row["PS"], row["POLY_PS"]) != (
+            PINNED_LENET["WS"], PINNED_LENET["PS"],
+            PINNED_LENET_PCS["POLY_PS"]):
+        raise AssertionError(f"lenet with the commitment: WS/PS/POLY_PS "
+                             f"{row['WS']}/{row['PS']}/{row['POLY_PS']}")
+    if res["digest"] != PINNED_LENET_PCS["digest"]:
+        raise AssertionError(f"lenet digest {res['digest']} differs from "
+                             f"the CPU pin {PINNED_LENET_PCS['digest']}")
+    for name in curve.NAMES:
+        if g1_launches[name] <= 0:
+            raise AssertionError(f"lenet never launched kernel {name}")
+    if any(curve.PLAIN_CALLS.values()):
+        raise AssertionError(f"curve operations went past the kernels: "
+                             f"{dict(curve.PLAIN_CALLS)}")
+    for name in STEPS.values():
+        if rk.LAUNCHES[name] <= 0:
+            raise AssertionError(f"lenet with the commitment never launched "
+                                 f"kernel {name}")
+
     # 6. every entry against its plain version at the shapes of its run,
     # timed; the reported time is at the largest of them
     kernels = []
@@ -426,6 +702,36 @@ def main():
                         "bound_by": b_by, "library_ms": None,
                         "shape": list(shape), "run": run})
     say("kernels exact (tolerance 0) at every shape of their runs")
+
+    # the curve kernels at the largest shape of the LeNet run: against the
+    # plain version (one call of it: it takes seconds) as group elements
+    for name in curve.NAMES:
+        say(f"shapes of {name} in its run: {g1_shapes[name]}")
+        for shape in g1_shapes[name]:
+            _, kern, _ = g1_inputs(torch, curve, msm_mod, name,
+                                   shape, gen)
+            say(f"time {name} {shape}: kernel "
+                f"{time_ms(torch, kern, 3):.4f} ms ({smi})")
+        shape = max(g1_shapes[name])
+        scalars, kern, plain = g1_inputs(torch, curve, msm_mod,
+                                         name, shape, gen)
+        pms, want = time_once_ms(torch, plain)
+        err = same_points(msm_mod, kern(), want, f"{name} at {shape}")
+        ms = time_ms(torch, kern, 5)
+        b_ms, b_by = g1_bound(torch, curve, name, shape, scalars)
+        say(f"reported time of {name}: the largest shape of its run "
+            f"({LENET_PCS_RUN}) {shape}: kernel {ms:.4f} ms, plain "
+            f"{pms:.4f} ms (one call), bound {b_ms:.6f} ms by {b_by} "
+            f"({smi})")
+        kernels.append({"name": name, "route": "cuda", "source": G1_SOURCE,
+                        "replaces": G1_REPLACES[name],
+                        "launches": g1_launches[name], "max_abs_err": err,
+                        "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": None,
+                        "shape": list(shape), "run": LENET_PCS_RUN})
+    say("curve kernels equal to their plain versions as group elements "
+        "(tolerance 0 after normalising Z) at the largest shape of their "
+        "run")
 
     # what a ladder saves at LeNet's largest side: its rounds one by one,
     # each fetched before the next, against one ladder and one fetch

@@ -5,8 +5,10 @@ digest through the port, and (slow) LeNet5 pic_cnt=1 reproduces its
 pinned digest.
 
 The pins were made with a Hyrax commitment, whose setup draws
-2^(bl - bl//2) challenges from the tape before the GKR proof; those
-draws are discarded here so that the GKR challenges line up.
+2^(bl - bl//2) challenges from the tape before the GKR proof; these
+tests prove without one (`pcs=None`) and discard those draws so that
+the GKR challenges line up.  tests/test_torch_pcs_e2e.py proves the same
+models with the commitment in place.
 """
 
 import numpy as np

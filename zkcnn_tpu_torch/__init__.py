@@ -5,13 +5,17 @@ it) to PyTorch with hand-written CUDA kernels for Hopper.  It imports
 torch and numpy, never jax or zkcnn_tpu.  Entry points run on the
 first CUDA device unless the caller asks for another device (`--cpu`,
 `device="cpu"`) and raise when there is no card; they pass the device
-down.  The sumcheck round kernels run as CUDA on a CUDA device and as
-their plain PyTorch versions on the CPU.
+down.  The sumcheck round kernels and the curve kernels run as CUDA on
+a CUDA device; on the CPU the round kernels and the point addition run
+their plain PyTorch versions, scalar multiplication and the MSM Python
+integers on the host.
 
 Layer map (same module paths and names as zkcnn_tpu):
-  field/    Fr arithmetic on [..., 8] int32 Montgomery words, segment
-            sums, field matmul, the round kernels (round_kernels.py)
+  field/    Fr and Fp arithmetic on [..., 8] / [..., 12] int32
+            Montgomery words, segment sums, field matmul, the round
+            kernels (round_kernels.py)
   csrc/     CUDA C++ sources of the kernels (built by cuda_build.py)
+  pcs/      Hyrax commitment: G1 curve ops, MSM, sqrt and IPA openings
   mle/      beta/eq and phi tables, folds, round-message helpers
   ntt/      batched radix-2 field NTT
   circuit/  layered circuit IR, subset compaction, layer evaluation

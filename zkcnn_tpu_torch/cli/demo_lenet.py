@@ -1,10 +1,10 @@
 """LeNet demo (reference src/main_demo_lenet.cpp; counterpart of
 `zkcnn_tpu/cli/demo_lenet.py`): argv-compatible `input config output
 [pic_cnt]`, plus --synthetic for the missing upstream demo data,
---model to run smaller circuits and --cpu to stay off the GPU.
+--model to run smaller circuits, --no-pcs to leave the Hyrax
+commitment out and --cpu to stay off the GPU.
 
-    python -m zkcnn_tpu_torch.cli.demo_lenet --synthetic --pic-cnt 1 \
-        --no-pcs
+    python -m zkcnn_tpu_torch.cli.demo_lenet --synthetic --pic-cnt 1
 """
 
 from .runner import base_arg_parser, finish_args, run, build_model

@@ -16,6 +16,7 @@ from ..gkr import Prover, Verifier, Tape
 from ..nn import TensorSource, csv_source, random_source
 from ..nn import models as model_zoo
 from ..nn.params import PoolType
+from ..pcs import HyraxPCS
 
 OUT_COLS = ["MO_INFO", "PSIZE", "KSIZE", "PCNT", "CONV_TY", "QS", "WS",
             "PT", "VT", "PS", "POLY_PT", "POLY_VT", "POLY_PS",
@@ -38,8 +39,7 @@ def base_arg_parser(desc):
     ap.add_argument("--seed", type=int, default=17)
     ap.add_argument("--pool", choices=["max", "avg"], default="max")
     ap.add_argument("--no-pcs", action="store_true",
-                    help="skip the Hyrax polynomial commitment (required: "
-                    "the commitment is not ported yet)")
+                    help="skip the Hyrax polynomial commitment")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the first CUDA device; "
                     "an error when there is none)")
@@ -67,10 +67,8 @@ def make_source(args) -> TensorSource:
 def run(nn, args, mo_info: str, psize: int, ksize: int):
     """Build, prove and verify; prints the result row and returns a
     dict with the row, the verifier's transcript digest, the proof
-    size in bytes and the timings."""
-    if not args.no_pcs:
-        sys.exit("the Hyrax polynomial commitment is not ported to "
-                 "zkcnn_tpu_torch yet: run with --no-pcs")
+    size in bytes, the timings and the commitment's POLY_PT, POLY_VT
+    (seconds) and POLY_PS (KB)."""
     device = args.device
 
     t0 = time.time()
@@ -89,7 +87,8 @@ def run(nn, args, mo_info: str, psize: int, ksize: int):
     nn.vals = None
     log = (lambda *a: print(*a, file=sys.stderr)) if args.log \
         else (lambda *a: None)
-    v = Verifier(p, C, Tape(b"zkcnn-demo-%d" % args.seed), log=log)
+    pcs = None if args.no_pcs else HyraxPCS()
+    v = Verifier(p, C, Tape(b"zkcnn-demo-%d" % args.seed), pcs=pcs, log=log)
 
     t0 = time.time()
     ok = v.verify()
@@ -108,7 +107,9 @@ def run(nn, args, mo_info: str, psize: int, ksize: int):
     vt = v.vt if v.vt else total_t - pt
     vt_slow = v.vt_slow if v.vt_slow else vt
     ps_kb = p.proof_size / 1024.0
-    poly_pt = poly_vt = poly_ps = 0.0
+    poly_pt = pcs.pt if pcs else 0.0
+    poly_vt = pcs.vt if pcs else 0.0
+    poly_ps = (pcs.ps / 1024.0) if pcs else 0.0
     ws_bl = ceil_pow2_bit_length(C.layers[0].size)
 
     row = {
@@ -133,10 +134,12 @@ def run(nn, args, mo_info: str, psize: int, ksize: int):
     print(line)
     print(f"witness generation {witness_t:.2f}s, prove {pt:.2f}s, "
           f"verify {vt:.4f}s (slow {vt_slow:.2f}s), "
-          f"proof {ps_kb:.1f}KB on {device}", file=sys.stderr)
+          f"proof {ps_kb:.1f}KB, commitment prove {poly_pt:.2f}s verify "
+          f"{poly_vt:.2f}s {poly_ps:.1f}KB on {device}", file=sys.stderr)
     return {"row": row, "line": line, "digest": v.transcript_digest,
             "proof_size": p.proof_size, "witness_s": witness_t,
-            "pt": pt, "vt": vt, "vt_slow": vt_slow}
+            "pt": pt, "vt": vt, "vt_slow": vt_slow,
+            "poly_pt": poly_pt, "poly_vt": poly_vt, "poly_ps": poly_ps}
 
 
 def build_model(name: str, args):

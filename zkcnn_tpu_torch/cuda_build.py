@@ -1,10 +1,12 @@
 """Build the CUDA kernels of zkcnn_tpu_torch with nvcc and load them.
 
 The sources in `csrc/` have a plain C interface, so they compile with
-nvcc alone (no PyTorch headers) into one shared library that ctypes
-loads.  The library lands in `.cuda_build/` at the repository root,
-named by a hash of the source and the flags, so an edited source
-rebuilds on first use and an unchanged one is reused.
+nvcc alone (no PyTorch headers), each `.cu` into a shared library of
+its own that ctypes loads; the compilers of all sources run side by
+side.  The libraries land in `.cuda_build/` at the repository root,
+named by a hash of the flags and of every file under `csrc/` (headers
+included), so an edit to any of them rebuilds on first use and an
+unchanged tree is reused.
 """
 
 import ctypes
@@ -15,7 +17,8 @@ import shutil
 import subprocess
 
 PKG = pathlib.Path(__file__).resolve().parent
-SOURCES = [PKG / "csrc" / "round_kernels.cu"]
+CSRC = PKG / "csrc"
+SOURCES = {"round": CSRC / "round_kernels.cu", "g1": CSRC / "g1_kernels.cu"}
 BUILD_DIR = PKG.parent / ".cuda_build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
@@ -29,43 +32,69 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def library_path() -> pathlib.Path:
+def library_paths() -> dict:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libzkcnn_kernels_{h.hexdigest()[:16]}.so"
+    for f in sorted(CSRC.iterdir()):
+        if f.is_file():
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    tag = h.hexdigest()[:16]
+    return {name: BUILD_DIR / f"libzkcnn_{name}_{tag}.so" for name in SOURCES}
 
 
-def build(verbose: bool = False) -> pathlib.Path:
-    """Compile the sources unless a library for this exact source and
-    flag set exists; returns its path."""
-    out = library_path()
-    if out.exists():
-        return out
+def build(verbose: bool = False) -> dict:
+    """Compile every source that has no library for this exact tree and
+    flag set, all at once; returns {name: path}."""
+    paths = library_paths()
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
-    os.replace(tmp, out)
-    return out
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {SOURCES[name].name} "
+                          f"({proc.returncode}):\n{err}")
+            continue
+        if verbose and err:
+            print(err)
+        os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def load() -> ctypes.CDLL:
-    """Build if needed and load the library, with argtypes declared."""
-    lib = ctypes.CDLL(str(build()))
+def _declare(lib, name, restype, argtypes):
+    fn = getattr(lib, name)
+    fn.restype, fn.argtypes = restype, argtypes
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed and load library `name` ("round": the sumcheck
+    round kernels, "g1": the curve kernels), with argtypes declared."""
+    lib = ctypes.CDLL(str(build()[name]))
     P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.zk_error_string.argtypes = [I]
-    lib.zk_error_string.restype = ctypes.c_char_p
-    lib.zk_ladder_scratch_bytes.argtypes = [L, L, I, I]
-    lib.zk_ladder_scratch_bytes.restype = L
     N = ctypes.POINTER(I)
-    lib.zk_round_ladder.argtypes = [P, P, P, P, P, P, P, L, I, I, P, N]
-    lib.zk_round_ladder.restype = I
-    lib.zk_cubic_ladder.argtypes = [P, P, P, P, P, P, P, P, P, L, L, I, P, N]
-    lib.zk_cubic_ladder.restype = I
+    if name == "round":
+        _declare(lib, "zk_error_string", ctypes.c_char_p, [I])
+        _declare(lib, "zk_ladder_scratch_bytes", L, [L, L, I, I])
+        _declare(lib, "zk_round_ladder", I,
+                 [P, P, P, P, P, P, P, L, I, I, P, N])
+        _declare(lib, "zk_cubic_ladder", I,
+                 [P, P, P, P, P, P, P, P, P, L, L, I, P, N])
+    else:
+        _declare(lib, "zk_g1_error_string", ctypes.c_char_p, [I])
+        _declare(lib, "zk_g1_add", I, [P, P, P, L, P])
+        _declare(lib, "zk_g1_scalar_mul", I, [P, L, P, L, P, L, I, P])
+        _declare(lib, "zk_g1_msm_parts", L, [L])
+        _declare(lib, "zk_g1_msm", I, [P, P, P, P, L, L, P, N])
     return lib

@@ -63,7 +63,7 @@ def _lib():
     global _LIB
     if _LIB is None:
         from ..cuda_build import load
-        _LIB = load()
+        _LIB = load("round")
     return _LIB
 
 

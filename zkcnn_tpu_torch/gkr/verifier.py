@@ -20,8 +20,12 @@ challenge is known up front and the protocol runs in three passes:
   pass 3 (checks, = reference "fast" VT): host replay of every round
       equality, final-value and Liu consistency check.
 
-Not ported yet: the polynomial commitment (`pcs`) and the
-Fiat-Shamir tape with its per-round verifier.
+With a polynomial commitment (`pcs`, a `pcs.HyraxPCS`) the verifier sets
+its generators up from the tape before anything else, the prover commits
+to the input layer, and the input claim of the Liu phase is opened and
+verified at the end (verifier.cpp:119-128,359-373).
+
+Not ported yet: the Fiat-Shamir tape with its per-round verifier.
 """
 
 import hashlib
@@ -186,15 +190,30 @@ class Verifier:
         return True, previous_sum
 
     def verify(self) -> bool:
-        if self.pcs is not None:
-            raise NotImplementedError(
-                "the Hyrax polynomial commitment is not ported to "
-                "zkcnn_tpu_torch yet; verify without a pcs")
         if not self.tape.precomputable:
             raise NotImplementedError(
                 "only the seeded precomputable tape is ported; the "
                 "Fiat-Shamir per-round verifier is not")
-        return self._verify_precomputed()
+        if self.pcs is not None:
+            # gens are set up from the verifier tape before anything
+            # else (reference verifier.cpp:119-128), then the prover
+            # commits
+            self.pcs.setup(self.C.layers[0].bit_length, self.tape,
+                           self.device)
+            self.log("pcs setup done")
+            self.commitment = self.pcs.commit(self.p.val[0])
+            self.log("pcs commit done")
+        return self._verify_precomputed() and self.verify_input()
+
+    def verify_input(self) -> bool:
+        """Polynomial-commitment opening (verifier.cpp:359-373)."""
+        if self.pcs is None:
+            return True
+        ok = self.pcs.open_and_verify(self.commitment, self.p.val[0],
+                                      self.r_u[0], self.eval_in, self.tape)
+        if not ok:
+            self.log("FAIL pcs opening")
+        return ok
 
     # ------------------------------------------------------------------
     # precomputable-tape path: three passes (see module docstring)
