@@ -21,7 +21,8 @@ Phases; any failure raises and the script exits non-zero:
      edge cases of the addition, n = 1, 2, 3, 1554 and 2^18; scalars 0,
      1, p - 1 and one with bit 254 set at 255 bits against py_mul, random
      ones at 16 and 32 bits against the plain version, a shared point and
-     a shared scalar; (R, N) = (1, 1), (3, 5), (2, 512) for the MSM
+     a shared scalar; (R, N) = (1, 1), (3, 5), (2, 512) and (3, 130) (a
+     row of several blocks, the last one partly filled) for the MSM
      (py_mul at full-size scalars, the plain version at 32-bit ones);
   4. the three tiny models proven and verified on the card with a real
      sqrt commitment and opening (HyraxPCS): transcript digest and proof
@@ -41,9 +42,11 @@ Phases; any failure raises and the script exits non-zero:
      every ladder launched, and no curve operation through a plain or
      host version;
   6. each entry against its plain version at every shape its run
-     launched it at (exact; the curve kernels at the largest), timed with
-     CUDA events, with the least time the card could take for the same
-     work beside it;
+     launched it at (the round kernels exact; the curve kernels as group
+     elements, on 32-bit scalars laid out as the run lays them out, and
+     at the largest shape on full-size scalars too), timed with CUDA
+     events, with the least time the card could take for the same work
+     beside it;
   7. one JSON line of kernel results (each entry's launches, shape and
      times belong to the run its `run` key names), the nvidia-smi
      name/power line, and the final JSON status line.
@@ -120,11 +123,13 @@ QUAD_PAIR_MULS = 4 * DOT_MULS + 2 * FULL_MULS     # four dots, two folds
 CUBIC_PAIR_MULS = 4 * FULL_MULS + 6 * DOT_MULS + 2 * FULL_MULS
 FOLD_PAIR_MULS = FULL_MULS
 # Curve work in Fp products of 288 multiplies (a 12 x 12 word product and
-# its 12 x 12 word reduction): a Jacobian doubling is 7, an addition 16;
-# a point is 144 bytes
+# its 12 x 12 word reduction): a Jacobian doubling is 7, an addition 16,
+# the addition of a point with Z = 1 (a table entry) 11; a point is 144
+# bytes
 FP_MULS = 288
 DOUBLE_PRODUCTS = 7
 ADD_PRODUCTS = 16
+MIXED_ADD_PRODUCTS = 11
 POINT_BYTES = 144
 # the runs that the `launches`, shapes and times of an entry come from
 STEP_RUN = "per-round engines at the shapes of LeNet's largest phases"
@@ -337,10 +342,25 @@ def same_points(msm_mod, got, want, what) -> int:
     return wrong
 
 
-def g1_inputs(torch, curve, msm_mod, name, shape, gen):
-    """Random operands of a curve kernel at `shape` on the card: (the
-    plain scalars or None, the kernel call, the plain call).  Points are
-    k G from the scalar-multiplication kernel, so their Z is not 1."""
+def rand_scalars(torch, n: int, gen, bits: int):
+    """[n, 8] random plain scalars below the modulus on the card: of full
+    size (bits = 255) or of one word (bits = 32)."""
+    k = rand_fe(torch, n, gen)
+    if bits == 32:
+        k[:, 1:] = 0
+    return k
+
+
+def g1_inputs(torch, curve, msm_mod, FR, name, shape, gen, bits=255):
+    """Random operands of a curve kernel at `shape` on the card, laid out
+    as the LeNet run lays them out: (the plain scalars or None, the kernel
+    call, the plain call).  Points are k G from the scalar-multiplication
+    kernel, so their Z is not 1.  With bits = 32 the scalars have one
+    word and the plain version runs 32 steps, which takes seconds where
+    255 take a minute.  g1_scalar_mul's shape names what its threads
+    share ("point", "scalar" or nothing); a two-row MSM is a round of the
+    inner-product opening, whose rows are zero over the other row's half
+    of the bases."""
     base = curve.base_point("cuda")
     if name == "g1_add":
         a = curve.scalar_mul(base, rand_fe(torch, shape[0], gen))
@@ -348,26 +368,43 @@ def g1_inputs(torch, curve, msm_mod, name, shape, gen):
         return (None, lambda: curve.padd(a, b),
                 lambda: curve.padd_plain(a, b))
     if name == "g1_scalar_mul":
-        n, nbits = shape
-        pts = curve.scalar_mul(base, rand_fe(torch, n, gen))
-        k = rand_fe(torch, n, gen)
-        return (k, lambda: curve.scalar_mul(pts, k, nbits),
-                lambda: curve.scalar_mul_plain(pts, k, nbits))
+        n, nbits, shared = shape
+        pts = curve.scalar_mul(
+            base, rand_fe(torch, 1 if shared == "point" else n, gen))
+        k = rand_scalars(torch, 1 if shared == "scalar" else n, gen, bits)
+        if shared == "point":
+            pts = pts[0]
+        if shared == "scalar":
+            k = k[0]
+        return (k.expand(n, 8), lambda: curve.scalar_mul(pts, k, nbits),
+                lambda: curve.scalar_mul_plain(pts, k, min(nbits, bits)))
     R, N = shape
     pts = curve.scalar_mul(base, rand_fe(torch, N, gen))
-    k = rand_fe(torch, R * N, gen).reshape(R, N, 8)
+    k = rand_scalars(torch, R * N, gen, bits).reshape(R, N, 8)
+    if R == 2:
+        k[0, N // 2:] = 0
+        k[1, :N // 2] = 0
+    mont = FR.mul_scalar(k, FR.const(FR.R, "cuda"))       # k R
     fixed = msm_mod.FixedBaseMSM(pts)
-    return (msm_mod.plain_scalars(k), lambda: fixed.compute(k),
-            lambda: msm_mod.msm_plain(pts, k))
+    return (k, lambda: fixed.compute(mont),
+            lambda: msm_mod.msm_plain(pts, mont, bits))
 
 
 def g1_bound(torch, curve, name, shape, scalars):
     """(bound_ms, bound_by) of a curve kernel on this run's operands: the
-    bytes it must move against the multiplies of a windowed scalar
-    multiplication on these scalars with its table for free (bit length
-    - 1 doublings and one addition less than its nonzero 4-bit digits a
-    scalar, N - 1 more additions a row of the MSM; 7 and 16 Fp products
-    of 288 multiplies)."""
+    bytes it must move against the multiplies of the cheapest algorithm
+    this script can defend for the function, in Fp products of 288
+    multiplies.  g1_add: 16 products a pair.  A point a thread
+    (g1_scalar_mul without a shared point): 4-bit windows with the
+    point's 15 multiples for free, so bit length - 1 doublings of 7 and
+    one addition of 16 less than its nonzero digits, a scalar.  Shared
+    bases (g1_msm, whose N bases serve all R rows, and g1_scalar_mul
+    with one point): a fixed-base table of d 2^(4j) P with Z = 1, whose
+    doublings are counted once a base (the longest scalar it meets, less
+    one) and whose digit multiples and normalisation are not counted;
+    then every nonzero digit is one addition of a table entry (11
+    products), less one for each output, whose first entry is a copy.
+    The row sums of an MSM are among those additions."""
     if name == "g1_add":
         n = shape[0]
         products, nbytes = ADD_PRODUCTS * n, 3 * POINT_BYTES * n
@@ -375,18 +412,27 @@ def g1_bound(torch, curve, name, shape, scalars):
         nbits = shape[1] if name == "g1_scalar_mul" else 255
         bits = curve.scalar_bits(scalars, nbits)
         pos = torch.arange(1, nbits + 1, device=bits.device)
-        doublings = ((bits * pos).amax(-1) - 1).clamp(min=0).sum().item()
+        top = (bits * pos).amax(-1)                   # bit lengths
         pad = torch.zeros(bits.shape[:-1] + (-nbits % 4,), dtype=bits.dtype,
                           device=bits.device)
         digits = torch.cat([bits, pad], -1).reshape(*bits.shape[:-1], -1, 4)
-        adds = ((digits.sum(-1) > 0).sum(-1) - 1).clamp(min=0).sum().item()
-        if name == "g1_scalar_mul":
-            nbytes = shape[0] * (2 * POINT_BYTES + 32)
-        else:
+        nonzero = (digits.sum(-1) > 0).sum(-1)        # digits a scalar
+        if name == "g1_msm":
             R, N = shape
-            adds += R * (N - 1)
+            doublings = (top.amax(0) - 1).clamp(min=0).sum().item()
+            adds = (nonzero.sum(1) - 1).clamp(min=0).sum().item()
+            add_products = MIXED_ADD_PRODUCTS
             nbytes = N * POINT_BYTES + R * N * 32 + R * POINT_BYTES
-        products = DOUBLE_PRODUCTS * doublings + ADD_PRODUCTS * adds
+        else:
+            adds = (nonzero - 1).clamp(min=0).sum().item()
+            if shape[2] == "point":
+                doublings = max(top.amax().item() - 1, 0)
+                add_products = MIXED_ADD_PRODUCTS
+            else:
+                doublings = (top - 1).clamp(min=0).sum().item()
+                add_products = ADD_PRODUCTS
+            nbytes = shape[0] * (2 * POINT_BYTES + 32)
+        products = DOUBLE_PRODUCTS * doublings + add_products * adds
     by_bytes = nbytes / MEM_BYTES_S * 1e3
     by_ops = products * FP_MULS / INT32_MULS_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
@@ -427,8 +473,8 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
     # plain run is about 10^6 launches)
     for n in (1, 2, 3, 512):
         for nbits in (16, 32):
-            _, kern, plain = g1_inputs(torch, curve, msm_mod,
-                                       "g1_scalar_mul", (n, nbits), gen)
+            _, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
+                                       "g1_scalar_mul", (n, nbits, ""), gen)
             same_points(msm_mod, kern(), plain(),
                         f"g1_scalar_mul n={n} nbits={nbits}")
     say("g1_scalar_mul equals its plain version at 16 and 32 bits, "
@@ -454,7 +500,7 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
     same_points(msm_mod, got, curve.padd_plain(a, b), "g1_add edge cases")
     worst = max_err(torch, got, curve.padd_plain(a, b))
     for n in (1, 2, 3, 1554, 1 << 18):
-        _, kern, plain = g1_inputs(torch, curve, msm_mod,
+        _, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
                                    "g1_add", (n,), gen)
         g, w = kern(), plain()
         same_points(msm_mod, g, w, f"g1_add n={n}")
@@ -471,7 +517,7 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
     # scalars, and against the plain version at 32-bit scalars (at 255
     # bits a plain run takes a minute; phase 6 makes one at the LeNet
     # shape)
-    for R, N in ((1, 1), (3, 5), (2, 512)):
+    for R, N in ((1, 1), (3, 5), (2, 512), (3, 130)):
         gk = [rng.randrange(FR_P) for _ in range(N)]
         if N > 1:
             gk[1] = gk[0]                      # a repeated base
@@ -491,8 +537,8 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
         same_points(msm_mod, got, msm_mod.msm_plain(bases, k, 32),
                     f"g1_msm ({R}, {N})")
     say("g1_msm equals py_mul (255- and 32-bit scalars) and its plain "
-        "version (32-bit) at (R, N) = (1, 1), (3, 5), (2, 512), with a zero "
-        "scalar and a repeated base")
+        "version (32-bit) at (R, N) = (1, 1), (3, 5), (2, 512), (3, 130), "
+        "with a zero scalar and a repeated base")
 
 
 def main():
@@ -646,8 +692,10 @@ def main():
     row = res["row"]
     say(f"lenet with the commitment: Verification pass, WS {row['WS']}, PS "
         f"{row['PS']} KB, POLY_PS {row['POLY_PS']} KB, PT {row['PT']} s, "
-        f"POLY_PT {row['POLY_PT']} s, POLY_VT {row['POLY_VT']} s ({smi}), "
-        f"digest {res['digest']}")
+        f"POLY_PT {row['POLY_PT']} s (the row commitments "
+        f"{res['poly_commit_s']:.4f} s, the opening "
+        f"{res['poly_pt'] - res['poly_commit_s']:.4f} s), POLY_VT "
+        f"{row['POLY_VT']} s ({smi}), digest {res['digest']}")
     say(f"lenet row: {res['line']}")
     say(f"lenet with the commitment, curve wrapper calls that launched: "
         f"{g1_launches} (device kernels {dict(curve.KERNEL_LAUNCHES)}), "
@@ -703,17 +751,23 @@ def main():
                         "shape": list(shape), "run": run})
     say("kernels exact (tolerance 0) at every shape of their runs")
 
-    # the curve kernels at the largest shape of the LeNet run: against the
-    # plain version (one call of it: it takes seconds) as group elements
+    # the curve kernels at every shape of the LeNet run, as group
+    # elements: against the plain version on 32-bit scalars (it takes
+    # seconds a shape), and at the largest shape on full-size scalars too
+    # (one call of the plain version: about a minute)
     for name in curve.NAMES:
         say(f"shapes of {name} in its run: {g1_shapes[name]}")
         for shape in g1_shapes[name]:
-            _, kern, _ = g1_inputs(torch, curve, msm_mod, name,
-                                   shape, gen)
+            _, kern, plain = g1_inputs(torch, curve, msm_mod, FR, name,
+                                       shape, gen, 32)
+            same_points(msm_mod, kern(), plain(),
+                        f"{name} at {shape}, 32-bit scalars")
+            _, kern, _ = g1_inputs(torch, curve, msm_mod, FR, name, shape,
+                                   gen)
             say(f"time {name} {shape}: kernel "
                 f"{time_ms(torch, kern, 3):.4f} ms ({smi})")
         shape = max(g1_shapes[name])
-        scalars, kern, plain = g1_inputs(torch, curve, msm_mod,
+        scalars, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
                                          name, shape, gen)
         pms, want = time_once_ms(torch, plain)
         err = same_points(msm_mod, kern(), want, f"{name} at {shape}")
@@ -730,8 +784,7 @@ def main():
                         "bound_by": b_by, "library_ms": None,
                         "shape": list(shape), "run": LENET_PCS_RUN})
     say("curve kernels equal to their plain versions as group elements "
-        "(tolerance 0 after normalising Z) at the largest shape of their "
-        "run")
+        "(tolerance 0 after normalising Z) at every shape of their run")
 
     # what a ladder saves at LeNet's largest side: its rounds one by one,
     # each fetched before the next, against one ladder and one fetch

@@ -80,6 +80,7 @@ def test_runner_fills_the_poly_columns(capsys):
     assert float(row["POLY_PS"]) > 0 and float(row["POLY_PT"]) > 0 \
         and float(row["POLY_VT"]) > 0
     assert row["POLY_PS"] == f"{res['poly_ps']:.4f}"
+    assert 0 < res["poly_commit_s"] < res["poly_pt"]    # commit, then open
     assert abs(float(row["TOT_PS"]) - float(row["PS"])
                - float(row["POLY_PS"])) < 2e-4       # four printed decimals
     assert row["POLY_PS"] in capsys.readouterr().out
@@ -87,7 +88,8 @@ def test_runner_fills_the_poly_columns(capsys):
     # another digest (the generators' draws shift every challenge)
     bare = demo_lenet.main(args + ["--no-pcs"])
     assert bare["row"]["PS"] == row["PS"]
-    assert bare["row"]["POLY_PS"] == "0.0000" and bare["poly_pt"] == 0.0
+    assert bare["row"]["POLY_PS"] == "0.0000" and bare["poly_pt"] == 0.0 \
+        and bare["poly_commit_s"] == 0.0
     assert bare["digest"] != res["digest"]
 
 

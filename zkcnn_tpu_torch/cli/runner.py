@@ -68,7 +68,8 @@ def run(nn, args, mo_info: str, psize: int, ksize: int):
     """Build, prove and verify; prints the result row and returns a
     dict with the row, the verifier's transcript digest, the proof
     size in bytes, the timings and the commitment's POLY_PT, POLY_VT
-    (seconds) and POLY_PS (KB)."""
+    (seconds; `poly_commit_s` is the share of POLY_PT spent in the row
+    commitments, the rest is the opening) and POLY_PS (KB)."""
     device = args.device
 
     t0 = time.time()
@@ -139,7 +140,8 @@ def run(nn, args, mo_info: str, psize: int, ksize: int):
     return {"row": row, "line": line, "digest": v.transcript_digest,
             "proof_size": p.proof_size, "witness_s": witness_t,
             "pt": pt, "vt": vt, "vt_slow": vt_slow,
-            "poly_pt": poly_pt, "poly_vt": poly_vt, "poly_ps": poly_ps}
+            "poly_pt": poly_pt, "poly_vt": poly_vt, "poly_ps": poly_ps,
+            "poly_commit_s": pcs.commit_s if pcs else 0.0}
 
 
 def build_model(name: str, args):

@@ -25,7 +25,8 @@ Counts, set to 0 by `reset_launches`: `LAUNCHES[name]` is the number of
 wrapper calls that launched kernel `name` (`pdouble` is the `g1_add`
 kernel without a second operand and counts there), `KERNEL_LAUNCHES`
 the device kernels they launched, `SHAPES` the shapes they launched at
-and `PLAIN_CALLS` the calls that did not go to a kernel (the plain and
+(`g1_scalar_mul`: n, nbits and "point" or "scalar" where all threads
+shared one) and `PLAIN_CALLS` the calls that did not go to a kernel (the plain and
 the host versions).
 
 Pure-Python integer versions (`py_add`, `py_mul`) are included for
@@ -284,15 +285,16 @@ def pneg(p):
     return out
 
 
-def tree_sum(pts):
-    """Sum points along axis 0 by pairwise halving."""
+def tree_sum(pts, add=padd):
+    """Sum points along axis 0 by pairwise halving; `add` is the
+    addition to use (`msm_plain` passes the plain one)."""
     n = pts.shape[0]
     while n > 1:
         if n % 2:
             pts = torch.cat([pts, infinity((1,) + tuple(pts.shape[1:-2]),
                                            pts.device)])
             n += 1
-        pts = padd(pts[0::2], pts[1::2])
+        pts = add(pts[0::2], pts[1::2])
         n >>= 1
     return pts[0]
 
@@ -330,7 +332,9 @@ def scalar_mul(pt, scalars_plain, nbits: int = 255):
         launch(g1_lib().zk_g1_scalar_mul, p.data_ptr(), p_stride,
                k.data_ptr(), k_stride, out.data_ptr(), n, nbits,
                stream_of(pt.device))
-        count_launch("g1_scalar_mul", (n, nbits))
+        shared = "point" if p_stride == 0 else \
+            "scalar" if k_stride == 0 else ""
+        count_launch("g1_scalar_mul", (n, nbits, shared))
     return out.reshape(lead + (3, FP.n))
 
 

@@ -56,6 +56,7 @@ class HyraxPCS:
         assert mode in ("sqrt", "ipa")
         self.mode = mode
         self.pt = 0.0   # prover seconds
+        self.commit_s = 0.0   # the share of pt spent in commit()
         self.vt = 0.0   # verifier seconds
         self.ps = 0     # proof bytes
 
@@ -94,7 +95,9 @@ class HyraxPCS:
         """Pedersen-commit each matrix row: [n_rows] G1 points."""
         t0 = self._clock()
         self.row_commits = self.gen_msm.compute(self._matrix(val0))
-        self.pt += self._clock() - t0
+        dt = self._clock() - t0
+        self.commit_s += dt
+        self.pt += dt
         self.ps += self.n_rows * G_BYTE_SIZE
         return self.row_commits
 

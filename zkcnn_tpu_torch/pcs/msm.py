@@ -35,15 +35,9 @@ def msm_plain(points, scalars_mont, nbits: int = 255):
     """[N, 3, 12], [R, N, 8] Montgomery -> [R, 3, 12]; nbits: a bound on
     the scalars' bit length."""
     curve.PLAIN_CALLS["g1_msm"] += 1
-    R, N = scalars_mont.shape[:2]
     terms = curve.scalar_mul_plain(points[None], plain_scalars(scalars_mont),
                                    nbits)
-    pts = terms.movedim(1, 0)                    # [N, R, 3, 12]
-    while pts.shape[0] > 1:
-        if pts.shape[0] % 2:
-            pts = torch.cat([pts, curve.infinity((1, R), pts.device)])
-        pts = curve._padd(pts[0::2], pts[1::2])
-    return pts[0]
+    return curve.tree_sum(terms.movedim(1, 0), curve._padd)   # over N
 
 
 def msm_host(points, scalars_mont):
