@@ -15,15 +15,20 @@ Phases; any failure raises and the script exits non-zero:
      2^18 rows with as many rounds as they allow, so that wide rounds
      with lazily reduced dots (from 2^18 rows) and without, the hand-over
      to the one-block tail and tail-only ladders are covered, 2^21 rows,
-     and rows of p - 1: exact.  Then the curve kernels (g1_add,
-     g1_scalar_mul, g1_msm) against their plain versions on the card, as
-     group elements, and against Python integers on the host: the four
-     edge cases of the addition, n = 1, 2, 3, 1554 and 2^18; scalars 0,
-     1, p - 1 and one with bit 254 set at 255 bits against py_mul, random
-     ones at 16 and 32 bits against the plain version, a shared point and
-     a shared scalar; (R, N) = (1, 1), (3, 5), (2, 512) and (3, 130) (a
-     row of several blocks, the last one partly filled) for the MSM
-     (py_mul at full-size scalars, the plain version at 32-bit ones);
+     and rows of p - 1: exact.  Then the curve kernels' Fp product (the
+     check entry zk_fp_mul) against Python integers on 0, 1, p - 1,
+     R mod p, words of 0xffffffff below p and 10^5 random pairs, and one
+     thread's chain of dependent products, whose latency it prints; the
+     curve kernels (g1_add, g1_scalar_mul, g1_msm_table, g1_msm) against
+     their plain versions on the card, as group elements, and against
+     Python integers on the host: the four edge cases of the addition,
+     n = 1, 2, 3, 1554 and 2^18; scalars 0, 1, p - 1 and one with bit
+     254 set at 255 bits against py_mul, random ones at 16 and 32 bits
+     against the plain version, a shared point (the table route) and a
+     shared scalar; (R, N) = (1, 1), (3, 5), (2, 512) and (3, 130) (a
+     row of several blocks, the last one partly filled) with a repeated
+     base for the MSM on its table (py_mul at full-size scalars, the
+     plain version at 32-bit ones);
   4. the three tiny models proven and verified on the card with a real
      sqrt commitment and opening (HyraxPCS): transcript digest and proof
      size equal to their 1-device pins, a wrong evaluation rejected; one
@@ -44,8 +49,9 @@ Phases; any failure raises and the script exits non-zero:
   6. each entry against its plain version at every shape its run
      launched it at (the round kernels exact; the curve kernels as group
      elements, on 32-bit scalars laid out as the run lays them out, and
-     at the largest shape on full-size scalars too), timed with CUDA
-     events, with the least time the card could take for the same work
+     at the largest shape on full-size scalars too; the tables entry by
+     entry), timed with CUDA events (g1_msm with and without building its
+     table), with the least time the card could take for the same work
      beside it;
   7. one JSON line of kernel results (each entry's launches, shape and
      times belong to the run its `run` key names), the nvidia-smi
@@ -94,6 +100,7 @@ SOURCE = "zkcnn_tpu_torch/csrc/round_kernels.cu"
 G1_SOURCE = "zkcnn_tpu_torch/csrc/g1_kernels.cu"
 G1_REPLACES = {"g1_add": "zkcnn_tpu/pcs/curve.py:81",         # and pdouble :58
                "g1_scalar_mul": "zkcnn_tpu/pcs/curve.py:147",
+               "g1_msm_table": "zkcnn_tpu/pcs/msm.py:100",   # from :269
                "g1_msm": "zkcnn_tpu/pcs/msm.py:271"}    # and ipa._msm_small :45
 FR_P = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 FP_P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
@@ -362,6 +369,11 @@ def g1_inputs(torch, curve, msm_mod, FR, name, shape, gen, bits=255):
     inner-product opening, whose rows are zero over the other row's half
     of the bases."""
     base = curve.base_point("cuda")
+    if name == "g1_msm_table":
+        N, nwin = shape
+        pts = curve.scalar_mul(base, rand_fe(torch, N, gen))
+        return (None, lambda: curve.table_kernel(pts, nwin),
+                lambda: msm_mod.msm_table_plain(pts, nwin))
     if name == "g1_add":
         a = curve.scalar_mul(base, rand_fe(torch, shape[0], gen))
         b = curve.scalar_mul(base, rand_fe(torch, shape[0], gen))
@@ -386,8 +398,9 @@ def g1_inputs(torch, curve, msm_mod, FR, name, shape, gen, bits=255):
         k[1, :N // 2] = 0
     mont = FR.mul_scalar(k, FR.const(FR.R, "cuda"))       # k R
     fixed = msm_mod.FixedBaseMSM(pts)
-    return (k, lambda: fixed.compute(mont),
-            lambda: msm_mod.msm_plain(pts, mont, bits))
+    kern = lambda: fixed.compute(mont)                  # noqa: E731
+    kern.with_table = lambda: msm_mod.FixedBaseMSM(pts).compute(mont)
+    return k, kern, lambda: msm_mod.msm_plain(pts, mont, bits)
 
 
 def g1_bound(torch, curve, name, shape, scalars):
@@ -439,6 +452,67 @@ def g1_bound(torch, curve, name, shape, scalars):
                                                            "operations")
 
 
+def table_bound(shape):
+    """(bound_ms, bound_by) of g1_msm_table at (N, nwin), counted as
+    g1_bound counts: 4 (nwin - 1) doublings of 7 products a base and 14
+    additions of 11 products (a Z = 1 entry) a window, or the bytes of
+    the bases in and the table out."""
+    N, nwin = shape
+    products = N * (DOUBLE_PRODUCTS * 4 * (nwin - 1)
+                    + MIXED_ADD_PRODUCTS * 14 * nwin)
+    nbytes = N * POINT_BYTES * (1 + 15 * nwin)
+    by_bytes = nbytes / MEM_BYTES_S * 1e3
+    by_ops = products * FP_MULS / INT32_MULS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def fp_checks(torch, curve, FP, rng, smi):
+    """The curve kernels' Fp product (zk_fp_mul) against Python integers
+    on edge values (all pairs) and 10^5 random pairs, and the latency of
+    one thread's dependent products, which it prints; raises on a
+    mismatch."""
+    import numpy as np
+    lib = curve.g1_lib()
+    rinv = pow(1 << 384, -1, FP_P)
+    top = FP_P >> 352
+    edge = [0, 1, 2, FP_P - 1, FP_P - 2, (1 << 384) % FP_P,
+            (top << 352) - 1, (1 << 352) - 1, (1 << 380) - 1]
+    xs = [a for a in edge for _ in edge] + \
+        [rng.randrange(FP_P) for _ in range(100000)]
+    ys = edge * len(edge) + [rng.randrange(FP_P) for _ in range(100000)]
+
+    def pack(vals):
+        return torch.from_numpy(np.stack(
+            [FP.words_host(v) for v in vals])).to("cuda")
+
+    def product(a, b, n, chain):
+        out = torch.empty_like(a[:n])
+        curve.launch(lib.zk_fp_mul, a.data_ptr(), b.data_ptr(),
+                     out.data_ptr(), n, chain, curve.stream_of(a.device))
+        return out
+
+    A, B = pack(xs), pack(ys)
+    got = [FP.int_host(w) for w in product(A, B, len(xs), 0).cpu().numpy()]
+    wrong = sum(g != x * y * rinv % FP_P for g, x, y in zip(got, xs, ys))
+    if wrong:
+        raise AssertionError(f"the device Fp product differs from Python "
+                             f"integers at {wrong} of {len(xs)} pairs")
+    times = {}
+    for chain in (2000, 20000):
+        times[chain] = time_ms(
+            torch, lambda: product(A[-1:], B[-1:], 1, chain), 3)
+    x = FP.int_host(product(A[-1:], B[-1:], 1, 20000).cpu().numpy()[0])
+    if x != xs[-1] * pow(ys[-1] * rinv, 20000, FP_P) % FP_P:
+        raise AssertionError("a chain of 20000 device Fp products differs "
+                             "from Python integers")
+    ns = (times[20000] - times[2000]) / 18000 * 1e6
+    say(f"device Fp product equals Python integers on {len(edge)}^2 edge "
+        f"pairs (0, 1, p - 1, R mod p, words of 0xffffffff below p, ...) "
+        f"and 10^5 random pairs, and over a chain of 20000; one thread's "
+        f"dependent product {ns:.1f} ns ({smi})")
+
+
 def g1_checks(torch, curve, msm_mod, FR, gen, rng):
     """The curve kernels against Python integers on the host and against
     their plain versions on the card (as group elements); raises on a
@@ -473,11 +547,14 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
     # plain run is about 10^6 launches)
     for n in (1, 2, 3, 512):
         for nbits in (16, 32):
-            _, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
-                                       "g1_scalar_mul", (n, nbits, ""), gen)
-            same_points(msm_mod, kern(), plain(),
-                        f"g1_scalar_mul n={n} nbits={nbits}")
-    say("g1_scalar_mul equals its plain version at 16 and 32 bits, "
+            for shared in ("", "point"):
+                _, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
+                                           "g1_scalar_mul",
+                                           (n, nbits, shared), gen)
+                same_points(msm_mod, kern(), plain(),
+                            f"g1_scalar_mul n={n} nbits={nbits} {shared}")
+    say("g1_scalar_mul (a point a thread) and a shared point (its table "
+        "and g1_msm) equal their plain version at 16 and 32 bits, "
         "n = 1, 2, 3, 512")
 
     # g1_add: the edge cases against Python integers and the plain
@@ -541,6 +618,26 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
         "with a zero scalar and a repeated base")
 
 
+def table_shapes(torch, curve, msm_mod, shapes, gen):
+    """g1_msm_table at each of its shapes (N, nwin) against one call of
+    the plain version on all their bases at once (its time is a chain of
+    doublings, whatever N), entries compared as group elements; raises on
+    a mismatch."""
+    nwin = max(w for _, w in shapes)
+    base = curve.base_point("cuda")
+    pts = curve.scalar_mul(base, rand_fe(torch, sum(n for n, _ in shapes),
+                                         gen))
+    want = msm_mod.msm_table_plain(pts, nwin)
+    at = 0
+    for N, w in shapes:
+        got = curve.table_kernel(pts[at:at + N], w)
+        same_points(msm_mod, got, want[at:at + N, :w],
+                    f"g1_msm_table at {(N, w)}")
+        at += N
+    say(f"g1_msm_table equals its plain version, entry by entry as group "
+        f"elements, at {shapes}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -565,7 +662,7 @@ def main():
     libs = cuda_build.build(verbose=True)
     say(f"build: {sorted(p.name for p in libs.values())} in "
         f"{time.time() - t0:.1f}s")
-    from zkcnn_tpu_torch.field import FR, round_kernels as rk
+    from zkcnn_tpu_torch.field import FP, FR, round_kernels as rk
     from zkcnn_tpu_torch.gkr import engine
     from zkcnn_tpu_torch.pcs import HyraxPCS, curve
     from zkcnn_tpu_torch.pcs import msm as msm_mod
@@ -586,7 +683,9 @@ def main():
         say(f"edge sizes exact (tolerance 0; random rows and rows of "
             f"p - 1): {name} at {shapes}")
 
-    # the curve kernels against Python integers and their plain versions
+    # the Fp product and the curve kernels against Python integers and
+    # their plain versions
+    fp_checks(torch, curve, FP, rng, smi)
     g1_checks(torch, curve, msm_mod, FR, gen, rng)
 
     from zkcnn_tpu_torch.nn import random_source, NeuralNetwork
@@ -694,8 +793,9 @@ def main():
         f"{row['PS']} KB, POLY_PS {row['POLY_PS']} KB, PT {row['PT']} s, "
         f"POLY_PT {row['POLY_PT']} s (the row commitments "
         f"{res['poly_commit_s']:.4f} s, the opening "
-        f"{res['poly_pt'] - res['poly_commit_s']:.4f} s), POLY_VT "
-        f"{row['POLY_VT']} s ({smi}), digest {res['digest']}")
+        f"{res['poly_pt'] - res['poly_commit_s']:.4f} s; the setup's table "
+        f"of the generators, outside POLY_PT, {res['poly_table_s']:.4f} s), "
+        f"POLY_VT {row['POLY_VT']} s ({smi}), digest {res['digest']}")
     say(f"lenet row: {res['line']}")
     say(f"lenet with the commitment, curve wrapper calls that launched: "
         f"{g1_launches} (device kernels {dict(curve.KERNEL_LAUNCHES)}), "
@@ -757,32 +857,48 @@ def main():
     # (one call of the plain version: about a minute)
     for name in curve.NAMES:
         say(f"shapes of {name} in its run: {g1_shapes[name]}")
+        if name == "g1_msm_table":
+            table_shapes(torch, curve, msm_mod, g1_shapes[name], gen)
         for shape in g1_shapes[name]:
-            _, kern, plain = g1_inputs(torch, curve, msm_mod, FR, name,
-                                       shape, gen, 32)
-            same_points(msm_mod, kern(), plain(),
-                        f"{name} at {shape}, 32-bit scalars")
+            if name != "g1_msm_table":
+                _, kern, plain = g1_inputs(torch, curve, msm_mod, FR, name,
+                                           shape, gen, 32)
+                same_points(msm_mod, kern(), plain(),
+                            f"{name} at {shape}, 32-bit scalars")
             _, kern, _ = g1_inputs(torch, curve, msm_mod, FR, name, shape,
                                    gen)
+            with_table = ""
+            if name == "g1_msm":
+                with_table = (f", with building its table "
+                              f"{time_ms(torch, kern.with_table, 3):.4f} ms")
             say(f"time {name} {shape}: kernel "
-                f"{time_ms(torch, kern, 3):.4f} ms ({smi})")
+                f"{time_ms(torch, kern, 3):.4f} ms{with_table} ({smi})")
         shape = max(g1_shapes[name])
         scalars, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
                                          name, shape, gen)
         pms, want = time_once_ms(torch, plain)
         err = same_points(msm_mod, kern(), want, f"{name} at {shape}")
         ms = time_ms(torch, kern, 5)
-        b_ms, b_by = g1_bound(torch, curve, name, shape, scalars)
+        if name == "g1_msm_table":
+            b_ms, b_by = table_bound(shape)
+        else:
+            b_ms, b_by = g1_bound(torch, curve, name, shape, scalars)
+        entry = {"name": name, "route": "cuda", "source": G1_SOURCE,
+                 "replaces": G1_REPLACES[name],
+                 "launches": g1_launches[name], "max_abs_err": err,
+                 "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None,
+                 "shape": list(shape), "run": LENET_PCS_RUN}
+        with_table = ""
+        if name == "g1_msm":
+            entry["ms_with_table"] = time_ms(torch, kern.with_table, 5)
+            with_table = (f" (with building its table "
+                          f"{entry['ms_with_table']:.4f} ms)")
         say(f"reported time of {name}: the largest shape of its run "
-            f"({LENET_PCS_RUN}) {shape}: kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms (one call), bound {b_ms:.6f} ms by {b_by} "
+            f"({LENET_PCS_RUN}) {shape}: kernel {ms:.4f} ms{with_table}, "
+            f"plain {pms:.4f} ms (one call), bound {b_ms:.6f} ms by {b_by} "
             f"({smi})")
-        kernels.append({"name": name, "route": "cuda", "source": G1_SOURCE,
-                        "replaces": G1_REPLACES[name],
-                        "launches": g1_launches[name], "max_abs_err": err,
-                        "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None,
-                        "shape": list(shape), "run": LENET_PCS_RUN})
+        kernels.append(entry)
     say("curve kernels equal to their plain versions as group elements "
         "(tolerance 0 after normalising Z) at every shape of their run")
 

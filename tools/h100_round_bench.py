@@ -15,7 +15,11 @@ prints one line per measurement and writes them all as JSON to --out
           of it spent in the round loops;
   lenet   (with --parent, a checkout of the commit to compare with) the
           LeNet5 demo's PT from a warm-up run, then parent, change,
-          change, parent twice over, each in a process of its own.
+          change, parent twice over, each in a process of its own;
+  pcs     (with --parent) the same with the Hyrax commitment: PT,
+          POLY_PT, POLY_VT and, where the tree prints it, the setup's
+          generator table, from a warm-up run of each tree, then parent,
+          change, change, parent.
 
 Every time is the mean of back-to-back calls between two CUDA events.
 """
@@ -134,22 +138,30 @@ def proof_sweep(gen, rng, smi):
                card=smi)
 
 
-def lenet_pt(tree: str) -> dict:
-    """One LeNet5 demo run from `tree`, in a process of its own."""
+def lenet_pt(tree: str, pcs: bool = False) -> dict:
+    """One LeNet5 demo run from `tree`, in a process of its own, with the
+    commitment or with --no-pcs."""
     t0 = time.time()
     out = subprocess.run(
         [sys.executable, "-m", "zkcnn_tpu_torch.cli.demo_lenet",
-         "--synthetic", "--seed", "17", "--no-pcs", "--pic-cnt", "1"],
+         "--synthetic", "--seed", "17", "--pic-cnt", "1"]
+        + ([] if pcs else ["--no-pcs"]),
         cwd=tree, capture_output=True, text=True, timeout=900)
     if out.returncode:
         raise RuntimeError(f"demo_lenet failed in {tree}:\n{out.stderr}")
     m = re.search(r"witness generation ([\d.]+)s, prove ([\d.]+)s, verify "
                   r"([\d.]+)s \(slow ([\d.]+)s\)", out.stderr)
     row = out.stdout.strip().splitlines()[-1].split(", ")
-    return {"PT": float(row[7]), "VT": float(row[8]), "PS": row[9],
-            "WS": row[6], "witness_s": float(m.group(1)),
-            "vt_slow_s": float(m.group(4)), "wall_s": time.time() - t0,
-            "digest": re.search(r"sha256 (\w+)", out.stderr).group(1)}
+    res = {"PT": float(row[7]), "VT": float(row[8]), "PS": row[9],
+           "WS": row[6], "witness_s": float(m.group(1)),
+           "vt_slow_s": float(m.group(4)), "wall_s": time.time() - t0,
+           "digest": re.search(r"sha256 (\w+)", out.stderr).group(1)}
+    if pcs:
+        res.update(POLY_PT=float(row[10]), POLY_VT=float(row[11]),
+                   POLY_PS=row[12])
+        table = re.search(r"generator table ([\d.]+)s", out.stderr)
+        res["table_s"] = float(table.group(1)) if table else None
+    return res
 
 
 def main():
@@ -174,11 +186,15 @@ def main():
     for name, fn in sections.items():
         if args.only is None or name in args.only:
             fn(gen, rng, smi)
+    turns = [("parent", args.parent), ("change", ROOT),
+             ("change", ROOT), ("parent", args.parent)]
     if args.parent and (args.only is None or "lenet" in args.only):
-        turns = [("parent", args.parent), ("change", ROOT),
-                 ("change", ROOT), ("parent", args.parent)]
         for which, tree in [("warm-up", args.parent)] + 2 * turns:
             record("lenet", tree=which, card=smi, **lenet_pt(tree))
+    if args.parent and (args.only is None or "pcs" in args.only):
+        warm = [("warm-up parent", args.parent), ("warm-up change", ROOT)]
+        for which, tree in warm + turns:
+            record("pcs", tree=which, card=smi, **lenet_pt(tree, True))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(RESULTS, f, indent=1)

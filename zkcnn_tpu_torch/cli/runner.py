@@ -69,7 +69,8 @@ def run(nn, args, mo_info: str, psize: int, ksize: int):
     dict with the row, the verifier's transcript digest, the proof
     size in bytes, the timings and the commitment's POLY_PT, POLY_VT
     (seconds; `poly_commit_s` is the share of POLY_PT spent in the row
-    commitments, the rest is the opening) and POLY_PS (KB)."""
+    commitments, the rest is the opening; `poly_table_s` is the setup's
+    table of the generators, outside POLY_PT) and POLY_PS (KB)."""
     device = args.device
 
     t0 = time.time()
@@ -136,12 +137,14 @@ def run(nn, args, mo_info: str, psize: int, ksize: int):
     print(f"witness generation {witness_t:.2f}s, prove {pt:.2f}s, "
           f"verify {vt:.4f}s (slow {vt_slow:.2f}s), "
           f"proof {ps_kb:.1f}KB, commitment prove {poly_pt:.2f}s verify "
-          f"{poly_vt:.2f}s {poly_ps:.1f}KB on {device}", file=sys.stderr)
+          f"{poly_vt:.2f}s {poly_ps:.1f}KB (generator table "
+          f"{pcs.table_s if pcs else 0.0:.4f}s) on {device}", file=sys.stderr)
     return {"row": row, "line": line, "digest": v.transcript_digest,
             "proof_size": p.proof_size, "witness_s": witness_t,
             "pt": pt, "vt": vt, "vt_slow": vt_slow,
             "poly_pt": poly_pt, "poly_vt": poly_vt, "poly_ps": poly_ps,
-            "poly_commit_s": pcs.commit_s if pcs else 0.0}
+            "poly_commit_s": pcs.commit_s if pcs else 0.0,
+            "poly_table_s": pcs.table_s if pcs else 0.0}
 
 
 def build_model(name: str, args):

@@ -1,13 +1,14 @@
 // BLS12-381 G1 arithmetic for one thread: Fp on 12 little-endian 32-bit
 // words (Montgomery, R = 2^384), Jacobian points, windowed scalar
-// multiplication.
+// multiplication, and the fixed-base window table that an MSM sums from.
 //
 // Device functions only, no kernel: g1_kernels.cu includes this file.
 // Every function is plain C++ on integer arrays behind the ZK_DEV,
-// ZK_DEV_NOINLINE and ZK_CONST macros, so a host compiler can build the
-// same arithmetic (define the first two empty and ZK_CONST as
-// `static const`) and hold it against Python integers where there is no
-// nvcc; tests/test_torch_pcs_field.py does.
+// ZK_DEV_NOINLINE, ZK_INLINE and ZK_CONST macros, so a host compiler can
+// build the same arithmetic (define the first two empty and ZK_CONST as
+// `static const`; ZK_INLINE defaults to `inline` off nvcc) and hold it
+// against Python integers where there is no nvcc;
+// tests/test_torch_pcs_field.py and tests/test_torch_pcs_table.py do.
 //
 // The point formulas are those of zkcnn_tpu/pcs/curve.py (pdouble, padd
 // with its four edge cases), on canonical residues, so an addition or a
@@ -15,12 +16,24 @@
 // loop takes windows where the JAX package goes bit by bit, so its
 // results are equal as points.
 //
-// The Fp product and the two point formulas are NOT inlined: a fully
-// unrolled 12-word CIOS product is about 300 wide multiply-adds, a
-// point addition runs 16 of them and the scalar loop calls the doubling
-// 255 times and the addition about 80 times.  As calls they compile in seconds and
-// keep the register count low; the operands of a call live in local
-// memory (L1), which costs 36 word accesses beside 288 multiplies.
+// The Fp product is a CIOS Montgomery product on operands in registers.
+// On the card (__CUDA_ARCH__) its carry chains are PTX mad.lo.cc /
+// madc.hi.cc / addc.cc, which run on the multiply-add units' carry flag,
+// and it is inlined (ZK_INLINE) into the point formulas; the host build
+// keeps the portable loop on 64-bit intermediates, so g++ checks the same
+// algorithm.  One product is 288 multiplies for the 12 x 12 words and
+// their reduction; a thread's dependent products are bound by the latency
+// of the carry chains (48 chains of 12-13 instructions that share the one
+// carry flag, so nothing overlaps them), which chip_smoke.py measures.  The point formulas stay calls
+// (ZK_DEV_NOINLINE): inlined, a doubling is 7 products and an addition 16,
+// and every caller would carry their code; as calls the kernels build in
+// seconds and their operands (Pt) sit in local memory, 36 word accesses
+// beside 288 multiplies a product.
+//
+// The table (table_chain, table_step, table_build) holds, for a base P,
+// T[j][d - 1] = d 2^(4j) P for windows j < nwin and digits d = 1..15, so
+// that sum_i k_i P_i is the sum of T_i[j][digit_j(k_i)] over terms and
+// windows (table_sum) with no doubling at all.
 
 #ifndef ZKCNN_G1_ARITH_CUH
 #define ZKCNN_G1_ARITH_CUH
@@ -32,11 +45,51 @@
 #define ZK_DEV_NOINLINE __device__ __noinline__
 #define ZK_CONST __constant__
 #endif
+#ifndef ZK_INLINE
+#ifdef __CUDACC__
+#define ZK_INLINE __device__ __forceinline__
+#else
+#define ZK_INLINE inline
+#endif
+#endif
 
 namespace g1 {
 
 typedef uint32_t u32;
 typedef uint64_t u64;
+
+#ifdef __CUDA_ARCH__
+// One PTX instruction each.  The carry flag passes from one asm statement
+// to the next; `volatile` keeps their order, and nothing else the compiler
+// emits between them touches the flag.
+namespace ptx {
+#define ZK_PTX2(name, op)                                                  \
+  __device__ __forceinline__ u32 name(u32 a, u32 b) {                      \
+    u32 r;                                                                 \
+    asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));            \
+    return r;                                                              \
+  }
+#define ZK_PTX3(name, op)                                                  \
+  __device__ __forceinline__ u32 name(u32 a, u32 b, u32 c) {               \
+    u32 r;                                                                 \
+    asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c)); \
+    return r;                                                              \
+  }
+ZK_PTX2(add_cc, "add.cc.u32")
+ZK_PTX2(addc_cc, "addc.cc.u32")
+ZK_PTX2(addc, "addc.u32")
+ZK_PTX2(sub_cc, "sub.cc.u32")
+ZK_PTX2(subc_cc, "subc.cc.u32")
+ZK_PTX2(subc, "subc.u32")
+ZK_PTX3(mad_lo_cc, "mad.lo.cc.u32")
+ZK_PTX3(madc_lo_cc, "madc.lo.cc.u32")
+ZK_PTX3(mad_hi_cc, "mad.hi.cc.u32")
+ZK_PTX3(madc_hi_cc, "madc.hi.cc.u32")
+ZK_PTX3(madc_hi, "madc.hi.u32")
+#undef ZK_PTX2
+#undef ZK_PTX3
+}  // namespace ptx
+#endif
 
 constexpr int NP = 12;   // words of an Fp element
 constexpr int NR = 8;    // words of an Fr scalar
@@ -71,36 +124,55 @@ ZK_DEV inline bool fp_is_zero(const u32* a) {
 }
 
 // r = t - p if t >= p else t, for t < 2p < 2^384.
-ZK_DEV inline void fp_cond_sub(u32* r, const u32* t) {
+ZK_INLINE void fp_cond_sub(u32* r, const u32* t) {
   u32 d[NP];
-  u64 borrow = 0;
+#ifdef __CUDA_ARCH__
+  d[0] = ptx::sub_cc(t[0], FP_MOD[0]);
 #pragma unroll
+  for (int k = 1; k < NP; ++k) d[k] = ptx::subc_cc(t[k], FP_MOD[k]);
+  const bool borrow = ptx::subc(0, 0) != 0;
+#else
+  u64 borrow = 0;
   for (int k = 0; k < NP; ++k) {
     u64 s = (u64)t[k] - FP_MOD[k] - borrow;
     d[k] = (u32)s;
     borrow = (s >> 32) & 1;
   }
+#endif
 #pragma unroll
   for (int k = 0; k < NP; ++k) r[k] = borrow ? t[k] : d[k];
 }
 
 // r may be a or b in every function below.
-ZK_DEV inline void fp_add(u32* r, const u32* a, const u32* b) {
+ZK_INLINE void fp_add(u32* r, const u32* a, const u32* b) {
   u32 t[NP];
-  u64 c = 0;
+#ifdef __CUDA_ARCH__
+  t[0] = ptx::add_cc(a[0], b[0]);
 #pragma unroll
+  for (int k = 1; k < NP; ++k) t[k] = ptx::addc_cc(a[k], b[k]);
+#else
+  u64 c = 0;
   for (int k = 0; k < NP; ++k) {
     u64 s = (u64)a[k] + b[k] + c;
     t[k] = (u32)s;
     c = s >> 32;
   }
+#endif
   fp_cond_sub(r, t);   // a + b < 2p < 2^384: no carry out
 }
 
-ZK_DEV inline void fp_sub(u32* r, const u32* a, const u32* b) {
+ZK_INLINE void fp_sub(u32* r, const u32* a, const u32* b) {
   u32 t[NP];
-  u64 borrow = 0;
+#ifdef __CUDA_ARCH__
+  t[0] = ptx::sub_cc(a[0], b[0]);
 #pragma unroll
+  for (int k = 1; k < NP; ++k) t[k] = ptx::subc_cc(a[k], b[k]);
+  const u32 mask = ptx::subc(0, 0);            // a < b: add p back
+  r[0] = ptx::add_cc(t[0], FP_MOD[0] & mask);
+#pragma unroll
+  for (int k = 1; k < NP; ++k) r[k] = ptx::addc_cc(t[k], FP_MOD[k] & mask);
+#else
+  u64 borrow = 0;
   for (int k = 0; k < NP; ++k) {
     u64 s = (u64)a[k] - b[k] - borrow;
     t[k] = (u32)s;
@@ -108,16 +180,70 @@ ZK_DEV inline void fp_sub(u32* r, const u32* a, const u32* b) {
   }
   const u32 mask = borrow ? 0xffffffffu : 0u;   // a < b: add p back
   u64 c = 0;
-#pragma unroll
   for (int k = 0; k < NP; ++k) {
     u64 s = (u64)t[k] + (FP_MOD[k] & mask) + c;
     r[k] = (u32)s;
     c = s >> 32;
   }
+#endif
 }
 
-// CIOS Montgomery product r = a b R^-1 mod p, canonical.
-ZK_DEV_NOINLINE void fp_mul(u32* r, const u32* a, const u32* b) {
+// CIOS Montgomery product r = a b R^-1 mod p, canonical.  Word i of b
+// adds a b_i into t (the low halves of the 12 word products in one carry
+// chain, the high halves one word up in a second), then m p with
+// m = t_0 (-p^-1) mod 2^32 (two more chains), and shifts t down a word.
+// t < 2p before a step and < 2^415 within it, so 13 words hold it and no
+// chain carries out of its last word.  On the card the steps run
+// MUL_UNROLL at a time in a loop that is not unrolled, the words of b
+// shifted down through registers: fully unrolled, a product is about 650
+// instructions, and the point formulas that inline 7 and 16 of them
+// outgrow the instruction cache (tools/h100_fp_mul_bench.cu measures the
+// forms).
+constexpr int MUL_UNROLL = 2;
+
+ZK_INLINE void fp_mul(u32* r, const u32* a, const u32* b) {
+#ifdef __CUDA_ARCH__
+  u32 t[NP + 1], bw[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    t[k] = 0;
+    bw[k] = b[k];
+  }
+  t[NP] = 0;
+#pragma unroll 1
+  for (int i = 0; i < NP; i += MUL_UNROLL) {
+#pragma unroll
+    for (int u = 0; u < MUL_UNROLL; ++u) {
+      const u32 bi = bw[u];
+      t[0] = ptx::mad_lo_cc(a[0], bi, t[0]);
+#pragma unroll
+      for (int j = 1; j < NP; ++j) t[j] = ptx::madc_lo_cc(a[j], bi, t[j]);
+      t[NP] = ptx::addc(t[NP], 0);
+      t[1] = ptx::mad_hi_cc(a[0], bi, t[1]);
+#pragma unroll
+      for (int j = 1; j < NP - 1; ++j)
+        t[j + 1] = ptx::madc_hi_cc(a[j], bi, t[j + 1]);
+      t[NP] = ptx::madc_hi(a[NP - 1], bi, t[NP]);
+      const u32 m = t[0] * FP_INV;
+      t[0] = ptx::mad_lo_cc(m, FP_MOD[0], t[0]);   // 0, and a carry
+#pragma unroll
+      for (int j = 1; j < NP; ++j)
+        t[j] = ptx::madc_lo_cc(m, FP_MOD[j], t[j]);
+      t[NP] = ptx::addc(t[NP], 0);
+      t[1] = ptx::mad_hi_cc(m, FP_MOD[0], t[1]);
+#pragma unroll
+      for (int j = 1; j < NP - 1; ++j)
+        t[j + 1] = ptx::madc_hi_cc(m, FP_MOD[j], t[j + 1]);
+      t[NP] = ptx::madc_hi(m, FP_MOD[NP - 1], t[NP]);
+#pragma unroll
+      for (int k = 0; k < NP; ++k) t[k] = t[k + 1];
+      t[NP] = 0;
+    }
+#pragma unroll
+    for (int k = 0; k < NP - MUL_UNROLL; ++k) bw[k] = bw[k + MUL_UNROLL];
+  }
+  fp_cond_sub(r, t);
+#else
   u32 t[NP + 2];
 #pragma unroll
   for (int k = 0; k < NP + 2; ++k) t[k] = 0;
@@ -148,6 +274,7 @@ ZK_DEV_NOINLINE void fp_mul(u32* r, const u32* a, const u32* b) {
     t[NP] = t[NP + 1] + (u32)(s >> 32);
   }
   fp_cond_sub(r, t);   // t < 2p, so t[NP] is 0
+#endif
 }
 
 ZK_DEV inline void pt_copy(Pt* r, const Pt* p) {
@@ -159,6 +286,25 @@ ZK_DEV inline void pt_copy(Pt* r, const Pt* p) {
 ZK_DEV inline void pt_set_inf(Pt* r) {
 #pragma unroll
   for (int k = 0; k < NP; ++k) r->x[k] = r->y[k] = r->z[k] = 0;
+}
+
+// A point in memory is 36 words: X, Y, Z.
+ZK_DEV inline void pt_load(Pt* p, const u32* src) {
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    p->x[k] = src[k];
+    p->y[k] = src[NP + k];
+    p->z[k] = src[2 * NP + k];
+  }
+}
+
+ZK_DEV inline void pt_store(u32* dst, const Pt* p) {
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    dst[k] = p->x[k];
+    dst[NP + k] = p->y[k];
+    dst[2 * NP + k] = p->z[k];
+  }
 }
 
 // Jacobian doubling on y^2 = x^3 + 4 (a = 0); 2 inf = inf because
@@ -294,6 +440,75 @@ ZK_DEV inline void pt_scalar_mul(Pt* acc, const Pt* p, const u32* k,
     u32 d = (k[lo >> 5] >> (lo & 31)) & WTAB;
     if (lo + WBITS > nbits) d &= (1u << (nbits - lo)) - 1;
     if (d) pt_add(acc, acc, &tab[d - 1]);
+  }
+}
+
+// The fixed-base window table of one base P: tab holds nwin windows of
+// WTAB points, entry (j, d - 1) = d 2^(WBITS j) P, in [nwin, WTAB, 3, 12]
+// words.  NWIN windows cover a 256-bit scalar.
+constexpr int NWIN = 64;
+
+// Entry (j, 0) = 2^(4j) P for every window j: one chain of 4 (nwin - 1)
+// doublings.
+ZK_DEV inline void table_chain(u32* tab, const Pt* p, int nwin) {
+  Pt q;
+  pt_copy(&q, p);
+  for (int j = 0; j < nwin; ++j) {
+    if (j)
+      for (int s = 0; s < WBITS; ++s) pt_double(&q, &q);
+    pt_store(tab + (long long)j * WTAB * PW, &q);
+  }
+}
+
+// One entry of a round of the digit multiples of a window (win: its WTAB
+// points): entry m + e = entry m + entry e, for 1 <= e <= m and
+// m + e <= WTAB.  Rounds m = 1, 2, 4, 8 make d = 2..15 from d = 1; the
+// entries a round reads were written by earlier rounds.
+ZK_DEV inline void table_step(u32* win, int m, int e) {
+  Pt a, b;
+  pt_load(&a, win + (m - 1) * PW);
+  if (e == m) {
+    pt_double(&a, &a);
+  } else {
+    pt_load(&b, win + (e - 1) * PW);
+    pt_add(&a, &a, &b);
+  }
+  pt_store(win + (m + e - 1) * PW, &a);
+}
+
+// The whole table of one base in one thread (the kernels spread the same
+// steps over threads).
+ZK_DEV inline void table_build(u32* tab, const Pt* p, int nwin) {
+  table_chain(tab, p, nwin);
+  for (int j = 0; j < nwin; ++j)
+    for (int m = 1; m < WTAB; m *= 2)
+      for (int e = 1; e <= m && m + e <= WTAB; ++e)
+        table_step(tab + (long long)j * WTAB * PW, m, e);
+}
+
+// Digit j (bits 4j .. 4j + 3) of the plain scalar k, cut to its low nbits
+// bits.
+ZK_DEV inline u32 window_digit(const u32* k, int j, int nbits) {
+  const int lo = j * WBITS;        // 32 is a multiple of WBITS
+  if (lo >= nbits) return 0;
+  u32 d = (k[lo >> 5] >> (lo & 31)) & WTAB;
+  if (lo + WBITS > nbits) d &= (1u << (nbits - lo)) - 1;
+  return d;
+}
+
+// acc += the sum over windows j0 <= j < j1 of entry (j, digit_j(k) - 1)
+// of one base's table: one complete addition a nonzero digit, no
+// doubling.  Zero digits add nothing, so a zero scalar leaves acc as it
+// is.
+ZK_DEV inline void table_sum(Pt* acc, const u32* tab, const u32* k, int j0,
+                             int j1, int nbits) {
+  Pt e;
+  for (int j = j0; j < j1; ++j) {
+    const u32 d = window_digit(k, j, nbits);
+    if (d) {
+      pt_load(&e, tab + ((long long)j * WTAB + d - 1) * PW);
+      pt_add(acc, acc, &e);
+    }
   }
 }
 

@@ -4,41 +4,52 @@
 // kernel here: its curve programs are XLA programs that fuse a whole
 // formula.  Plain PyTorch cannot stand in for them on the card (one Fp
 // product is a few hundred small launches, one scalar multiplication about
-// 255 x 24 products), so each program is one kernel:
+// 255 x 24 products), so each program is one kernel or two:
 //   * g1_add_kernel (zk_g1_add): zkcnn_tpu/pcs/curve.py::padd and, with no
 //     second operand, ::pdouble, elementwise over n points;
-//   * g1_scalar_mul_kernel (zk_g1_scalar_mul): curve.py::scalar_mul, one
-//     point (or one shared point) and one plain scalar (or one shared
-//     scalar) a thread.  The thread keeps its accumulator and a table of
-//     15 multiples over all steps (4-bit windows), where the XLA program
-//     runs a 255-step loop of whole-batch programs;
+//   * g1_scalar_mul_kernel (zk_g1_scalar_mul): curve.py::scalar_mul with a
+//     point a thread (the inner-product opening's folds of G) and one plain
+//     scalar (or one shared scalar) a thread.  The thread keeps its
+//     accumulator and a table of 15 multiples over all steps (4-bit
+//     windows: 254 doublings and up to 64 additions), where the XLA
+//     program runs a 255-step loop of whole-batch programs;
+//   * g1_table_chain_kernel + g1_table_digits_kernel (zk_g1_msm_table):
+//     zkcnn_tpu/pcs/msm.py::build_table, the fixed-base table that
+//     FixedBaseMSM builds when it is made.  For each base P and window j
+//     it holds d 2^(4j) P, d = 1..15 (4-bit digits, unsigned; the JAX
+//     package's signed radix-256 digits and GLV are not carried over).  A
+//     thread a base runs the chain 2^(4j) P (252 doublings); then a thread
+//     a (base, window, digit) builds the multiples in four rounds
+//     (entry m + e = entry m + entry e, m = 1, 2, 4, 8) within a block;
 //   * g1_msm_kernel + g1_sum_rows_kernel (zk_g1_msm):
-//     zkcnn_tpu/pcs/msm.py::FixedBaseMSM.compute and ipa.py::_msm_small.
-//     For each of R rows, sum_i k[r, i] P_i with Montgomery scalars in.  A
-//     thread takes one term (scalar out of Montgomery form, the same
-//     windowed loop in registers and local memory), a block of
-//     MSM_THREADS sums its terms by a tree in shared memory, and a second
-//     launch sums a row's block sums.  The XLA design (a table of digit
-//     multiples, a gather of [R, 2N] points a window and a dense tree)
-//     exists because XLA is dense; none of it is carried over, and no
-//     gathered tensor is made.
+//     msm.py::FixedBaseMSM.compute and ipa.py::_msm_small on that table,
+//     and curve.py::scalar_mul with one shared point (one base, a row a
+//     scalar).  Row r is the sum over terms i and windows j of
+//     T_i[j][digit_j(k_ri)]: no doubling.  A thread takes one term and
+//     MSM_SPLIT windows of it (at most 16 additions), a block sums its
+//     threads by a tree in shared memory, and a second launch sums a
+//     row's block sums.  The XLA design (a gather of [R, 2N] points a
+//     window, a dense tree and a Horner step of 8 doublings between
+//     windows) exists because XLA is dense; no gathered tensor is made.
 //
 // Data: a point is [3, 12] words (X, Y, Z), each coordinate the canonical
 // Montgomery residue (R = 2^384) in 12 little-endian 32-bit words; Z == 0
-// is infinity.  A scalar is 8 words.  Results are group elements: they
-// equal the plain PyTorch versions and the JAX package as points (after
-// normalising Z), not word for word, because the order of additions
-// differs.
+// is infinity.  A scalar is 8 words.  A table is [N, nwin, 15, 3, 12]
+// words (Jacobian entries, 144 bytes each: 70.8 MB for 512 bases).
+// Results are group elements: they equal the plain PyTorch versions and
+// the JAX package as points (after normalising Z), not word for word,
+// because the order of additions differs.
 //
 // What bounds it on this card: 32-bit integer multiplies.  An Fp product
 // is 288 of them (144 for the product, 144 for its reduction), a doubling
-// 7 products, an addition 16, a 255-bit scalar about 2,900 products,
-// against 144 bytes a point and 32 a scalar.  For few terms (an
-// opening's single rows) the bound is one thread's chain of 255
-// dependent doublings, not throughput.  This is a simple form: a term a
-// thread with fixed 4-bit windows.  Pippenger buckets across a row's
-// terms, signed digits, the GLV endomorphism and mixed addition for
-// Z = 1 bases are left for later work.
+// 7 products, an addition 16.  The table costs 252 doublings a base and
+// 14 additions a window; an MSM then costs one addition a nonzero digit
+// (about 64 a 255-bit term), against 144 bytes a table entry read.  For
+// one or two rows the bound is a chain: the table's 252 dependent
+// doublings, then a thread's 16 additions and the trees.  Left for later
+// work: GLV, signed digits, Z = 1 entries with mixed addition (a batch
+// inversion), Pippenger buckets for very large N, a product shared by
+// several threads.
 
 #include <cstddef>
 #include <cstdint>
@@ -52,25 +63,12 @@ using namespace g1;
 
 constexpr int ADD_THREADS = 128;   // a block of g1_add_kernel
 constexpr int MUL_THREADS = 64;    // a block of g1_scalar_mul_kernel
-constexpr int MSM_THREADS = 64;    // terms of one block of g1_msm_kernel
-
-__device__ __forceinline__ void load_pt(Pt* p, const u32* src) {
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    p->x[k] = src[k];
-    p->y[k] = src[NP + k];
-    p->z[k] = src[2 * NP + k];
-  }
-}
-
-__device__ __forceinline__ void store_pt(u32* dst, const Pt* p) {
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    dst[k] = p->x[k];
-    dst[NP + k] = p->y[k];
-    dst[2 * NP + k] = p->z[k];
-  }
-}
+constexpr int CHAIN_THREADS = 64;  // bases a block of g1_table_chain_kernel
+constexpr int DIGIT_THREADS = 8;   // threads a (base, window) in the rounds
+constexpr int DIGIT_PAIRS = 16;    // (base, window) pairs a block
+constexpr int MSM_SPLIT = 4;       // threads a term: NWIN / 4 windows each
+constexpr int MSM_THREADS = 64;    // the largest block of the MSM kernels
+constexpr int FP_THREADS = 128;    // a block of fp_mul_kernel
 
 // out[i] = p[i] + q[i], or 2 p[i] where q is null.
 __global__ void g1_add_kernel(const u32* __restrict__ p,
@@ -79,18 +77,18 @@ __global__ void g1_add_kernel(const u32* __restrict__ p,
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Pt a, b;
-  load_pt(&a, p + i * PW);
+  pt_load(&a, p + i * PW);
   if (q) {
-    load_pt(&b, q + i * PW);
+    pt_load(&b, q + i * PW);
     pt_add(&a, &a, &b);
   } else {
     pt_double(&a, &a);
   }
-  store_pt(out + i * PW, &a);
+  pt_store(out + i * PW, &a);
 }
 
 // out[i] = k[i] p[i] over the low nbits bits of the plain scalar k[i]; a
-// stride of 0 shares one point or one scalar among all threads.
+// stride of 0 shares one scalar among all threads.
 __global__ void g1_scalar_mul_kernel(const u32* __restrict__ pts,
                                      long long pt_stride,
                                      const u32* __restrict__ ks,
@@ -101,50 +99,82 @@ __global__ void g1_scalar_mul_kernel(const u32* __restrict__ pts,
   if (i >= n) return;
   Pt p, acc;
   u32 k[NR];
-  load_pt(&p, pts + i * pt_stride);
+  pt_load(&p, pts + i * pt_stride);
 #pragma unroll
   for (int j = 0; j < NR; ++j) k[j] = ks[i * k_stride + j];
   pt_scalar_mul(&acc, &p, k, nbits);
-  store_pt(out + i * PW, &acc);
+  pt_store(out + i * PW, &acc);
+}
+
+// Thread i: entry (j, 0) = 2^(4j) P_i of base i's table, every window.
+__global__ void g1_table_chain_kernel(const u32* __restrict__ pts,
+                                      u32* __restrict__ tab, long long N,
+                                      int nwin) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  Pt p;
+  pt_load(&p, pts + i * PW);
+  table_chain(tab + i * nwin * WTAB * PW, &p, nwin);
+}
+
+// The digit multiples of `pairs` (base, window) pairs: DIGIT_THREADS
+// threads a pair, thread e = 1..8 making entry m + e in round m when
+// e <= m and m + e <= 15.  A block holds its pairs for all four rounds, so
+// a barrier orders them (it also orders the block's global writes).
+__global__ void g1_table_digits_kernel(u32* tab, long long pairs) {
+  const long long pair =
+      (long long)blockIdx.x * DIGIT_PAIRS + threadIdx.x / DIGIT_THREADS;
+  const int e = threadIdx.x % DIGIT_THREADS + 1;
+  u32* win = tab + pair * WTAB * PW;
+  for (int m = 1; m < WTAB; m *= 2) {
+    if (pair < pairs && e <= m && m + e <= WTAB) table_step(win, m, e);
+    __syncthreads();
+  }
 }
 
 // The points of a block summed by a tree in shared memory; the sum ends
-// in sh[0].  Every thread of the block calls it.
+// in sh[0].  Every thread of the block calls it; blockDim.x is a power of
+// two.
 __device__ __forceinline__ void block_sum(Pt* sh) {
   __syncthreads();
-  for (int s = MSM_THREADS / 2; s > 0; s >>= 1) {
+  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
     if ((int)threadIdx.x < s)
       pt_add(&sh[threadIdx.x], &sh[threadIdx.x], &sh[threadIdx.x + s]);
     __syncthreads();
   }
 }
 
-// Block (r, b) sums the terms b * MSM_THREADS .. of row r: one term a
-// thread.  ks: [R, N, 8] Montgomery scalars; pts: [N, 3, 12]; out:
+// Block (r, b) sums terms b * tpb .. b * tpb + tpb - 1 of row r on the
+// table: thread (term, q) adds the entries of windows q * per ..
+// (q + 1) * per - 1, per = nwin / MSM_SPLIT rounded up.  ks: [R, N, 8]
+// scalars, Montgomery (mont) or plain; tab: [N, nwin, 15, 3, 12]; out:
 // [R, blocks_per_row, 3, 12].
-__global__ void g1_msm_kernel(const u32* __restrict__ pts,
+__global__ void g1_msm_kernel(const u32* __restrict__ tab,
                               const u32* __restrict__ ks,
                               u32* __restrict__ out, long long N,
-                              int blocks_per_row) {
+                              int blocks_per_row, int nwin, int nbits,
+                              int mont) {
   __shared__ Pt sh[MSM_THREADS];
+  const int tpb = blockDim.x / MSM_SPLIT;
   const long long r = blockIdx.x / blocks_per_row;
   const int b = blockIdx.x % blocks_per_row;
-  const long long i = (long long)b * MSM_THREADS + threadIdx.x;
+  const long long i = (long long)b * tpb + threadIdx.x / MSM_SPLIT;
+  const int q = threadIdx.x % MSM_SPLIT;
   Pt acc;
+  pt_set_inf(&acc);
   if (i < N) {
-    Pt p;
     u32 k[NR];
-    load_pt(&p, pts + i * PW);
 #pragma unroll
     for (int j = 0; j < NR; ++j) k[j] = ks[(r * N + i) * NR + j];
-    fr_from_mont(k);
-    pt_scalar_mul(&acc, &p, k, 32 * NR);
-  } else {
-    pt_set_inf(&acc);
+    if (mont) fr_from_mont(k);
+    const int per = (nwin + MSM_SPLIT - 1) / MSM_SPLIT;
+    const int j0 = q * per;
+    const int j1 = j0 + per < nwin ? j0 + per : nwin;
+    table_sum(&acc, tab + i * nwin * WTAB * PW, k, j0, j1, nbits);
   }
   pt_copy(&sh[threadIdx.x], &acc);
   block_sum(sh);
-  if (threadIdx.x == 0) store_pt(out + (size_t)blockIdx.x * PW, &sh[0]);
+  if (threadIdx.x == 0) pt_store(out + (size_t)blockIdx.x * PW, &sh[0]);
 }
 
 // Block r sums the `parts` points of row r: parts [R, parts, 3, 12] ->
@@ -155,13 +185,45 @@ __global__ void g1_sum_rows_kernel(const u32* __restrict__ parts,
   const u32* row = parts + (size_t)blockIdx.x * n_parts * PW;
   Pt acc, t;
   pt_set_inf(&acc);
-  for (int j = threadIdx.x; j < n_parts; j += MSM_THREADS) {
-    load_pt(&t, row + (size_t)j * PW);
+  for (int j = threadIdx.x; j < n_parts; j += blockDim.x) {
+    pt_load(&t, row + (size_t)j * PW);
     pt_add(&acc, &acc, &t);
   }
   pt_copy(&sh[threadIdx.x], &acc);
   block_sum(sh);
-  if (threadIdx.x == 0) store_pt(out + (size_t)blockIdx.x * PW, &sh[0]);
+  if (threadIdx.x == 0) pt_store(out + (size_t)blockIdx.x * PW, &sh[0]);
+}
+
+// The Fp product alone, for checking it and its latency: out[i] =
+// a[i] b[i] R^-1 (chain = 0), or, in one thread, x <- x b[0] `chain` times
+// from x = a[0] (dependent products).
+__global__ void fp_mul_kernel(const u32* __restrict__ a,
+                              const u32* __restrict__ b,
+                              u32* __restrict__ out, long long n,
+                              long long chain) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  u32 x[NP], y[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    x[k] = a[i * NP + k];
+    y[k] = b[i * NP + k];
+  }
+  if (chain == 0) {
+    fp_mul(x, x, y);
+  } else {
+    for (long long s = 0; s < chain; ++s) fp_mul(x, x, y);
+  }
+#pragma unroll
+  for (int k = 0; k < NP; ++k) out[i * NP + k] = x[k];
+}
+
+// Threads a block of the MSM for N terms: MSM_SPLIT a term, up to 16
+// terms, a power of two.
+int msm_block(long long N) {
+  int tpb = 1;
+  while (tpb < N && tpb * MSM_SPLIT < MSM_THREADS) tpb *= 2;
+  return tpb * MSM_SPLIT;
 }
 
 }  // namespace
@@ -186,8 +248,9 @@ int zk_g1_add(const void* p, const void* q, void* out, long long n,
 }
 
 // out[i] = k[i] p[i] for i < n over the low nbits (1..256) bits of the
-// plain scalars.  pt_stride: 36 for [n, 3, 12] points, 0 for one shared
-// point; k_stride: 8 for [n, 8] scalars, 0 for one shared scalar.
+// plain scalars.  pt_stride: 36 for [n, 3, 12] points; k_stride: 8 for
+// [n, 8] scalars, 0 for one shared scalar.  (One shared point goes to the
+// table: zk_g1_msm_table and zk_g1_msm with N = 1.)
 int zk_g1_scalar_mul(const void* pts, long long pt_stride, const void* ks,
                      long long k_stride, void* out, long long n, int nbits,
                      void* stream) {
@@ -201,28 +264,59 @@ int zk_g1_scalar_mul(const void* pts, long long pt_stride, const void* ks,
   return cudaGetLastError();
 }
 
+// The table of N bases over nwin (1..64) windows: pts [N, 3, 12] -> tab
+// [N, nwin, 15, 3, 12].  *launches: the kernels launched.
+int zk_g1_msm_table(const void* pts, void* tab, long long N, int nwin,
+                    void* stream, int* launches) {
+  *launches = 0;
+  if (N <= 0 || nwin < 1 || nwin > NWIN) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long pairs = N * nwin;
+  const long long digit_blocks = (pairs + DIGIT_PAIRS - 1) / DIGIT_PAIRS;
+  if (digit_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  g1_table_chain_kernel<<<(unsigned)((N + CHAIN_THREADS - 1) / CHAIN_THREADS),
+                          CHAIN_THREADS, 0, s>>>(
+      static_cast<const u32*>(pts), static_cast<u32*>(tab), N, nwin);
+  int err = cudaGetLastError();
+  if (err) return err;
+  *launches = 1;
+  g1_table_digits_kernel<<<(unsigned)digit_blocks,
+                           DIGIT_PAIRS * DIGIT_THREADS, 0, s>>>(
+      static_cast<u32*>(tab), pairs);
+  err = cudaGetLastError();
+  if (err) return err;
+  *launches = 2;
+  return 0;
+}
+
 // The block sums a row of N terms is cut into; with 1 the sums of
 // g1_msm_kernel are the result and `parts` is not needed.
 long long zk_g1_msm_parts(long long N) {
-  return (N + MSM_THREADS - 1) / MSM_THREADS;
+  const int tpb = msm_block(N) / MSM_SPLIT;
+  return (N + tpb - 1) / tpb;
 }
 
-// out[r] = sum_i ks[r, i] pts[i].  pts: [N, 3, 12]; ks: [R, N, 8]
-// Montgomery scalars; out: [R, 3, 12]; parts: [R, zk_g1_msm_parts(N), 3,
-// 12] scratch, or null where that count is 1.  *launches: the kernels
+// out[r] = sum_i ks[r, i] P_i from the table of the P_i.  tab: [N, nwin,
+// 15, 3, 12] (zk_g1_msm_table); ks: [R, N, 8] scalars, Montgomery where
+// mont is 1, else plain, of which the low nbits bits count (nbits <=
+// 4 nwin); out: [R, 3, 12]; parts: [R, zk_g1_msm_parts(N), 3, 12]
+// scratch, or null where that count is 1.  *launches: the kernels
 // launched.
-int zk_g1_msm(const void* pts, const void* ks, void* out, void* parts,
-              long long R, long long N, void* stream, int* launches) {
+int zk_g1_msm(const void* tab, const void* ks, void* out, void* parts,
+              long long R, long long N, int nwin, int nbits, int mont,
+              void* stream, int* launches) {
   *launches = 0;
-  if (R <= 0 || N <= 0) return cudaErrorInvalidValue;
+  if (R <= 0 || N <= 0 || nwin < 1 || nwin > NWIN || nbits < 1 ||
+      nbits > WBITS * nwin)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long per_row = zk_g1_msm_parts(N);
   if (R * per_row > 0x7fffffffLL) return cudaErrorInvalidValue;
   u32* first = static_cast<u32*>(per_row == 1 ? out : parts);
   if (!first) return cudaErrorInvalidValue;
-  g1_msm_kernel<<<(unsigned)(R * per_row), MSM_THREADS, 0, s>>>(
-      static_cast<const u32*>(pts), static_cast<const u32*>(ks), first, N,
-      (int)per_row);
+  g1_msm_kernel<<<(unsigned)(R * per_row), msm_block(N), 0, s>>>(
+      static_cast<const u32*>(tab), static_cast<const u32*>(ks), first, N,
+      (int)per_row, nwin, nbits, mont);
   int err = cudaGetLastError();
   if (err) return err;
   *launches = 1;
@@ -234,6 +328,20 @@ int zk_g1_msm(const void* pts, const void* ks, void* out, void* parts,
     *launches = 2;
   }
   return 0;
+}
+
+// The check entry of the Fp product: out[i] = a[i] b[i] R^-1 mod p for
+// i < n ([n, 12] canonical Montgomery words) where chain is 0; else one
+// thread multiplies a[0] by b[0] `chain` times over, each product waiting
+// for the last, into out[0].
+int zk_fp_mul(const void* a, const void* b, void* out, long long n,
+              long long chain, void* stream) {
+  if (n <= 0 || chain < 0 || (chain && n != 1)) return cudaErrorInvalidValue;
+  fp_mul_kernel<<<(unsigned)((n + FP_THREADS - 1) / FP_THREADS), FP_THREADS,
+                  0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u32*>(a), static_cast<const u32*>(b),
+      static_cast<u32*>(out), n, chain);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

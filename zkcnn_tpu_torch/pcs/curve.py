@@ -4,18 +4,25 @@
 A point is a `[..., 3, 12]` int32 tensor: X, Y, Z as Montgomery words of
 Fp (R = 2^384, the integers the JAX package holds in 24 limbs); Z == 0
 is infinity.  `padd`, `pdouble` and `scalar_mul` take tensors on either
-device.  For CUDA tensors they launch a kernel of `csrc/g1_kernels.cu`
-or raise: nothing falls back.  Each kernel has a plain PyTorch version
-(`padd_plain`, `pdouble_plain`, `scalar_mul_plain`: the JAX formulas on
-`FP.mul/add/sub` with `torch.where` selects) that accepts tensors on
-either device, which is how a kernel is held against it on the card.
-For CPU tensors `padd` and `pdouble` run their plain versions.
-`scalar_mul` (and the MSM of `msm.py`) instead runs `scalar_mul_host`,
-Python integers on the host, as the JAX package does off the TPU
-(`_tape_gens`, `ZKCNN_TPU_MSM_HOST`): a 255-step double-and-add is
-about 2 x 10^6 small tensor operations in the plain version whatever
-the batch (an inner-product opening of 4 columns took 20 minutes on a
-CPU that way), against milliseconds a term in integers.
+device.  For CUDA tensors they launch kernels of `csrc/g1_kernels.cu`
+or raise: nothing falls back.  `scalar_mul` with one point shared by
+all scalars (the generators, the opening's auxiliary generator) is an
+MSM of one base: it builds that point's fixed-base table (`table_kernel`,
+kernel `g1_msm_table`) and sums a row a scalar from it
+(`table_msm_kernel`, kernel `g1_msm`, which `msm.FixedBaseMSM` also
+runs); with a point a thread it is the windowed `g1_scalar_mul` kernel.
+Each kernel has a plain PyTorch version (`padd_plain`, `pdouble_plain`,
+`scalar_mul_plain`, and in `msm.py` `msm_table_plain` and `msm_plain`:
+the JAX formulas on `FP.mul/add/sub` with `torch.where` selects) that
+accepts tensors on either device, which is how a kernel is held against
+it on the card.  For CPU tensors `padd` and `pdouble` run their plain
+versions.  `scalar_mul` (and the MSM of `msm.py`) instead runs
+`scalar_mul_host`, Python integers on the host, as the JAX package does
+off the TPU (`_tape_gens`, `ZKCNN_TPU_MSM_HOST`), and builds no table: a
+255-step double-and-add is about 2 x 10^6 small tensor operations in the
+plain version whatever the batch (an inner-product opening of 4 columns
+took 20 minutes on a CPU that way), against milliseconds a term in
+integers.
 
 A kernel returns the same group element as its plain version, and the
 same coordinates where the same formula was applied (`padd`, `pdouble`);
@@ -25,9 +32,10 @@ Counts, set to 0 by `reset_launches`: `LAUNCHES[name]` is the number of
 wrapper calls that launched kernel `name` (`pdouble` is the `g1_add`
 kernel without a second operand and counts there), `KERNEL_LAUNCHES`
 the device kernels they launched, `SHAPES` the shapes they launched at
-(`g1_scalar_mul`: n, nbits and "point" or "scalar" where all threads
-shared one) and `PLAIN_CALLS` the calls that did not go to a kernel (the plain and
-the host versions).
+(`g1_scalar_mul`: n, nbits and "scalar" where all threads shared one;
+`g1_msm_table`: bases and windows; `g1_msm`: rows and bases) and
+`PLAIN_CALLS` the calls that did not go to a kernel (the plain and the
+host versions).
 
 Pure-Python integer versions (`py_add`, `py_mul`) are included for
 cross-checking and for host-side set-up.
@@ -48,7 +56,12 @@ G1_X = 0x17F1D3A73197D7942695638C4FA9AC0FC3688C4F9774B905A14E3A3F171BAC586C55E83
 G1_Y = 0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1
 G1_COFACTOR = 0x396C8C005555E1568C00AAAB0000AAAB
 
-NAMES = ("g1_add", "g1_scalar_mul", "g1_msm")
+NAMES = ("g1_add", "g1_scalar_mul", "g1_msm_table", "g1_msm")
+# the fixed-base table: 4-bit windows of a 256-bit scalar, 15 digit
+# multiples a window (csrc/g1_arith.cuh)
+WBITS = 4
+NWIN = 64
+WTAB = 15
 LAUNCHES = {k: 0 for k in NAMES}
 KERNEL_LAUNCHES = {k: 0 for k in NAMES}
 SHAPES = {k: set() for k in NAMES}
@@ -308,11 +321,49 @@ def _flat(x, lead, tail):
     return x.expand(lead + tail).reshape(-1, width).contiguous(), width
 
 
+def table_kernel(points, nwin: int = NWIN):
+    """The fixed-base table of CUDA points [N, 3, 12] over nwin windows:
+    [N, nwin, 15, 3, 12], entry (i, j, d - 1) = d 2^(4j) P_i.  One launch
+    of g1_msm_table (two device kernels)."""
+    pts = points.contiguous()
+    N = pts.shape[0]
+    tab = torch.empty((N, nwin, WTAB, 3, FP.n), dtype=torch.int32,
+                      device=pts.device)
+    n = ctypes.c_int(0)
+    launch(g1_lib().zk_g1_msm_table, pts.data_ptr(), tab.data_ptr(), N,
+           nwin, stream_of(pts.device), ctypes.byref(n))
+    count_launch("g1_msm_table", (N, nwin), n.value)
+    return tab
+
+
+def table_msm_kernel(tab, ks, nbits: int, mont: bool):
+    """[R, 3, 12]: row r is sum_i k[r, i] P_i from the table of the P_i
+    (`table_kernel`), for scalars ks [R, N, 8] on the card, Montgomery
+    words (mont) or the low nbits bits of plain ones.  One launch of
+    g1_msm (one or two device kernels)."""
+    R, N = ks.shape[:2]
+    ks = ks.contiguous()
+    lib = g1_lib()
+    out = torch.empty((R, 3, FP.n), dtype=torch.int32, device=ks.device)
+    per_row = lib.zk_g1_msm_parts(N)
+    parts = torch.empty((R, per_row, 3, FP.n), dtype=torch.int32,
+                        device=ks.device) if per_row > 1 else None
+    n = ctypes.c_int(0)
+    launch(lib.zk_g1_msm, tab.data_ptr(), ks.data_ptr(), out.data_ptr(),
+           parts.data_ptr() if parts is not None else None, R, N,
+           tab.shape[1], nbits, int(mont), stream_of(ks.device),
+           ctypes.byref(n))
+    count_launch("g1_msm", (R, N), n.value)
+    return out
+
+
 def scalar_mul(pt, scalars_plain, nbits: int = 255):
     """pt: [..., 3, 12] points; scalars_plain: [..., 8] plain (not
     Montgomery) Fr words; both broadcast over the leading dimensions.
     Multiplies by the low nbits bits of each scalar.  On a CUDA device:
-    one launch of g1_scalar_mul."""
+    with one shared point, its table over nbits / 4 windows and one MSM
+    of a row a scalar (g1_msm_table, g1_msm); else one launch of
+    g1_scalar_mul."""
     on_cuda = check_points("scalar_mul", pt)
     if scalars_plain.dtype != torch.int32 or scalars_plain.shape[-1] != FR.n \
             or scalars_plain.device != pt.device:
@@ -327,14 +378,18 @@ def scalar_mul(pt, scalars_plain, nbits: int = 255):
     n = math.prod(lead)
     p, p_stride = _flat(pt, lead, (3, FP.n))
     k, k_stride = _flat(scalars_plain, lead, (FR.n,))
+    if not n:
+        return torch.empty(lead + (3, FP.n), dtype=torch.int32,
+                           device=pt.device)
+    if p_stride == 0:
+        tab = table_kernel(p.reshape(1, 3, FP.n), -(-nbits // WBITS))
+        out = table_msm_kernel(tab, k.reshape(n, 1, FR.n), nbits, False)
+        return out.reshape(lead + (3, FP.n))
     out = torch.empty((n, 3, FP.n), dtype=torch.int32, device=pt.device)
-    if n:
-        launch(g1_lib().zk_g1_scalar_mul, p.data_ptr(), p_stride,
-               k.data_ptr(), k_stride, out.data_ptr(), n, nbits,
-               stream_of(pt.device))
-        shared = "point" if p_stride == 0 else \
-            "scalar" if k_stride == 0 else ""
-        count_launch("g1_scalar_mul", (n, nbits, shared))
+    launch(g1_lib().zk_g1_scalar_mul, p.data_ptr(), p_stride, k.data_ptr(),
+           k_stride, out.data_ptr(), n, nbits, stream_of(pt.device))
+    count_launch("g1_scalar_mul",
+                 (n, nbits, "scalar" if k_stride == 0 else ""))
     return out.reshape(lead + (3, FP.n))
 
 

@@ -20,12 +20,15 @@ ending with one scalar b0 and the check
 Same round messages (as group elements), same tape draws in the same
 order and the same b0 as the JAX package.  What differs is how the
 curve work is grouped, because on a CUDA device a launch of one term
-and a launch of 512 take the same time (one thread's chain of
-doublings): a round's L_k and R_k, Q terms included, are ONE two-row
-MSM over the bases [G_hi, Q, G_lo, Q] with zeros where a row does not
-reach; a fold of G is one scalar multiplication with a scalar a point;
-and the verifier's P*_final and its final left-hand side are one MSM
-each.  The prover's rounds fetch nothing from the device.
+and a launch of 512 take about the same time (one thread's chain of
+doublings: the table chain of a base, or a windowed scalar
+multiplication): a round's L_k and R_k, Q terms included, are ONE
+two-row MSM over the bases [G_hi, Q, G_lo, Q] (one table of those bases,
+built inside the round) with zeros where a row does not reach; a fold
+of G is one scalar multiplication with a scalar a point; and the
+verifier's final check is one MSM on the generators' table (the
+setup's) and one over [L_k, R_k, Q, P].  The prover's rounds fetch
+nothing from the device.
 """
 
 from typing import List
@@ -110,7 +113,9 @@ def ipa_prove(b, x, G, Q, t: int, tape) -> IpaProof:
 
 def ipa_verify(proof: IpaProof, x, G, Q, P, t: int, tape) -> bool:
     """Recompute challenges from the same tape and check the final
-    relation.  x: [L, 8]; G: [L, 3, 12]; P: commitment point to <b,G>."""
+    relation.  x: [L, 8]; G: the generators, [L, 3, 12] or a
+    FixedBaseMSM over them (the setup's, whose table is public); P:
+    commitment point to <b,G>."""
     L = x.shape[0]
     logn = L.bit_length() - 1
     assert len(proof.Ls) == logn
@@ -121,12 +126,6 @@ def ipa_verify(proof: IpaProof, x, G, Q, P, t: int, tape) -> bool:
         c = tape.field()
         chals.append((c, pow(c, FR_P - 2, FR_P)))
     tape.absorb(proof.b0)     # mirror the prover's transcript
-    # P*_final = P + t Q + sum_k (c_k^2 L_k + c_k^-2 R_k)
-    weights = [c * c % FR_P for c, _ in chals] \
-        + [ci * ci % FR_P for _, ci in chals] + [t % FR_P, 1]
-    P_star = _msm_small(
-        torch.stack(proof.Ls + proof.Rs + [Q, P]),
-        torch.from_numpy(FR.pack_mont_host(weights)).to(dev))
     # s_i = prod over rounds of (c_k if bit else c_k^-1); round k splits
     # on index bit (logn-1-k) from the top; the lo half takes the
     # inverse role.  G and x fold with the SAME orientation, so one
@@ -136,9 +135,17 @@ def ipa_verify(proof: IpaProof, x, G, Q, P, t: int, tape) -> bool:
         bit = 1 << (logn - 1 - k)
         for i in range(L):
             s[i] = s[i] * (c if (i & bit) else cinv) % FR_P
-    # b0 G_final + (b0 x_final) Q with G_final = <s, G>, x_final = <s, x>
+    # The check b0 G_final + (b0 x_final) Q == P*_final, with G_final =
+    # <s, G>, x_final = <s, x> and P*_final = P + t Q + sum_k (c_k^2 L_k +
+    # c_k^-2 R_k), as <b0 s, G> == P + (t - b0 x_final) Q + sum_k (...):
+    # the left side on the generators' table, the right side one MSM.
     sb = torch.from_numpy(FR.pack_mont_host(
         [si * proof.b0 % FR_P for si in s])).to(dev)
-    lhs = _msm_small(torch.cat([G, Q[None]]),
-                     torch.cat([sb, FR.dot_mont(sb, x)[None]]))
-    return bool(points_equal(lhs, P_star).cpu())
+    weights = torch.from_numpy(FR.pack_mont_host(
+        [c * c % FR_P for c, _ in chals]
+        + [ci * ci % FR_P for _, ci in chals] + [t % FR_P, 1])).to(dev)
+    weights[-2] = FR.sub(weights[-2], FR.dot_mont(sb, x))
+    rhs = _msm_small(torch.stack(proof.Ls + proof.Rs + [Q, P]), weights)
+    gen_msm = G if isinstance(G, FixedBaseMSM) else FixedBaseMSM(G)
+    lhs = gen_msm.compute(sb[None])[0]
+    return bool(points_equal(lhs, rhs).cpu())

@@ -6,19 +6,23 @@ row r is sum_i k[r, i] P_i, the scalars given as Montgomery words.  The
 contract is the group element, not its Jacobian coordinates (compare
 with `points_equal`).
 
-On a CUDA device one call is the `g1_msm` kernel of
-`csrc/g1_kernels.cu`: a thread a term, a tree of additions within a
-block and a second launch across a row's blocks.  The JAX package's
-design (a table of digit multiples, a gather a window, a dense tree,
-chunking of the gathered tensor) answers XLA's dense model and is not
-carried over.  The plain PyTorch version (`msm_plain`: the scalars out
-of Montgomery form, `scalar_mul_plain` a term, a tree along each row)
-takes tensors on either device and is what the kernel is held against.
-For CPU tensors `compute` runs `msm_host`, Python integers on the host
-(see `curve.py` for why).
+On a CUDA device the JAX package's design is kept where it serves the
+card: the constructor builds a fixed-base table of the bases (kernel
+`g1_msm_table`: d 2^(4j) P_i for 4-bit digits d and 64 windows j, as
+the JAX package's `build_table` does at construction), and `compute` is
+one launch of kernel `g1_msm`, which adds the table entry of every
+nonzero digit of every term (no doubling), a thread a term's quarter of
+the windows, a tree within a block and a second kernel across a row's
+blocks.  What the JAX package does for XLA's dense model (signed
+radix-256 digits, GLV, a gather a window and a Horner step between
+windows) is not carried over.  The plain PyTorch versions,
+`msm_table_plain` (the table from the plain doubling and addition) and
+`msm_plain` (the scalars out of Montgomery form, `scalar_mul_plain` a
+term, a tree along each row), take tensors on either device and are
+what the kernels are held against.  For CPU tensors the constructor
+builds no table and `compute` runs `msm_host`, Python integers on the
+host (see `curve.py` for why).
 """
-
-import ctypes
 
 import torch
 
@@ -54,14 +58,36 @@ def msm_host(points, scalars_mont):
     return torch.from_numpy(curve.affine_pack(rows))
 
 
+def msm_table_plain(points, nwin: int = curve.NWIN):
+    """[N, 3, 12] -> [N, nwin, 15, 3, 12], entry (i, j, d - 1) =
+    d 2^(4j) P_i: the table of `g1_msm_table` (as group elements) from the
+    plain doubling and addition, the multiples made as the kernel makes
+    them (entry m + e = entry m + entry e, m = 1, 2, 4, 8)."""
+    curve.PLAIN_CALLS["g1_msm_table"] += 1
+    q, cols = points, [points]
+    for _ in range(1, nwin):
+        for _ in range(curve.WBITS):
+            q = curve._pdouble(q)
+        cols.append(q)
+    rows = [torch.stack(cols, 1)]                 # rows[d - 1]: d 2^(4j) P
+    m = 1
+    while m < curve.WTAB:
+        take = min(m, curve.WTAB - m)
+        rows.extend(curve._padd(rows[m - 1][None],
+                                torch.stack(rows[:take])).unbind(0))
+        m *= 2
+    return torch.stack(rows, 2)
+
+
 class FixedBaseMSM:
     def __init__(self, points):
-        curve.check_points("FixedBaseMSM", points)
+        on_cuda = curve.check_points("FixedBaseMSM", points)
         if points.dim() != 3:
             raise ValueError(f"FixedBaseMSM: expected [N, 3, {FP.n}] points, "
                              f"got {tuple(points.shape)}")
         self.points = points.contiguous()
         self.n_points = int(points.shape[0])
+        self.table = curve.table_kernel(self.points) if on_cuda else None
 
     def compute(self, scalars_mont):
         """scalars_mont [R, N, 8] (Montgomery) -> [R, 3, 12] points."""
@@ -74,22 +100,10 @@ class FixedBaseMSM:
                 f"{FR.n}] int32 scalars on {pts.device}, got "
                 f"{tuple(scalars_mont.shape)} {scalars_mont.dtype} on "
                 f"{scalars_mont.device}")
-        if pts.device.type != "cuda":
+        if self.table is None:
             return msm_host(pts, scalars_mont)
-        R, N = scalars_mont.shape[:2]
-        ks = scalars_mont.contiguous()
-        lib = curve.g1_lib()
-        out = torch.empty((R, 3, FP.n), dtype=torch.int32, device=pts.device)
-        per_row = lib.zk_g1_msm_parts(N)
-        parts = torch.empty((R, per_row, 3, FP.n), dtype=torch.int32,
-                            device=pts.device) if per_row > 1 else None
-        n = ctypes.c_int(0)
-        curve.launch(lib.zk_g1_msm, pts.data_ptr(), ks.data_ptr(),
-                     out.data_ptr(),
-                     parts.data_ptr() if parts is not None else None,
-                     R, N, curve.stream_of(pts.device), ctypes.byref(n))
-        curve.count_launch("g1_msm", (R, N), n.value)
-        return out
+        return curve.table_msm_kernel(self.table, scalars_mont,
+                                      curve.WBITS * curve.NWIN, True)
 
 
 def points_equal(p, q):
