@@ -454,12 +454,13 @@ def g1_bound(torch, curve, name, shape, scalars):
 
 def table_bound(shape):
     """(bound_ms, bound_by) of g1_msm_table at (N, nwin), counted as
-    g1_bound counts: 4 (nwin - 1) doublings of 7 products a base and 14
-    additions of 11 products (a Z = 1 entry) a window, or the bytes of
-    the bases in and the table out."""
+    g1_bound counts: the chain 2^t P, t < 4 nwin, is 4 nwin - 1 doublings
+    of 7 products a base and holds the digits 1, 2, 4 and 8 of every
+    window; the other 11 digits are one addition of 11 products (a Z = 1
+    entry) each.  Or the bytes of the bases in and the table out."""
     N, nwin = shape
-    products = N * (DOUBLE_PRODUCTS * 4 * (nwin - 1)
-                    + MIXED_ADD_PRODUCTS * 14 * nwin)
+    products = N * (DOUBLE_PRODUCTS * (4 * nwin - 1)
+                    + MIXED_ADD_PRODUCTS * 11 * nwin)
     nbytes = N * POINT_BYTES * (1 + 15 * nwin)
     by_bytes = nbytes / MEM_BYTES_S * 1e3
     by_ops = products * FP_MULS / INT32_MULS_S * 1e3

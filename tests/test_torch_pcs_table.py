@@ -105,9 +105,9 @@ def _jacobian(rng, P):
 
 
 def test_table_built_for_the_host_matches_python_ints(host_lib):
-    """table_build (the chain 2^(4j) P and the digit multiples in rounds
-    m = 1, 2, 4, 8) for three bases, one of them infinity, at 64 and at 5
-    windows."""
+    """table_build (the chain 2^t P, stored as the digits 1, 2, 4, 8, and
+    the other digit multiples in rounds m = 2, 4, 8) for three bases, one
+    of them infinity, at 64 and at 5 windows."""
     rng = np.random.default_rng(31)
     bases = [curve.py_mul(G, int(rng.integers(1, 1 << 62))), G, None]
     for P in bases:

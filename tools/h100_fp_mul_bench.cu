@@ -1,21 +1,18 @@
-// Variants of the curve kernels' Fp product on one NVIDIA GPU: what the
-// product's form costs in a thread's chain of dependent products, inside
-// the point formulas (a doubling of 7 products, an addition of 16), in a
-// windowed scalar multiplication (one thread: 15 table entries, then 64
-// windows of 4 doublings and an addition, as g1_scalar_mul runs), in
-// additions over 2^18 threads (16 each, as g1_msm's threads run them) and
-// in products over 2^20 threads.  Each variant is checked against the
-// product of csrc/g1_arith.cuh.
+// The curve kernels' Fp product on one NVIDIA GPU at each unrolling of its
+// outer loop: what the form costs in a thread's chain of dependent
+// products, inside the point formulas (a doubling of 7 products, an
+// addition of 16), in a windowed scalar multiplication (one thread: 15
+// table entries, then 64 windows of 4 doublings and an addition, as
+// g1_scalar_mul runs), in additions over 2^18 threads (16 each, as
+// g1_msm's threads run them) and in products over 2^20 threads.  Every form
+// is the header's own code (fp_mul<U>, pt_double<U>, pt_add<U> of
+// csrc/g1_arith.cuh; U steps a pass of the loop, U = 12 fully unrolled);
+// the kernels take U = MUL_UNROLL.  Each form is checked against that one.
+// From the root of the repository:
 //
-//     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-//         -o /tmp/fp_mul_bench tools/h100_fp_mul_bench.cu && /tmp/fp_mul_bench
-//
-// Variants: "header" is fp_mul as the kernels use it; "ptx/U" the same
-// PTX carry chains with U steps of the outer loop unrolled (U = 12: fully
-// unrolled), inlined into the formulas; "call/U" the same as one
-// __noinline__ function that the formulas call (operands in local
-// memory); "portable" the host build's loop on 64-bit intermediates,
-// fully unrolled, left to the compiler.
+//     mkdir -p .cuda_build && nvcc -gencode arch=compute_90a,code=sm_90a \
+//         -std=c++17 -O3 -o .cuda_build/fp_mul_bench \
+//         tools/h100_fp_mul_bench.cu && .cuda_build/fp_mul_bench
 
 #include <cstdint>
 #include <cstdio>
@@ -26,162 +23,7 @@
 
 using namespace g1;
 
-constexpr int PORTABLE = 0;
-
 template <int U>
-__device__ __forceinline__ void mul_v(u32* r, const u32* a, const u32* b) {
-#ifdef __CUDA_ARCH__
-  u32 bw[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) bw[k] = b[k];
-  if (U > 0) {
-    u32 t[NP + 1];
-#pragma unroll
-    for (int k = 0; k <= NP; ++k) t[k] = 0;
-#pragma unroll 1
-    for (int i = 0; i < NP; i += (U > 0 ? U : 1)) {
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const u32 bi = bw[u];
-        t[0] = ptx::mad_lo_cc(a[0], bi, t[0]);
-#pragma unroll
-        for (int j = 1; j < NP; ++j) t[j] = ptx::madc_lo_cc(a[j], bi, t[j]);
-        t[NP] = ptx::addc(t[NP], 0);
-        t[1] = ptx::mad_hi_cc(a[0], bi, t[1]);
-#pragma unroll
-        for (int j = 1; j < NP - 1; ++j)
-          t[j + 1] = ptx::madc_hi_cc(a[j], bi, t[j + 1]);
-        t[NP] = ptx::madc_hi(a[NP - 1], bi, t[NP]);
-        const u32 m = t[0] * FP_INV;
-        t[0] = ptx::mad_lo_cc(m, FP_MOD[0], t[0]);
-#pragma unroll
-        for (int j = 1; j < NP; ++j)
-          t[j] = ptx::madc_lo_cc(m, FP_MOD[j], t[j]);
-        t[NP] = ptx::addc(t[NP], 0);
-        t[1] = ptx::mad_hi_cc(m, FP_MOD[0], t[1]);
-#pragma unroll
-        for (int j = 1; j < NP - 1; ++j)
-          t[j + 1] = ptx::madc_hi_cc(m, FP_MOD[j], t[j + 1]);
-        t[NP] = ptx::madc_hi(m, FP_MOD[NP - 1], t[NP]);
-#pragma unroll
-        for (int k = 0; k < NP; ++k) t[k] = t[k + 1];
-        t[NP] = 0;
-      }
-#pragma unroll
-      for (int k = 0; k + U < NP; ++k) bw[k] = bw[k + U];
-    }
-    fp_cond_sub(r, t);
-    return;
-  }
-  u32 t[NP + 2];
-#pragma unroll
-  for (int k = 0; k < NP + 2; ++k) t[k] = 0;
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    const u32 bi = bw[i];
-    u64 c = 0;
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      u64 s = (u64)a[j] * bi + t[j] + c;
-      t[j] = (u32)s;
-      c = s >> 32;
-    }
-    u64 s = (u64)t[NP] + c;
-    t[NP] = (u32)s;
-    t[NP + 1] = (u32)(s >> 32);
-    const u32 m = t[0] * FP_INV;
-    s = (u64)m * FP_MOD[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < NP; ++j) {
-      s = (u64)m * FP_MOD[j] + t[j] + c;
-      t[j - 1] = (u32)s;
-      c = s >> 32;
-    }
-    s = (u64)t[NP] + c;
-    t[NP - 1] = (u32)s;
-    t[NP] = t[NP + 1] + (u32)(s >> 32);
-  }
-  fp_cond_sub(r, t);
-#endif
-}
-
-template <int U>
-__device__ __noinline__ void mul_call(u32* r, const u32* a, const u32* b) {
-  mul_v<U>(r, a, b);
-}
-
-// V < 0: the header's fp_mul; V >= CALL: call/(V - CALL)
-constexpr int CALL = 100;
-
-template <int V>
-__device__ __forceinline__ void mul(u32* r, const u32* a, const u32* b) {
-  if (V < 0)
-    fp_mul(r, a, b);
-  else if (V >= CALL)
-    mul_call<(V >= CALL ? V - CALL : 0)>(r, a, b);
-  else
-    mul_v<(V >= 0 && V < CALL ? V : 0)>(r, a, b);
-}
-
-// pt_double's and pt_add's formulas (no edge cases) on variant V
-template <int V>
-__device__ __noinline__ void dbl(Pt* r, const Pt* p) {
-  u32 A[NP], B[NP], C[NP], D[NP], E[NP], F[NP], t[NP], Z3[NP];
-  mul<V>(Z3, p->y, p->z);
-  fp_add(Z3, Z3, Z3);
-  mul<V>(A, p->x, p->x);
-  mul<V>(B, p->y, p->y);
-  mul<V>(C, B, B);
-  fp_add(t, p->x, B);
-  mul<V>(D, t, t);
-  fp_sub(D, D, A);
-  fp_sub(D, D, C);
-  fp_add(D, D, D);
-  fp_add(E, A, A);
-  fp_add(E, E, A);
-  mul<V>(F, E, E);
-  fp_add(t, D, D);
-  fp_sub(r->x, F, t);
-  fp_add(C, C, C);
-  fp_add(C, C, C);
-  fp_add(C, C, C);
-  fp_sub(t, D, r->x);
-  mul<V>(t, E, t);
-  fp_sub(r->y, t, C);
-  fp_copy(r->z, Z3);
-}
-
-template <int V>
-__device__ __noinline__ void add(Pt* r, const Pt* p, const Pt* q) {
-  u32 Z1Z1[NP], Z2Z2[NP], U1[NP], U2[NP], S1[NP], S2[NP], H[NP], rr[NP];
-  mul<V>(Z1Z1, p->z, p->z);
-  mul<V>(Z2Z2, q->z, q->z);
-  mul<V>(U1, p->x, Z2Z2);
-  mul<V>(U2, q->x, Z1Z1);
-  mul<V>(S1, p->y, q->z);
-  mul<V>(S1, S1, Z2Z2);
-  mul<V>(S2, q->y, p->z);
-  mul<V>(S2, S2, Z1Z1);
-  fp_sub(H, U2, U1);
-  fp_sub(rr, S2, S1);
-  u32 *HH = Z1Z1, *HHH = Z2Z2, *W = U2, *t = S2;
-  mul<V>(HH, H, H);
-  mul<V>(HHH, H, HH);
-  mul<V>(W, U1, HH);
-  mul<V>(t, p->z, q->z);
-  mul<V>(r->z, t, H);
-  mul<V>(t, rr, rr);
-  fp_sub(t, t, HHH);
-  fp_sub(t, t, W);
-  fp_sub(r->x, t, W);
-  fp_sub(t, W, r->x);
-  mul<V>(t, rr, t);
-  mul<V>(S1, S1, HHH);
-  fp_sub(r->y, t, S1);
-}
-
-template <int V>
 __global__ void chain_k(const u32* a, const u32* b, u32* out, int iters,
                         int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -191,47 +33,47 @@ __global__ void chain_k(const u32* a, const u32* b, u32* out, int iters,
     x[k] = a[i * NP + k];
     y[k] = b[i * NP + k];
   }
-  for (int s = 0; s < iters; ++s) mul<V>(x, x, y);
+  for (int s = 0; s < iters; ++s) fp_mul<U>(x, x, y);
   for (int k = 0; k < NP; ++k) out[i * NP + k] = x[k];
 }
 
-template <int V>
+template <int U>
 __global__ void point_k(const u32* p, u32* out, int iters, int adding) {
   Pt q, b;
   pt_load(&q, p);
   pt_load(&b, p + PW);
   for (int s = 0; s < iters; ++s) {
     if (adding)
-      add<V>(&q, &q, &b);
+      pt_add<U>(&q, &q, &b);
     else
-      dbl<V>(&q, &q);
+      pt_double<U>(&q, &q);
   }
   pt_store(out, &q);
 }
 
-// k P by 4-bit windows in one thread, on variant V's formulas: 15 table
+// k P by 4-bit windows in one thread, on form U's formulas: 15 table
 // entries, then 64 windows of 4 doublings and one addition (no digit is
 // zero here)
-template <int V>
+template <int U>
 __global__ void window_k(const u32* p, u32* out) {
   Pt tab[15], acc;
   pt_load(&tab[0], p);
   for (int d = 2; d <= 15; ++d) {
     if (d & 1)
-      add<V>(&tab[d - 1], &tab[d - 2], &tab[0]);
+      pt_add<U>(&tab[d - 1], &tab[d - 2], &tab[0]);
     else
-      dbl<V>(&tab[d - 1], &tab[d / 2 - 1]);
+      pt_double<U>(&tab[d - 1], &tab[d / 2 - 1]);
   }
   pt_copy(&acc, &tab[14]);
   for (int w = 0; w < 64; ++w) {
-    for (int s = 0; s < 4; ++s) dbl<V>(&acc, &acc);
-    add<V>(&acc, &acc, &tab[(w * 7) % 15]);
+    for (int s = 0; s < 4; ++s) pt_double<U>(&acc, &acc);
+    pt_add<U>(&acc, &acc, &tab[(w * 7) % 15]);
   }
   pt_store(out, &acc);
 }
 
 // n threads, 16 additions each of points read from memory
-template <int V>
+template <int U>
 __global__ void sum_k(const u32* pts, u32* out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -239,7 +81,7 @@ __global__ void sum_k(const u32* pts, u32* out, int n) {
   pt_load(&acc, pts + (size_t)(i % 4096) * PW);
   for (int s = 1; s <= 16; ++s) {
     pt_load(&e, pts + (size_t)((i + 97 * s) % 4096) * PW);
-    add<V>(&acc, &acc, &e);
+    pt_add<U>(&acc, &acc, &e);
   }
   pt_store(out + (size_t)i * PW, &acc);
 }
@@ -272,33 +114,34 @@ float time_ms(F f) {
   return ms / 3;
 }
 
-template <int V>
+template <int U>
 void run(const char* name, u32* a, u32* b, u32* o, u32* o2, u32* pt,
          u32* ref) {
   const int c1 = 2000, c2 = 20000, n = 1 << 20;
-  const float t1 = time_ms([&] { chain_k<V><<<1, 1>>>(a, b, o, c1, 1); });
-  const float t2 = time_ms([&] { chain_k<V><<<1, 1>>>(a, b, o, c2, 1); });
-  const float tt = time_ms([&] { chain_k<V><<<n / 128, 128>>>(a, b, o2, 16, n); });
+  const float t1 = time_ms([&] { chain_k<U><<<1, 1>>>(a, b, o, c1, 1); });
+  const float t2 = time_ms([&] { chain_k<U><<<1, 1>>>(a, b, o, c2, 1); });
+  const float tt =
+      time_ms([&] { chain_k<U><<<n / 128, 128>>>(a, b, o2, 16, n); });
   float pts[2];
   for (int adding = 0; adding < 2; ++adding) {
-    const float p1 = time_ms([&] { point_k<V><<<1, 1>>>(pt, o, 20, adding); });
-    const float p2 = time_ms([&] { point_k<V><<<1, 1>>>(pt, o, 270, adding); });
+    const float p1 = time_ms([&] { point_k<U><<<1, 1>>>(pt, o, 20, adding); });
+    const float p2 = time_ms([&] { point_k<U><<<1, 1>>>(pt, o, 270, adding); });
     pts[adding] = (p2 - p1) / 250 * 1e6f / (adding ? 16 : 7);
   }
-  const float tw = time_ms([&] { window_k<V><<<1, 1>>>(pt, o); });
+  const float tw = time_ms([&] { window_k<U><<<1, 1>>>(pt, o); });
   const int ns = 1 << 18;
-  const float ts = time_ms([&] { sum_k<V><<<ns / 64, 64>>>(o2, ref, ns); });
+  const float ts = time_ms([&] { sum_k<U><<<ns / 64, 64>>>(o2, ref, ns); });
   static u32 h[NP * 64], hr[NP * 64];
-  chain_k<V><<<1, 64>>>(a, b, o, 777, 64);
+  chain_k<U><<<1, 64>>>(a, b, o, 777, 64);
   CK(cudaMemcpy(h, o, sizeof(h), cudaMemcpyDeviceToHost));
-  chain_k<-1><<<1, 64>>>(a, b, ref, 777, 64);
+  chain_k<MUL_UNROLL><<<1, 64>>>(a, b, ref, 777, 64);
   CK(cudaMemcpy(hr, ref, sizeof(hr), cudaMemcpyDeviceToHost));
   int same = 1;
   for (int k = 0; k < NP * 64; ++k) same &= h[k] == hr[k];
-  printf("%-9s dependent product %7.1f ns; in a doubling %7.1f ns and in an "
+  printf("%-6s dependent product %7.1f ns; in a doubling %7.1f ns and in an "
          "addition %7.1f ns a product; windowed scalar mul %.4f ms; "
          "additions over 2^18 threads %.4f ns each; products over 2^20 "
-         "threads %.4f ns each; equal to the header's: %s\n",
+         "threads %.4f ns each; equal to U = MUL_UNROLL: %s\n",
          name, (t2 - t1) / (c2 - c1) * 1e6f, pts[0], pts[1], tw,
          ts / (16.0f * ns) * 1e6f, tt / (16.0f * n) * 1e6f,
          same ? "yes" : "NO");
@@ -314,8 +157,8 @@ int main() {
   CK(cudaMalloc(&o2, n * NP * 4));
   CK(cudaMalloc(&ref, n * NP * 4));
   CK(cudaMalloc(&pt, 2 * PW * 4));
-  // words below p (top word under 2^16); the points are random words,
-  // which the formulas without edge cases take as they come
+  // words below p (top word under 2^16); the points are random words, on
+  // which the formulas' edge cases (Z = 0, equal x) do not arise
   u32* h = (u32*)malloc((size_t)n * NP * 4);
   unsigned s = 12345;
   for (int pass = 0; pass < 2; ++pass) {
@@ -327,13 +170,11 @@ int main() {
                   cudaMemcpyHostToDevice));
   }
   CK(cudaMemcpy(pt, h, 2 * PW * 4, cudaMemcpyHostToDevice));
-  run<-1>("header", a, b, o, o2, pt, ref);
-  run<1>("ptx/1", a, b, o, o2, pt, ref);
-  run<2>("ptx/2", a, b, o, o2, pt, ref);
-  run<4>("ptx/4", a, b, o, o2, pt, ref);
-  run<12>("ptx/12", a, b, o, o2, pt, ref);
-  run<CALL + 4>("call/4", a, b, o, o2, pt, ref);
-  run<CALL + 12>("call/12", a, b, o, o2, pt, ref);
-  run<PORTABLE>("portable", a, b, o, o2, pt, ref);
+  run<1>("U = 1", a, b, o, o2, pt, ref);
+  run<2>("U = 2", a, b, o, o2, pt, ref);
+  run<3>("U = 3", a, b, o, o2, pt, ref);
+  run<4>("U = 4", a, b, o, o2, pt, ref);
+  run<6>("U = 6", a, b, o, o2, pt, ref);
+  run<12>("U = 12", a, b, o, o2, pt, ref);
   return 0;
 }

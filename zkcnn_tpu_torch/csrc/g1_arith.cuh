@@ -24,16 +24,21 @@
 // algorithm.  One product is 288 multiplies for the 12 x 12 words and
 // their reduction; a thread's dependent products are bound by the latency
 // of the carry chains (48 chains of 12-13 instructions that share the one
-// carry flag, so nothing overlaps them), which chip_smoke.py measures.  The point formulas stay calls
-// (ZK_DEV_NOINLINE): inlined, a doubling is 7 products and an addition 16,
-// and every caller would carry their code; as calls the kernels build in
-// seconds and their operands (Pt) sit in local memory, 36 word accesses
-// beside 288 multiplies a product.
+// carry flag, so nothing overlaps them), which chip_smoke.py measures.
+// The point formulas stay calls (ZK_DEV_NOINLINE): inlined, a doubling is
+// 7 products and an addition 16, and every caller would carry their code;
+// as calls the kernels build in seconds and their operands (Pt) sit in
+// local memory, 36 word accesses beside 288 multiplies a product.  The
+// product and the formulas take the product's unrolling as a template
+// parameter (default MUL_UNROLL), so a bench can time the header's own
+// code in each form.
 //
 // The table (table_chain, table_step, table_build) holds, for a base P,
 // T[j][d - 1] = d 2^(4j) P for windows j < nwin and digits d = 1..15, so
 // that sum_i k_i P_i is the sum of T_i[j][digit_j(k_i)] over terms and
-// windows (table_sum) with no doubling at all.
+// windows (table_sum) with no doubling at all.  It costs 4 nwin - 1
+// doublings a base (the chain, whose doublings are the entries d = 1, 2,
+// 4, 8) and 11 additions a window (the other digits).
 
 #ifndef ZKCNN_G1_ARITH_CUH
 #define ZKCNN_G1_ARITH_CUH
@@ -197,11 +202,14 @@ ZK_INLINE void fp_sub(u32* r, const u32* a, const u32* b) {
 // MUL_UNROLL at a time in a loop that is not unrolled, the words of b
 // shifted down through registers: fully unrolled, a product is about 650
 // instructions, and the point formulas that inline 7 and 16 of them
-// outgrow the instruction cache (tools/h100_fp_mul_bench.cu measures the
-// forms).
+// outgrow the instruction cache.  U (a divisor of 12) is the steps a pass
+// of that loop; the kernels take MUL_UNROLL, and
+// tools/h100_fp_mul_bench.cu times the product and the formulas at each U.
 constexpr int MUL_UNROLL = 2;
 
+template <int U = MUL_UNROLL>
 ZK_INLINE void fp_mul(u32* r, const u32* a, const u32* b) {
+  static_assert(U >= 1 && NP % U == 0, "U must divide NP");
 #ifdef __CUDA_ARCH__
   u32 t[NP + 1], bw[NP];
 #pragma unroll
@@ -211,9 +219,9 @@ ZK_INLINE void fp_mul(u32* r, const u32* a, const u32* b) {
   }
   t[NP] = 0;
 #pragma unroll 1
-  for (int i = 0; i < NP; i += MUL_UNROLL) {
+  for (int i = 0; i < NP; i += U) {
 #pragma unroll
-    for (int u = 0; u < MUL_UNROLL; ++u) {
+    for (int u = 0; u < U; ++u) {
       const u32 bi = bw[u];
       t[0] = ptx::mad_lo_cc(a[0], bi, t[0]);
 #pragma unroll
@@ -240,7 +248,7 @@ ZK_INLINE void fp_mul(u32* r, const u32* a, const u32* b) {
       t[NP] = 0;
     }
 #pragma unroll
-    for (int k = 0; k < NP - MUL_UNROLL; ++k) bw[k] = bw[k + MUL_UNROLL];
+    for (int k = 0; k < NP - U; ++k) bw[k] = bw[k + U];
   }
   fp_cond_sub(r, t);
 #else
@@ -308,35 +316,37 @@ ZK_DEV inline void pt_store(u32* dst, const Pt* p) {
 }
 
 // Jacobian doubling on y^2 = x^3 + 4 (a = 0); 2 inf = inf because
-// Z3 = 2 Y Z.  r may be p.
+// Z3 = 2 Y Z.  r may be p.  U: the product's form (fp_mul).
+template <int U = MUL_UNROLL>
 ZK_DEV_NOINLINE void pt_double(Pt* r, const Pt* p) {
   u32 A[NP], B[NP], C[NP], D[NP], E[NP], F[NP], t[NP], Z3[NP];
-  fp_mul(Z3, p->y, p->z);
+  fp_mul<U>(Z3, p->y, p->z);
   fp_add(Z3, Z3, Z3);
-  fp_mul(A, p->x, p->x);
-  fp_mul(B, p->y, p->y);
-  fp_mul(C, B, B);
+  fp_mul<U>(A, p->x, p->x);
+  fp_mul<U>(B, p->y, p->y);
+  fp_mul<U>(C, B, B);
   fp_add(t, p->x, B);
-  fp_mul(D, t, t);
+  fp_mul<U>(D, t, t);
   fp_sub(D, D, A);
   fp_sub(D, D, C);
   fp_add(D, D, D);
   fp_add(E, A, A);
   fp_add(E, E, A);
-  fp_mul(F, E, E);
+  fp_mul<U>(F, E, E);
   fp_add(t, D, D);
   fp_sub(r->x, F, t);          // X3 = F - 2D
   fp_add(C, C, C);
   fp_add(C, C, C);
   fp_add(C, C, C);             // 8C
   fp_sub(t, D, r->x);
-  fp_mul(t, E, t);
+  fp_mul<U>(t, E, t);
   fp_sub(r->y, t, C);          // Y3 = E (D - X3) - 8C
   fp_copy(r->z, Z3);
 }
 
 // Jacobian addition, complete: p + inf, inf + q, p == q (doubling) and
 // p == -q (canonical zeros).  r may be p or q.
+template <int U = MUL_UNROLL>
 ZK_DEV_NOINLINE void pt_add(Pt* r, const Pt* p, const Pt* q) {
   if (fp_is_zero(p->z)) {
     pt_copy(r, q);
@@ -347,19 +357,19 @@ ZK_DEV_NOINLINE void pt_add(Pt* r, const Pt* p, const Pt* q) {
     return;
   }
   u32 Z1Z1[NP], Z2Z2[NP], U1[NP], U2[NP], S1[NP], S2[NP], H[NP], rr[NP];
-  fp_mul(Z1Z1, p->z, p->z);
-  fp_mul(Z2Z2, q->z, q->z);
-  fp_mul(U1, p->x, Z2Z2);
-  fp_mul(U2, q->x, Z1Z1);
-  fp_mul(S1, p->y, q->z);
-  fp_mul(S1, S1, Z2Z2);
-  fp_mul(S2, q->y, p->z);
-  fp_mul(S2, S2, Z1Z1);
+  fp_mul<U>(Z1Z1, p->z, p->z);
+  fp_mul<U>(Z2Z2, q->z, q->z);
+  fp_mul<U>(U1, p->x, Z2Z2);
+  fp_mul<U>(U2, q->x, Z1Z1);
+  fp_mul<U>(S1, p->y, q->z);
+  fp_mul<U>(S1, S1, Z2Z2);
+  fp_mul<U>(S2, q->y, p->z);
+  fp_mul<U>(S2, S2, Z1Z1);
   fp_sub(H, U2, U1);
   fp_sub(rr, S2, S1);
   if (fp_is_zero(H)) {
     if (fp_is_zero(rr))
-      pt_double(r, p);
+      pt_double<U>(r, p);
     else
       pt_set_inf(r);
     return;
@@ -368,18 +378,18 @@ ZK_DEV_NOINLINE void pt_add(Pt* r, const Pt* p, const Pt* q) {
   u32* HHH = Z2Z2;
   u32* V = U2;
   u32* t = S2;
-  fp_mul(HH, H, H);
-  fp_mul(HHH, H, HH);
-  fp_mul(V, U1, HH);
-  fp_mul(t, p->z, q->z);
-  fp_mul(r->z, t, H);          // Z3 = Z1 Z2 H (p->z, q->z not read again)
-  fp_mul(t, rr, rr);
+  fp_mul<U>(HH, H, H);
+  fp_mul<U>(HHH, H, HH);
+  fp_mul<U>(V, U1, HH);
+  fp_mul<U>(t, p->z, q->z);
+  fp_mul<U>(r->z, t, H);       // Z3 = Z1 Z2 H (p->z, q->z not read again)
+  fp_mul<U>(t, rr, rr);
   fp_sub(t, t, HHH);
   fp_sub(t, t, V);
   fp_sub(r->x, t, V);          // X3 = r^2 - HHH - 2V
   fp_sub(t, V, r->x);
-  fp_mul(t, rr, t);
-  fp_mul(S1, S1, HHH);
+  fp_mul<U>(t, rr, t);
+  fp_mul<U>(S1, S1, HHH);
   fp_sub(r->y, t, S1);         // Y3 = r (V - X3) - S1 HHH
 }
 
@@ -448,31 +458,28 @@ ZK_DEV inline void pt_scalar_mul(Pt* acc, const Pt* p, const u32* k,
 // words.  NWIN windows cover a 256-bit scalar.
 constexpr int NWIN = 64;
 
-// Entry (j, 0) = 2^(4j) P for every window j: one chain of 4 (nwin - 1)
-// doublings.
+// Entries (j, d - 1) for d = 1, 2, 4, 8, that is 2^(4j + s) P for s < 4,
+// of every window j: one chain of 4 nwin - 1 doublings, each stored.
 ZK_DEV inline void table_chain(u32* tab, const Pt* p, int nwin) {
   Pt q;
   pt_copy(&q, p);
-  for (int j = 0; j < nwin; ++j) {
-    if (j)
-      for (int s = 0; s < WBITS; ++s) pt_double(&q, &q);
-    pt_store(tab + (long long)j * WTAB * PW, &q);
-  }
+  for (int j = 0; j < nwin; ++j)
+    for (int s = 0; s < WBITS; ++s) {
+      if (j || s) pt_double(&q, &q);
+      pt_store(tab + ((long long)j * WTAB + (1 << s) - 1) * PW, &q);
+    }
 }
 
 // One entry of a round of the digit multiples of a window (win: its WTAB
-// points): entry m + e = entry m + entry e, for 1 <= e <= m and
-// m + e <= WTAB.  Rounds m = 1, 2, 4, 8 make d = 2..15 from d = 1; the
-// entries a round reads were written by earlier rounds.
+// points): entry m + e = entry m + entry e, for 1 <= e < m and
+// m + e <= WTAB.  Rounds m = 2, 4, 8 make the 11 digits that are not
+// powers of two by one addition each; the entries a round reads come
+// from the chain or from earlier rounds.
 ZK_DEV inline void table_step(u32* win, int m, int e) {
   Pt a, b;
   pt_load(&a, win + (m - 1) * PW);
-  if (e == m) {
-    pt_double(&a, &a);
-  } else {
-    pt_load(&b, win + (e - 1) * PW);
-    pt_add(&a, &a, &b);
-  }
+  pt_load(&b, win + (e - 1) * PW);
+  pt_add(&a, &a, &b);
   pt_store(win + (m + e - 1) * PW, &a);
 }
 
@@ -481,8 +488,8 @@ ZK_DEV inline void table_step(u32* win, int m, int e) {
 ZK_DEV inline void table_build(u32* tab, const Pt* p, int nwin) {
   table_chain(tab, p, nwin);
   for (int j = 0; j < nwin; ++j)
-    for (int m = 1; m < WTAB; m *= 2)
-      for (int e = 1; e <= m && m + e <= WTAB; ++e)
+    for (int m = 2; m < WTAB; m *= 2)
+      for (int e = 1; e < m && m + e <= WTAB; ++e)
         table_step(tab + (long long)j * WTAB * PW, m, e);
 }
 

@@ -18,9 +18,11 @@
 //     FixedBaseMSM builds when it is made.  For each base P and window j
 //     it holds d 2^(4j) P, d = 1..15 (4-bit digits, unsigned; the JAX
 //     package's signed radix-256 digits and GLV are not carried over).  A
-//     thread a base runs the chain 2^(4j) P (252 doublings); then a thread
-//     a (base, window, digit) builds the multiples in four rounds
-//     (entry m + e = entry m + entry e, m = 1, 2, 4, 8) within a block;
+//     thread a base runs the chain 2^t P, t < 4 nwin (255 doublings), and
+//     stores each as entry d = 1, 2, 4 or 8 of its window; then a thread a
+//     (base, window, digit) adds the other 11 digits in three rounds
+//     (entry m + e = entry m + entry e, e < m, m = 2, 4, 8) within a
+//     block;
 //   * g1_msm_kernel + g1_sum_rows_kernel (zk_g1_msm):
 //     msm.py::FixedBaseMSM.compute and ipa.py::_msm_small on that table,
 //     and curve.py::scalar_mul with one shared point (one base, a row a
@@ -42,10 +44,10 @@
 //
 // What bounds it on this card: 32-bit integer multiplies.  An Fp product
 // is 288 of them (144 for the product, 144 for its reduction), a doubling
-// 7 products, an addition 16.  The table costs 252 doublings a base and
-// 14 additions a window; an MSM then costs one addition a nonzero digit
+// 7 products, an addition 16.  The table costs 255 doublings a base and
+// 11 additions a window; an MSM then costs one addition a nonzero digit
 // (about 64 a 255-bit term), against 144 bytes a table entry read.  For
-// one or two rows the bound is a chain: the table's 252 dependent
+// one or two rows the bound is a chain: the table's 255 dependent
 // doublings, then a thread's 16 additions and the trees.  Left for later
 // work: GLV, signed digits, Z = 1 entries with mixed addition (a batch
 // inversion), Pippenger buckets for very large N, a product shared by
@@ -64,7 +66,7 @@ using namespace g1;
 constexpr int ADD_THREADS = 128;   // a block of g1_add_kernel
 constexpr int MUL_THREADS = 64;    // a block of g1_scalar_mul_kernel
 constexpr int CHAIN_THREADS = 64;  // bases a block of g1_table_chain_kernel
-constexpr int DIGIT_THREADS = 8;   // threads a (base, window) in the rounds
+constexpr int DIGIT_THREADS = 8;   // threads a (base, window); 1 idles
 constexpr int DIGIT_PAIRS = 16;    // (base, window) pairs a block
 constexpr int MSM_SPLIT = 4;       // threads a term: NWIN / 4 windows each
 constexpr int MSM_THREADS = 64;    // the largest block of the MSM kernels
@@ -90,7 +92,6 @@ __global__ void g1_add_kernel(const u32* __restrict__ p,
 // out[i] = k[i] p[i] over the low nbits bits of the plain scalar k[i]; a
 // stride of 0 shares one scalar among all threads.
 __global__ void g1_scalar_mul_kernel(const u32* __restrict__ pts,
-                                     long long pt_stride,
                                      const u32* __restrict__ ks,
                                      long long k_stride,
                                      u32* __restrict__ out, long long n,
@@ -99,14 +100,14 @@ __global__ void g1_scalar_mul_kernel(const u32* __restrict__ pts,
   if (i >= n) return;
   Pt p, acc;
   u32 k[NR];
-  pt_load(&p, pts + i * pt_stride);
+  pt_load(&p, pts + i * PW);
 #pragma unroll
   for (int j = 0; j < NR; ++j) k[j] = ks[i * k_stride + j];
   pt_scalar_mul(&acc, &p, k, nbits);
   pt_store(out + i * PW, &acc);
 }
 
-// Thread i: entry (j, 0) = 2^(4j) P_i of base i's table, every window.
+// Thread i: entries d = 1, 2, 4, 8 of every window of base i's table.
 __global__ void g1_table_chain_kernel(const u32* __restrict__ pts,
                                       u32* __restrict__ tab, long long N,
                                       int nwin) {
@@ -117,17 +118,17 @@ __global__ void g1_table_chain_kernel(const u32* __restrict__ pts,
   table_chain(tab + i * nwin * WTAB * PW, &p, nwin);
 }
 
-// The digit multiples of `pairs` (base, window) pairs: DIGIT_THREADS
+// The other digit multiples of `pairs` (base, window) pairs: DIGIT_THREADS
 // threads a pair, thread e = 1..8 making entry m + e in round m when
-// e <= m and m + e <= 15.  A block holds its pairs for all four rounds, so
+// e < m and m + e <= 15.  A block holds its pairs for all three rounds, so
 // a barrier orders them (it also orders the block's global writes).
 __global__ void g1_table_digits_kernel(u32* tab, long long pairs) {
   const long long pair =
       (long long)blockIdx.x * DIGIT_PAIRS + threadIdx.x / DIGIT_THREADS;
   const int e = threadIdx.x % DIGIT_THREADS + 1;
   u32* win = tab + pair * WTAB * PW;
-  for (int m = 1; m < WTAB; m *= 2) {
-    if (pair < pairs && e <= m && m + e <= WTAB) table_step(win, m, e);
+  for (int m = 2; m < WTAB; m *= 2) {
+    if (pair < pairs && e < m && m + e <= WTAB) table_step(win, m, e);
     __syncthreads();
   }
 }
@@ -248,19 +249,18 @@ int zk_g1_add(const void* p, const void* q, void* out, long long n,
 }
 
 // out[i] = k[i] p[i] for i < n over the low nbits (1..256) bits of the
-// plain scalars.  pt_stride: 36 for [n, 3, 12] points; k_stride: 8 for
-// [n, 8] scalars, 0 for one shared scalar.  (One shared point goes to the
-// table: zk_g1_msm_table and zk_g1_msm with N = 1.)
-int zk_g1_scalar_mul(const void* pts, long long pt_stride, const void* ks,
-                     long long k_stride, void* out, long long n, int nbits,
-                     void* stream) {
+// plain scalars.  pts: [n, 3, 12] (one shared point goes to the table:
+// zk_g1_msm_table and zk_g1_msm with N = 1); k_stride: 8 for [n, 8]
+// scalars, 0 for one shared scalar.
+int zk_g1_scalar_mul(const void* pts, const void* ks, long long k_stride,
+                     void* out, long long n, int nbits, void* stream) {
   if (n <= 0) return 0;
   if (nbits < 1 || nbits > 32 * NR) return cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + MUL_THREADS - 1) / MUL_THREADS);
   g1_scalar_mul_kernel<<<blocks, MUL_THREADS, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const u32*>(pts), pt_stride, static_cast<const u32*>(ks),
-      k_stride, static_cast<u32*>(out), n, nbits);
+      static_cast<const u32*>(pts), static_cast<const u32*>(ks), k_stride,
+      static_cast<u32*>(out), n, nbits);
   return cudaGetLastError();
 }
 

@@ -94,7 +94,7 @@ def load(name: str) -> ctypes.CDLL:
     else:
         _declare(lib, "zk_g1_error_string", ctypes.c_char_p, [I])
         _declare(lib, "zk_g1_add", I, [P, P, P, L, P])
-        _declare(lib, "zk_g1_scalar_mul", I, [P, L, P, L, P, L, I, P])
+        _declare(lib, "zk_g1_scalar_mul", I, [P, P, L, P, L, I, P])
         _declare(lib, "zk_g1_msm_table", I, [P, P, L, I, P, N])
         _declare(lib, "zk_g1_msm_parts", L, [L])
         _declare(lib, "zk_g1_msm", I, [P, P, P, P, L, L, I, I, I, P, N])

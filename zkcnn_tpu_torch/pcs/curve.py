@@ -386,8 +386,8 @@ def scalar_mul(pt, scalars_plain, nbits: int = 255):
         out = table_msm_kernel(tab, k.reshape(n, 1, FR.n), nbits, False)
         return out.reshape(lead + (3, FP.n))
     out = torch.empty((n, 3, FP.n), dtype=torch.int32, device=pt.device)
-    launch(g1_lib().zk_g1_scalar_mul, p.data_ptr(), p_stride, k.data_ptr(),
-           k_stride, out.data_ptr(), n, nbits, stream_of(pt.device))
+    launch(g1_lib().zk_g1_scalar_mul, p.data_ptr(), k.data_ptr(), k_stride,
+           out.data_ptr(), n, nbits, stream_of(pt.device))
     count_launch("g1_scalar_mul",
                  (n, nbits, "scalar" if k_stride == 0 else ""))
     return out.reshape(lead + (3, FP.n))

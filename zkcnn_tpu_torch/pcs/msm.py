@@ -62,19 +62,24 @@ def msm_table_plain(points, nwin: int = curve.NWIN):
     """[N, 3, 12] -> [N, nwin, 15, 3, 12], entry (i, j, d - 1) =
     d 2^(4j) P_i: the table of `g1_msm_table` (as group elements) from the
     plain doubling and addition, the multiples made as the kernel makes
-    them (entry m + e = entry m + entry e, m = 1, 2, 4, 8)."""
+    them (d = 1, 2, 4, 8 from the chain of doublings, then entry m + e =
+    entry m + entry e, e < m, m = 2, 4, 8)."""
     curve.PLAIN_CALLS["g1_msm_table"] += 1
-    q, cols = points, [points]
-    for _ in range(1, nwin):
-        for _ in range(curve.WBITS):
+    q, chain = points, []
+    for t in range(curve.WBITS * nwin):          # chain[t] = 2^t P
+        if t:
             q = curve._pdouble(q)
-        cols.append(q)
-    rows = [torch.stack(cols, 1)]                 # rows[d - 1]: d 2^(4j) P
-    m = 1
+        chain.append(q)
+    rows = [None] * curve.WTAB                   # rows[d - 1]: d 2^(4j) P
+    for s in range(curve.WBITS):
+        rows[(1 << s) - 1] = torch.stack(chain[s::curve.WBITS], 1)
+    m = 2
     while m < curve.WTAB:
-        take = min(m, curve.WTAB - m)
-        rows.extend(curve._padd(rows[m - 1][None],
-                                torch.stack(rows[:take])).unbind(0))
+        es = range(1, min(m, curve.WTAB - m + 1))
+        sums = curve._padd(rows[m - 1][None],
+                           torch.stack([rows[e - 1] for e in es]))
+        for e, row in zip(es, sums.unbind(0)):
+            rows[m + e - 1] = row
         m *= 2
     return torch.stack(rows, 2)
 
