@@ -9,13 +9,16 @@ Phases; any failure raises and the script exits non-zero:
   1. start: require CUDA, print the card's name and power limit;
   2. build the CUDA kernels from zkcnn_tpu_torch/csrc with nvcc (one
      compiler a source, side by side);
-  3. each round-kernel entry (the one-round steps and the multi-round
-     ladders) against its plain PyTorch version on the card at edge
-     sizes: 2, 4, 1554 (folded while the row count is even), 2^12 and
-     2^18 rows with as many rounds as they allow, so that wide rounds
-     with lazily reduced dots (from 2^18 rows) and without, the hand-over
-     to the one-block tail and tail-only ladders are covered, 2^21 rows,
-     and rows of p - 1: exact.  Then the curve kernels' Fp product (the
+  3. each round-kernel entry against its plain PyTorch version on the
+     card at edge sizes, on random rows and rows of p - 1, exact: the
+     multi-round ladders and the fold at 2, 4, 1554 (folded while the row
+     count is even), 2^12 and 2^18 rows with as many rounds as they
+     allow, so that wide rounds with lazily reduced dots (from 2^18 rows)
+     and without, the hand-over to the one-block tail and tail-only
+     ladders are covered, and 2^21 rows; the per-round path's one-round
+     entries (fold_round, fold_cubic_round) at 2, 4, 2^12, 2^18 and 2^21
+     rows with and without the fold, fold_cubic_round also with m folding
+     to one row and with one row.  Then the curve kernels' Fp product (the
      check entry zk_fp_mul) against Python integers on 0, 1, p - 1,
      R mod p, words of 0xffffffff below p and 10^5 random pairs, and one
      thread's chain of dependent products, whose latency it prints; the
@@ -32,10 +35,16 @@ Phases; any failure raises and the script exits non-zero:
   4. the three tiny models proven and verified on the card with a real
      sqrt commitment and opening (HyraxPCS): transcript digest and proof
      size equal to their 1-device pins, a wrong evaluation rejected; one
-     of them again with the inner-product opening; then the per-round
-     engines (PhaseEngine.step, DotProdPhase1.step) driven on card
-     tensors at the shapes of LeNet's largest phases, with the launch
-     counts reset before and read after: every round message equal to
+     of them again with the inner-product opening; the same under
+     FiatShamirTape (sqrt; sconv_muladd with the inner-product opening
+     too): verified, final tape state and counter equal to the CPU pins,
+     a tampered witness rejected; the per-round path on a plain tape
+     that is not precomputable absorbing what the three-pass path
+     absorbs; then the per-round engines (PhaseEngine.round,
+     DotProdPhase1.round, then receive) driven on card tensors at the
+     shapes of LeNet's largest phases, with the launch counts reset
+     before and read after: fold_round, fold_cubic_round and fold
+     launched, no ladder, every round message and final claim equal to
      run_all's;
   5. LeNet5, pic_cnt=1, through the port's demo_lenet entry (--synthetic
      --seed 17) on the card, twice, each with the kernel launch counts
@@ -45,7 +54,16 @@ Phases; any failure raises and the script exits non-zero:
      With the commitment (inner-product opening): the same WS and PS,
      POLY_PS 24.8750 KB, its own pinned digest, every curve kernel and
      every ladder launched, and no curve operation through a plain or
-     host version;
+     host version.  Then LeNet5 built as cli/runner.py builds it, under
+     FiatShamirTape(b"zkcnn-demo-17") with the inner-product commitment,
+     counts reset just before the proof: the same WS, PS and POLY_PS, the
+     CPU-pinned final tape state and counter, fold_round and
+     fold_cubic_round launched, no round or cubic ladder (one fold ladder:
+     the output layer's MLE at its point), one fetch a round; PT, VT,
+     POLY_PT and POLY_VT printed, and verify()'s wall time span by span
+     (the commitment's setup, its hash-to-curve apart from its table,
+     the commit, the encode-and-absorb of the commitment, the per-round
+     proof and check, the opening);
   6. each entry against its plain version at every shape its run
      launched it at (the round kernels exact; the curve kernels as group
      elements, on 32-bit scalars laid out as the run lays them out, and
@@ -53,9 +71,14 @@ Phases; any failure raises and the script exits non-zero:
      entry), timed with CUDA events (g1_msm with and without building its
      table), with the least time the card could take for the same work
      beside it;
-  7. one JSON line of kernel results (each entry's launches, shape and
-     times belong to the run its `run` key names), the nvidia-smi
-     name/power line, and the final JSON status line.
+     Then a LeNet side's rounds one by one as the per-round path runs
+     them (fold_round, a fetch a round) against one ladder;
+  7. the seconds each phase took, one JSON line of kernel results
+     (each entry's launches, shape and times belong to the run its `run`
+     key names: the ladders' to LeNet --no-pcs, the per-round path's
+     entries to LeNet under FiatShamirTape, the curve kernels' to LeNet
+     with the commitment), the nvidia-smi name/power line, and the final
+     JSON status line.
 """
 
 import json
@@ -96,6 +119,35 @@ PINNED_LENET_PCS = {
               "1376318bf695",
     "POLY_PS": "24.8750"}
 
+# FiatShamirTape(b"dryrun-<name>"), random_source(24), the commitment in
+# the given mode: the final tape state and draw counter of the port's run
+# on the CPU, pinned in tests/test_torch_fs_paths.py
+PINNED_FS_TINY = {
+    ("ccnn4_max", "sqrt"): (
+        "c5993cff83e015aa5b31b052f57de949ff2d279bafe667ec8198db0467beb60f"
+        "759f1a9635b1148ac41e97e5b260c24cb7bd4c051aa4512bcb4de2b3cabc42b1",
+        77),
+    ("sconv_muladd", "sqrt"): (
+        "f1b4f6a2ec7e4fb48a7cf53cd0d01a8d5d319fb7f452775147b435668608b415"
+        "3ca462339221cfa8cda9545c27c21bcd78eb5a903cb456e5e3601666861858b5",
+        38),
+    ("sconv_muladd", "ipa"): (
+        "9a1736bf6fcb97cb66a9ab71fb809ca5386cb1c11584a59bddeaf77b8f187db4"
+        "65111dd1acbf3538661a4e902ec6aff84eab5269a0c8fe26d81bb199f624f0f2",
+        41),
+    ("tiny_fc_fft", "sqrt"): (
+        "e6d55a26ee681f22e5574b0f3a3733a5446edca1f595c5c9d699117335ca212d"
+        "1698cbd51bad5c5de967ff5ba72cc4c02dd68d4687b184b26f486ead2379e7fd",
+        128),
+}
+
+# LeNet5 pic_cnt=1, random_source(17), FiatShamirTape(b"zkcnn-demo-17"),
+# inner-product commitment: the same, pinned in tests/test_torch_fs_paths.py
+PINNED_FS_LENET = (
+    "10736122550bca8d22784b5b1603a1b99ec37b05a88240315d3a04619be83600"
+    "22808f60a53356f4b98f9857960b3c4bf38934bd9d5403597f97b4ea91ccf02b",
+    548)
+
 SOURCE = "zkcnn_tpu_torch/csrc/round_kernels.cu"
 G1_SOURCE = "zkcnn_tpu_torch/csrc/g1_kernels.cu"
 G1_REPLACES = {"g1_add": "zkcnn_tpu/pcs/curve.py:81",         # and pdouble :58
@@ -106,11 +158,12 @@ FR_P = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 FP_P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
 QUAD = "zkcnn_tpu/field/pallas_round2.py:237"       # and pallas_round.py:249
 CUBIC = "zkcnn_tpu/field/pallas_round.py:475"
-REPLACES = {"round_step": QUAD, "fold": QUAD, "cubic_round_step": CUBIC,
+REPLACES = {"fold_round": QUAD, "fold": QUAD, "fold_cubic_round": CUBIC,
             "round_ladder": QUAD, "fold_ladder": QUAD,
             "cubic_ladder": CUBIC}
-STEPS = {"round_step": "round_ladder", "fold": "fold_ladder",
-         "cubic_round_step": "cubic_ladder"}      # step -> its ladder
+# the entries of the per-round (Fiat-Shamir) path and of the three-pass one
+PER_ROUND = ("fold_round", "fold", "fold_cubic_round")
+LADDERS = ("round_ladder", "fold_ladder", "cubic_ladder")
 P_WORDS = [0x00000001, 0xFFFFFFFF, 0xFFFE5BFE, 0x53BDA402,
            0x09A1D805, 0x3339D808, 0x299D7D48, 0x73EDA753]   # Fr modulus
 
@@ -139,9 +192,9 @@ ADD_PRODUCTS = 16
 MIXED_ADD_PRODUCTS = 11
 POINT_BYTES = 144
 # the runs that the `launches`, shapes and times of an entry come from
-STEP_RUN = "per-round engines at the shapes of LeNet's largest phases"
 LENET_RUN = "lenet --no-pcs"
 LENET_PCS_RUN = "lenet with the commitment"
+LENET_FS_RUN = "lenet under FiatShamirTape with the commitment"
 
 
 def say(msg):
@@ -193,7 +246,9 @@ def time_ms(torch, fn, iters: int) -> float:
 
 
 def rounds_of(shape) -> int:
-    """A shape is (rows, R) or (K, M, R); a one-round step has R = 1."""
+    """A shape is (rows, R) or (K, M, R): R rounds of a ladder, R = 1 for
+    `fold`, and for the one-round entries R = 1 with a fold at the
+    previous challenge, 0 without."""
     return shape[-1]
 
 
@@ -204,12 +259,30 @@ def bound(name: str, shape):
     unreduced, 128 for a fold's or a cubic term's) over the integer
     rate."""
     R = rounds_of(shape)
-    if "cubic" in name:
+    if name == "fold_round":
+        # a fold of A and V (rows / 2 pairs each), then the four dots of
+        # the pairs of the folded rows
+        rows, f = shape
+        rows_in, rows_out = 2 * rows + f, f * rows + 4
+        muls = f * rows * FOLD_PAIR_MULS + (rows >> (1 + f)) * 4 * DOT_MULS
+    elif name == "fold_cubic_round":
+        # folds of V0, V1 and of m while it has more than one row, then per
+        # pair e0, e1 (two products), e2 and the table dots m0 e and dm e
+        # (dm = 0 once m has one row: three dots)
+        K, M, f = shape
+        fm = f * (M > 1)
+        Mf = M // 2 if fm else M
+        rows_in = 2 * K + M + f
+        rows_out = f * K + fm * (M // 2) + 4
+        term_muls = 4 * FULL_MULS + (6 if Mf > 1 else 3) * DOT_MULS
+        muls = (f * K + fm * (M // 2)) * FOLD_PAIR_MULS \
+            + (K >> (1 + f)) * term_muls
+    elif "cubic" in name:
         K, M, _ = shape
         rows_in, rows_out = 2 * K + M + R, 2 * (K >> R) + (M >> R) + 4 * R
         muls = sum(CUBIC_PAIR_MULS * (K >> (j + 1))
                    + FOLD_PAIR_MULS * (M >> (j + 1)) for j in range(R))
-    elif "fold" in name:
+    elif name in ("fold", "fold_ladder"):
         rows, _ = shape
         rows_in, rows_out = rows + R, rows >> R
         muls = sum(FOLD_PAIR_MULS * (rows >> (j + 1)) for j in range(R))
@@ -227,13 +300,15 @@ def compare(torch, rk, name, shape, gen, rng, fill=rand_fe):
     """Kernel vs plain on the same card tensors; raises on a mismatch.
     Returns (max_abs_err, kernel_fn, plain_fn).  shape: (rows, R) or
     (K, M, R); a one-round step takes R = 1."""
-    rs = [rng.getrandbits(254) for _ in range(rounds_of(shape))]
+    rs = [rng.getrandbits(254) for _ in range(max(1, rounds_of(shape)))]
     ch = rs if name.endswith("ladder") else rs[0]
+    if name in ("fold_round", "fold_cubic_round") and not shape[-1]:
+        ch = None                       # round 1: no fold
     if "cubic" in name:
         K, M, _ = shape
         args = (fill(torch, M, gen), fill(torch, K, gen),
                 fill(torch, K, gen), ch)
-    elif "fold" in name:
+    elif name in ("fold", "fold_ladder"):
         args = (fill(torch, shape[0], gen), ch)
     else:
         args = (fill(torch, shape[0], gen), fill(torch, shape[0], gen), ch)
@@ -258,16 +333,24 @@ def even_rounds(rows: int) -> int:
 
 
 def edge_shapes():
-    """Edge shapes per entry: the steps at R = 1, the ladders at every
-    round their row counts allow."""
+    """Edge shapes per entry: the one-round entries with and without a
+    fold (fold_cubic_round also with m folding to one row, and with one
+    row), the fold at R = 1, the ladders at every round their row counts
+    allow."""
     rows = [2, 4, 1554, 1 << 12, 1 << 18]
     cubic = [(2, 2), (4, 2), (4, 4), (1554, 14), (1 << 11, 1 << 9),
              (1 << 12, 1 << 5), (1 << 12, 1 << 12), (1 << 18, 1 << 11)]
     quad = [(m, even_rounds(m)) for m in rows] + [(1 << 18, 3), (1 << 21, 2)]
+    wide = [1 << 12, 1 << 18, 1 << 21]
     return {
-        "round_step": [(m, 1) for m in rows],
+        "fold_round": [(2, 0), (4, 0), (4, 1)]
+                      + [(m, f) for m in wide for f in (0, 1)],
         "fold": [(m, 1) for m in rows],
-        "cubic_round_step": [(K, M, 1) for K, M in cubic],
+        "fold_cubic_round": [(2, 2, 0), (4, 2, 1), (4, 4, 1), (4, 1, 1),
+                             (1 << 12, 1 << 5, 1), (1 << 12, 1 << 12, 1),
+                             (1 << 12, 2, 1), (1 << 18, 1 << 11, 0),
+                             (1 << 18, 1 << 11, 1), (1 << 18, 1, 1),
+                             (1 << 21, 1 << 11, 0), (1 << 21, 1 << 11, 1)],
         "round_ladder": quad,
         "fold_ladder": quad,
         "cubic_ladder": [(K, M, even_rounds(M)) for K, M in cubic]
@@ -295,11 +378,26 @@ def tiny_models(zoo, NeuralNetwork, P):
     ]
 
 
+def recording_tape(Tape):
+    """A plain seeded tape that keeps every absorbed value."""
+
+    class Recording(Tape):
+        def __init__(self, seed):
+            super().__init__(seed)
+            self.absorbed = []
+
+        def absorb(self, *values):
+            self.absorbed.append(tuple(v % FR_P for v in values))
+
+    return Recording
+
+
 def per_round_phases(torch, engine, how):
     """A quadratic phase (sides of 2^18 and 2^12 rows, a nonzero add_term,
     one round past the longer side) and a DOT_PROD phase 1 ((K, M) =
-    (2^16, 2^9)) on card tensors made from a fixed seed, run by a loop of
-    `step` or by `run_all`; returns both lists of round messages."""
+    (2^16, 2^9)) on card tensors made from a fixed seed, run by `run_all`
+    or per round (`round(prev_r)`, then `receive` at the last challenge);
+    returns both lists of round messages and the final claims."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(24)
     rng = random.Random(24)
@@ -312,9 +410,15 @@ def per_round_phases(torch, engine, how):
     out = []
     for phase, R in ((quad, 19), (cubic, 16)):
         rs = [rng.getrandbits(254) for _ in range(R)]
-        out.append([phase.step(r) for r in rs] if how == "step"
-                   else phase.run_all(rs))
-    return out
+        if how == "round":
+            out.append([phase.round(rs[j - 1] if j else None)
+                        for j in range(R)])
+            phase.receive(rs[-1])
+        else:
+            out.append(phase.run_all(rs))
+    claims = [quad.final_claim_dev(0, 18), quad.final_claim_dev(1, 12),
+              *cubic.finalize_dev()]
+    return out, torch.stack(claims)
 
 
 def time_once_ms(torch, fn):
@@ -650,7 +754,15 @@ def main():
                  "script: run it from a checkout of the repository")
     sys.path.insert(0, root)
 
-    # 1. start
+    # 1. start; lap(name) keeps the seconds since the last lap, so that
+    # the script's command time can be read phase by phase
+    laps, last = [], [time.time()]
+
+    def lap(name):
+        now = time.time()
+        laps.append(f"{name} {now - last[0]:.1f}")
+        last[0] = now
+
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
     say(f"device: {kind}; torch {torch.__version__} cuda "
@@ -663,6 +775,7 @@ def main():
     libs = cuda_build.build(verbose=True)
     say(f"build: {sorted(p.name for p in libs.values())} in "
         f"{time.time() - t0:.1f}s")
+    lap("build")
     from zkcnn_tpu_torch.field import FP, FR, round_kernels as rk
     from zkcnn_tpu_torch.gkr import engine
     from zkcnn_tpu_torch.pcs import HyraxPCS, curve
@@ -684,15 +797,19 @@ def main():
         say(f"edge sizes exact (tolerance 0; random rows and rows of "
             f"p - 1): {name} at {shapes}")
 
+    lap("round kernels at edge sizes")
+
     # the Fp product and the curve kernels against Python integers and
     # their plain versions
     fp_checks(torch, curve, FP, rng, smi)
+    lap("Fp product")
     g1_checks(torch, curve, msm_mod, FR, gen, rng)
+    lap("curve kernels' checks")
 
     from zkcnn_tpu_torch.nn import random_source, NeuralNetwork
     from zkcnn_tpu_torch.nn import models as zoo
     from zkcnn_tpu_torch.nn import params as P
-    from zkcnn_tpu_torch.gkr import Prover, Verifier, Tape
+    from zkcnn_tpu_torch.gkr import Prover, Verifier, Tape, FiatShamirTape
 
     # 4. tiny models on the card, with a real commitment and opening
     for name, build in tiny_models(zoo, NeuralNetwork, P):
@@ -720,26 +837,80 @@ def main():
                 f"{p.proof_size} equal PINNED_1CHIP, commitment and opening "
                 f"{pcs.ps} bytes, a wrong evaluation rejected")
 
+    lap("tiny models")
+
+    # the tiny models under Fiat-Shamir, with the commitment: the CPU's
+    # fingerprints, a tampered witness rejected; then the per-round path
+    # on a plain tape that is not precomputable against the three-pass one
+    for name, build in tiny_models(zoo, NeuralNetwork, P):
+        for mode in ("sqrt", "ipa") if name == "sconv_muladd" else ("sqrt",):
+            C, vals = build().create(random_source(24))
+            seed = b"dryrun-" + name.encode()
+            tape, pcs = FiatShamirTape(seed), HyraxPCS(mode=mode)
+            p = Prover(C, vals)
+            if not Verifier(p, C, tape, pcs=pcs).verify():
+                raise AssertionError(f"{name} ({mode}) under FiatShamirTape: "
+                                     f"verification failed on cuda")
+            got = (tape.state.hex(), tape.counter)
+            if got != PINNED_FS_TINY[(name, mode)] or \
+                    p.proof_size != PINNED_1CHIP[name]["proof_size"]:
+                raise AssertionError(f"{name} ({mode}) under FiatShamirTape: "
+                                     f"state/counter {got}, proof size "
+                                     f"{p.proof_size} differ from the pins")
+            bad = list(vals)
+            bad[-1] = bad[-1].clone()
+            bad[-1][0] = FR.add(bad[-1][0], FR.const(1, "cuda"))
+            if Verifier(Prover(C, bad), C, FiatShamirTape(seed),
+                        pcs=HyraxPCS(mode=mode)).verify():
+                raise AssertionError(f"{name} ({mode}) under FiatShamirTape: "
+                                     f"a tampered witness was accepted")
+            say(f"tiny model {name} under FiatShamirTape, {mode} commitment: "
+                f"verified, state and counter {got[1]} equal the CPU pin, a "
+                f"tampered witness rejected")
+        out = []
+        for precomputable in (True, False):
+            C, vals = build().create(random_source(24))
+            tape = recording_tape(Tape)(b"dryrun-" + name.encode())
+            tape.precomputable = precomputable
+            bl = C.layers[0].bit_length
+            tape.fields(1 << (bl - (bl >> 1)))     # the PCS setup's draws
+            p = Prover(C, vals)
+            v = Verifier(p, C, tape)
+            if not v.verify():
+                raise AssertionError(f"{name}: verification failed on cuda "
+                                     f"(precomputable={precomputable})")
+            out.append((tape.absorbed, tape.counter, p.proof_size, v.eval_in))
+        if out[0] != out[1]:
+            raise AssertionError(f"{name}: the per-round path and the "
+                                 f"three-pass path absorb different values")
+        say(f"tiny model {name}: the per-round path on a plain tape absorbs "
+            f"the three-pass path's {len(out[0][0])} values, proof size and "
+            f"input claim")
+
+    lap("tiny models under Fiat-Shamir")
+
     # the per-round engines, whose counts cover exactly their two phases
     rk.reset_launches()
-    step_polys = per_round_phases(torch, engine, "step")
+    round_polys, round_claims = per_round_phases(torch, engine, "round")
     torch.cuda.synchronize()
-    launches = {k: rk.LAUNCHES[k] for k in STEPS}
-    shapes = {k: sorted(rk.SHAPES[k]) for k in STEPS}
-    ladder_ran = {k: rk.LAUNCHES[k] for k in STEPS.values()}
-    say(f"per-round engines, wrapper calls that launched: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    engines_ran = dict(rk.LAUNCHES)
+    say(f"per-round engines, wrapper calls that launched: {engines_ran}")
+    for name in PER_ROUND:
+        if engines_ran[name] <= 0:
             raise AssertionError(f"the per-round engines never launched "
                                  f"{name}")
-    if any(ladder_ran.values()):
+    if any(engines_ran[k] for k in LADDERS):
         raise AssertionError(f"the per-round engines ran ladders: "
-                             f"{ladder_ran}")
-    if step_polys != per_round_phases(torch, engine, "run_all"):
-        raise AssertionError("a loop of step and run_all give different "
-                             "round messages")
-    say(f"per-round engines: {len(step_polys[0])} quadratic and "
-        f"{len(step_polys[1])} cubic round messages equal to run_all's")
+                             f"{engines_ran}")
+    all_polys, all_claims = per_round_phases(torch, engine, "run_all")
+    if round_polys != all_polys or not torch.equal(round_claims, all_claims):
+        raise AssertionError("the per-round engines and run_all give "
+                             "different round messages or claims")
+    say(f"per-round engines: {len(round_polys[0])} quadratic and "
+        f"{len(round_polys[1])} cubic round messages and the final claims "
+        f"equal to run_all's")
+
+    lap("per-round engines")
 
     # 5. LeNet through the demo entry; counts cover exactly this run
     from zkcnn_tpu_torch.cli import demo_lenet
@@ -749,8 +920,8 @@ def main():
                            "--pic-cnt", "1"])      # no --cpu: the card
     torch.cuda.synchronize()
     lenet = {k: rk.LAUNCHES[k] for k in rk.NAMES}
-    launches.update({k: lenet[k] for k in STEPS.values()})
-    shapes.update({k: sorted(rk.SHAPES[k]) for k in STEPS.values()})
+    launches = {k: lenet[k] for k in LADDERS}
+    shapes = {k: sorted(rk.SHAPES[k]) for k in LADDERS}
     device_launches = sum(rk.KERNEL_LAUNCHES.values())
     fetches = engine.FETCHES["rounds"]
     row = res["row"]
@@ -769,10 +940,10 @@ def main():
     if res["digest"] != PINNED_LENET["digest"]:
         raise AssertionError(f"lenet digest {res['digest']} differs from "
                              f"the CPU pin {PINNED_LENET['digest']}")
-    for name in STEPS.values():
+    for name in LADDERS:
         if lenet[name] <= 0:
             raise AssertionError(f"lenet never launched kernel {name}")
-    for name in STEPS:
+    for name in PER_ROUND:
         if lenet[name]:
             raise AssertionError(f"lenet ran {name} {lenet[name]} times: "
                                  f"its rounds should all run in ladders")
@@ -780,6 +951,8 @@ def main():
     if fetches > lenet["round_ladder"] + lenet["cubic_ladder"]:
         raise AssertionError(f"{fetches} fetches for "
                              f"{lenet['round_ladder']} sides")
+
+    lap("lenet --no-pcs")
 
     # LeNet again with the commitment (inner-product opening); the counts
     # of the curve kernels and of the ladders cover exactly this run
@@ -801,7 +974,7 @@ def main():
     say(f"lenet with the commitment, curve wrapper calls that launched: "
         f"{g1_launches} (device kernels {dict(curve.KERNEL_LAUNCHES)}), "
         f"not through a kernel: {dict(curve.PLAIN_CALLS)}; ladders: "
-        f"{ {k: rk.LAUNCHES[k] for k in STEPS.values()} }")
+        f"{ {k: rk.LAUNCHES[k] for k in LADDERS} }")
     if (row["WS"], row["PS"], row["POLY_PS"]) != (
             PINNED_LENET["WS"], PINNED_LENET["PS"],
             PINNED_LENET_PCS["POLY_PS"]):
@@ -816,10 +989,116 @@ def main():
     if any(curve.PLAIN_CALLS.values()):
         raise AssertionError(f"curve operations went past the kernels: "
                              f"{dict(curve.PLAIN_CALLS)}")
-    for name in STEPS.values():
+    for name in LADDERS:
         if rk.LAUNCHES[name] <= 0:
             raise AssertionError(f"lenet with the commitment never launched "
                                  f"kernel {name}")
+
+    lap("lenet with the commitment")
+
+    # LeNet under Fiat-Shamir with the commitment (inner-product opening),
+    # built as cli/runner.py builds it; the counts cover exactly the proof
+    C, vals = zoo.lenet(32, 32, 1, 1, P.PoolType.MAX).create(
+        random_source(17))
+    rounds = C.layers[0].bit_length + sum(
+        ly.max_bl_u + (ly.max_bl_v if ly.need_phase2 else 0)
+        for ly in C.layers[1:])
+    p = Prover(C, vals, own_vals=True)
+    del vals
+    pcs, tape = HyraxPCS(mode="ipa"), FiatShamirTape(b"zkcnn-demo-17")
+    v = Verifier(p, C, tape, pcs=pcs)
+    # the round loops' seconds: every round call, which ends in its fetch
+    round_s = [0.0]
+
+    def timed_round(fn):
+        def run(prev_r):
+            t = time.perf_counter()
+            out = fn(prev_r)
+            round_s[0] += time.perf_counter() - t
+            return out
+        return run
+
+    for m in ("round_quadratic", "round_cubic", "liu_round"):
+        setattr(p, m, timed_round(getattr(p, m)))
+    # verify() span by span: the commitment's setup (hash-to-curve of the
+    # generators, then their table), its commit, the encode-and-absorb of
+    # the commitment (from the commit's return to the per-round path's
+    # start), the per-round proof and check, the opening
+    marks = {}
+
+    def spanned(obj, name):
+        fn = getattr(obj, name)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            marks[name] = [time.perf_counter()]
+            out = fn(*args)
+            torch.cuda.synchronize()
+            marks[name].append(time.perf_counter())
+            return out
+        setattr(obj, name, run)
+
+    for obj, name in ((pcs, "setup"), (pcs, "commit"),
+                      (v, "_verify_per_round"), (v, "verify_input")):
+        spanned(obj, name)
+    torch.cuda.synchronize()
+    rk.reset_launches()
+    engine.FETCHES["rounds"] = 0
+    t0 = time.perf_counter()
+    ok = v.verify()
+    torch.cuda.synchronize()
+    fs_wall = time.perf_counter() - t0
+    span = {k: b - a for k, (a, b) in marks.items()}
+    span["absorb"] = marks["_verify_per_round"][0] - marks["commit"][1]
+    fs = {k: rk.LAUNCHES[k] for k in rk.NAMES}
+    fs_fetches = engine.FETCHES["rounds"]
+    launches.update({k: fs[k] for k in PER_ROUND})
+    shapes.update({k: sorted(rk.SHAPES[k]) for k in PER_ROUND})
+    ws = f"{C.layers[0].size}(2^{(C.layers[0].size - 1).bit_length()})"
+    ps, poly_ps = f"{p.proof_size / 1024:.4f}", f"{pcs.ps / 1024:.4f}"
+    fingerprint = (tape.state.hex(), tape.counter)
+    say(f"lenet under FiatShamirTape: {'Verification pass' if ok else 'FAILED'}"
+        f", WS {ws}, PS {ps} KB, POLY_PS {poly_ps} KB, PT "
+        f"{p.prove_time:.4f} s, VT {v.vt:.4f} s, POLY_PT {pcs.pt:.4f} s, "
+        f"POLY_VT {pcs.vt:.4f} s (setup's table {pcs.table_s:.4f} s; "
+        f"verify() {fs_wall:.4f} s in all) ({smi}); state "
+        f"{fingerprint[0][:16]}..., counter {fingerprint[1]}")
+    say(f"lenet under FiatShamirTape, verify() by span: setup "
+        f"{span['setup']:.4f} s (hash-to-curve of the generators "
+        f"{span['setup'] - pcs.table_s:.4f} s, their table "
+        f"{pcs.table_s:.4f} s), commit {span['commit']:.4f} s, "
+        f"encode-and-absorb of the commitment {span['absorb']:.4f} s, "
+        f"per-round proof and check {span['_verify_per_round']:.4f} s, "
+        f"opening {span['verify_input']:.4f} s, the rest "
+        f"{fs_wall - sum(span.values()):.4f} s ({smi})")
+    say(f"lenet under FiatShamirTape, wrapper calls that launched: {fs} "
+        f"(device kernels {dict(rk.KERNEL_LAUNCHES)}); {fs_fetches} round "
+        f"fetches for {rounds} rounds; round loops {round_s[0]:.4f} s "
+        f"({smi})")
+    if not ok:
+        raise AssertionError("lenet under FiatShamirTape: verification "
+                             "failed on cuda")
+    if (ws, ps, poly_ps) != (PINNED_LENET["WS"], PINNED_LENET["PS"],
+                             PINNED_LENET_PCS["POLY_PS"]):
+        raise AssertionError(f"lenet under FiatShamirTape: WS/PS/POLY_PS "
+                             f"{ws}/{ps}/{poly_ps}")
+    if fingerprint != PINNED_FS_LENET:
+        raise AssertionError(f"lenet under FiatShamirTape: state/counter "
+                             f"{fingerprint} differ from the CPU pin")
+    for name in ("fold_round", "fold_cubic_round"):
+        if fs[name] <= 0:
+            raise AssertionError(f"lenet under FiatShamirTape never launched "
+                                 f"kernel {name}")
+    # the rounds run no ladder; the output layer's MLE evaluation (v_res,
+    # at a point drawn whole before anything is absorbed) is one fold
+    # ladder
+    if fs["round_ladder"] or fs["cubic_ladder"] or fs["fold_ladder"] != 1:
+        raise AssertionError(f"lenet under FiatShamirTape ran ladders: {fs}")
+    if fs_fetches != rounds:
+        raise AssertionError(f"lenet under FiatShamirTape: {fs_fetches} "
+                             f"round fetches for {rounds} rounds")
+
+    lap("lenet under Fiat-Shamir")
 
     # 6. every entry against its plain version at the shapes of its run,
     # timed; the reported time is at the largest of them
@@ -835,7 +1114,7 @@ def main():
         for shape, ms in times:
             say(f"time {name} {shape}: kernel {ms:.4f} ms ({smi})")
         shape = max(seen)
-        run = STEP_RUN if name in STEPS else LENET_RUN
+        run = LENET_FS_RUN if name in PER_ROUND else LENET_RUN
         e, kern, plain = compare(torch, rk, name, shape, gen, rng)
         ms, pms = time_ms(torch, kern, 20), time_ms(torch, plain, 3)
         b_ms, b_by = bound(name, shape)
@@ -851,6 +1130,8 @@ def main():
                         "bound_by": b_by, "library_ms": None,
                         "shape": list(shape), "run": run})
     say("kernels exact (tolerance 0) at every shape of their runs")
+
+    lap("round kernels at their runs' shapes")
 
     # the curve kernels at every shape of the LeNet run, as group
     # elements: against the plain version on 32-bit scalars (it takes
@@ -903,22 +1184,29 @@ def main():
     say("curve kernels equal to their plain versions as group elements "
         "(tolerance 0 after normalising Z) at every shape of their run")
 
-    # what a ladder saves at LeNet's largest side: its rounds one by one,
-    # each fetched before the next, against one ladder and one fetch
+    lap("curve kernels at their run's shapes")
+
+    # what a ladder saves at LeNet's largest side: its rounds one by one
+    # as the per-round path runs them (fold_round, each round's dots
+    # fetched before the next), against one ladder and one fetch
     rows, R = max(shapes["round_ladder"])
     A, V = rand_fe(torch, rows, gen), rand_fe(torch, rows, gen)
     rs = [rng.getrandbits(254) for _ in range(R)]
 
     def per_round():
-        a, v = A, V
+        a, v, prev = A, V, None
         for r in rs:
-            d, a, v = rk.round_step(a, v, r)
+            d, a, v = rk.fold_round(a, v, prev)
             d.cpu()
+            prev = r
 
     per_ms = time_ms(torch, per_round, 10)
     lad_ms = time_ms(torch, lambda: rk.round_ladder(A, V, rs)[0].cpu(), 10)
     say(f"{R} rounds from {rows} rows, dots fetched: per round "
         f"{per_ms:.4f} ms, one ladder {lad_ms:.4f} ms ({smi})")
+
+    lap("per round against a ladder")
+    say(f"seconds by phase: {'; '.join(laps)} ({smi})")
 
     # 7. results
     say(json.dumps({"kernels": kernels}))

@@ -5,7 +5,8 @@ The ladders' plain versions against the JAX package's XLA reference
 looped over the rounds (`coeffs_quadratic_dots` + `fold`,
 `engine._cubic_terms` + `fold`; never the Pallas kernels in interpret
 mode, never the fused ladder programs), and the phase engines' `run_all`
-against a loop of `step` and against a Python-int oracle.
+against their per-round form (a loop of `round(prev_r)`, then
+`receive`) and against a Python-int oracle.
 """
 
 import numpy as np
@@ -143,11 +144,21 @@ def _cubic_oracle(m, V0, V1, rs):
     return polys, m, V0, V1
 
 
+def _per_round(engine, rs):
+    """The per-round (Fiat-Shamir) form of a phase: round j folds at
+    r_(j-1), then forms its message; receive makes the last fold."""
+    polys = [engine.round(rs[j - 1] if j else None) for j in range(len(rs))]
+    engine.receive(rs[-1])
+    return polys
+
+
 def test_run_all_equals_loop_of_step_and_oracle():
     """Two sides of unequal nb (3 and 1) over 5 rounds, so both exhaust
-    mid-phase and join a nonzero add_term; both values of
-    include_add_term; run_all whole, split in two calls, and as a loop
-    of step.  Then the cubic phase with m reaching one row before V."""
+    mid-phase (the short one as a two-row side folded in the round it
+    runs out) and join a nonzero add_term; both values of
+    include_add_term; run_all whole, split in two calls, and the
+    per-round form.  Then the cubic phase with m reaching one row before
+    V (the switch to the quadratic form on (V1, V0) scaled by m[0])."""
     rng = np.random.default_rng(5)
     a0, v0, a1, v1 = (_ints(rng, n) for n in (8, 8, 2, 2))
     rs = _ints(rng, 5)
@@ -161,7 +172,7 @@ def test_run_all_equals_loop_of_step_and_oracle():
         whole, split, steps = engine(), engine(), engine()
         assert whole.run_all(rs) == want
         assert split.run_all(rs[:2]) + split.run_all(rs[2:]) == want
-        assert [steps.step(r) for r in rs] == want
+        assert _per_round(steps, rs) == want
         for e in (whole, split, steps):
             assert e.add_term == want_add
             assert all(s.collapsed and s.folds == s.nb for s in e.sides)
@@ -175,7 +186,7 @@ def test_run_all_equals_loop_of_step_and_oracle():
         return DotProdPhase1(_t(m), _t(V0), _t(V1), 2, 4)
     whole, steps = cubic(), cubic()
     assert whole.run_all(rs) == want
-    assert [steps.step(r) for r in rs] == want
+    assert _per_round(steps, rs) == want
     for e in (whole, steps):
         claim, v_u1 = e.finalize_dev()
         assert FR.unpack_mont_host(claim.numpy()) == V1_f

@@ -1,7 +1,8 @@
 """zkcnn_tpu_torch's scalar multiplication and MSM on the CPU against
 Python integers (py_add / py_mul): the plain PyTorch versions that the
 CUDA kernels are held against on the card, at small bit lengths, and
-the host versions that CPU tensors take, at full size.
+the host versions that CPU tensors take, at full size; and py_mul (in
+Jacobian coordinates) against the affine double-and-add over py_add.
 
 Tolerance 0: points are compared as affine integers.  Inputs come from
 np.random.default_rng(seed).
@@ -84,3 +85,36 @@ def test_fixed_base_msm_matches_python_ints():
     got = FixedBaseMSM(pts).compute(bm)
     assert got.shape == (2, 3, 12)
     assert curve.to_affine_host(got) == want(big)
+
+
+def _affine_mul(P, k):
+    """k P by the affine double-and-add over py_add (an inversion a step)."""
+    acc = None
+    while k:
+        if k & 1:
+            acc = curve.py_add(acc, P)
+        P = curve.py_add(P, P)
+        k >>= 1
+    return acc
+
+
+def test_py_mul_matches_affine_double_and_add():
+    """Points in the r-torsion and one outside it (a curve point before
+    its cofactor is cleared, as hash_to_group_host meets it); scalars
+    that give infinity, that add P to itself or to -P on the way, the
+    cofactor, and random ones of 130 and 255 bits."""
+    rng = np.random.default_rng(25)
+    x = 5
+    while pow(x ** 3 + 4, (curve.FP_P - 1) // 2, curve.FP_P) != 1:
+        x += 1
+    y = pow(x ** 3 + 4, (curve.FP_P + 1) // 4, curve.FP_P)
+    pts = [G, curve.py_mul(G, 12345), (x, y)]
+    # on G, FR_P's last step adds P to -P and FR_P + 2's adds P to P
+    ks = list(range(17)) + [FR_P - 1, FR_P, FR_P + 1, FR_P + 2, 2 * FR_P,
+                            curve.G1_COFACTOR] + \
+        [int.from_bytes(rng.bytes(n), "little") for n in (17, 32) * 4]
+    for P in pts:
+        for k in ks:
+            assert curve.py_mul(P, k) == _affine_mul(P, k), (P, k)
+    assert curve.py_mul(None, 7) is None
+    assert curve.py_mul((x, y), FR_P) is not None     # not in the r-torsion

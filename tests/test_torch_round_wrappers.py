@@ -24,13 +24,14 @@ def test_wrappers_route_cpu_tensors_to_plain():
     A, V = _rand(rng, 8), _rand(rng, 8)
     rk.reset_launches()
     r = 31337
-    for got, want in zip(rk.round_step(A, V, r),
-                         rk.round_step_plain(A, V, r)):
-        assert torch.equal(got, want)
+    for r_prev in (None, r):
+        for got, want in zip(rk.fold_round(A, V, r_prev),
+                             rk.fold_round_plain(A, V, r_prev)):
+            assert torch.equal(got, want)
+        for got, want in zip(rk.fold_cubic_round(A[:4], A, V, r_prev),
+                             rk.fold_cubic_round_plain(A[:4], A, V, r_prev)):
+            assert torch.equal(got, want)
     assert torch.equal(rk.fold(A, r), rk.fold_plain(A, r))
-    for got, want in zip(rk.cubic_round_step(A[:4], A, V, r),
-                         rk.cubic_round_step_plain(A[:4], A, V, r)):
-        assert torch.equal(got, want)
     assert all(n == 0 for n in rk.LAUNCHES.values())
 
 
@@ -41,9 +42,13 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="int32"):
         rk.fold(A.to(torch.int64), 1)
     with pytest.raises(ValueError, match="differ"):
-        rk.round_step(A, A[:4], 1)
+        rk.fold_round(A, A[:4], 1)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        rk.fold_round(A[:6], A[:6], 1)      # a fold, then a pair of pairs
     with pytest.raises(ValueError, match="M <= K"):
-        rk.cubic_round_step(FR.zeros(16, "cpu"), A, A, 1)
+        rk.fold_cubic_round(FR.zeros(16, "cpu"), A, A, 1)
+    with pytest.raises(ValueError, match="pair up"):
+        rk.fold_cubic_round(FR.zeros(3, "cpu"), A[:6], A[:6], None)
 
 
 def test_cuda_source_constants_match_fr():

@@ -23,6 +23,11 @@
 //       c0 += m0 e0, c1 += dm e0 + m0 e1, c2 += dm e1 + m0 e2,
 //       c3 += dm e2,
 //     and the folds of V0, V1 and of m itself.
+//   * fold_round_kernel (zk_fold_round) and fold_cubic_round_kernel
+//     (zk_fold_cubic_round): the same two functions rescheduled for a
+//     Fiat-Shamir sumcheck, whose challenge r_j is drawn only after round
+//     j's message: one launch folds at r_(j-1), then forms round j's dots
+//     (or c0..c3) from the folded rows.
 //
 // Data: a field element is 8 little-endian 32-bit words of its
 // canonical Montgomery residue (R = 2^256), one 32-byte row.  Every
@@ -688,6 +693,170 @@ cubic_tail_kernel(const u32* M, const u32* V0, const u32* V1, u32* M_out,
 }
 
 // ---------------------------------------------------------------------
+// One round of a Fiat-Shamir sumcheck: "fold at r_(j-1), then round j".
+// Under Fiat-Shamir r_j is drawn only after round j's message, so a
+// round cannot end with its own fold as a ladder's does: its launch first
+// folds the operands at the previous round's challenge, then forms the
+// message from the folded rows.  Without FOLD (round 1) the message comes
+// from the operands as given.
+//
+// A block takes ROUND_PAIRS pairs of the folded operands a sweep.  First
+// every thread folds (or loads) one row of the sweep into shared memory,
+// writing a folded row out as well; then, after a __syncthreads, the
+// threads split by role as in role_sweep, each adding one product of its
+// pair to its accumulator.  A thread so chains one fold and one product a
+// sweep.  The grid's sums go to out [4, 8] through grid_finish.
+
+constexpr int ROUND_THREADS = 256;  // a block of a one-round kernel
+constexpr int ROUND_PAIRS = 64;     // pairs of folded rows a block a sweep
+constexpr int SWEEP_ROWS = 2 * ROUND_PAIRS;
+
+// Row f of the round's operand X: X[2f] + r (X[2f+1] - X[2f]) when FOLD,
+// else X[f].
+template <bool FOLD>
+__device__ __forceinline__ void round_row(u32 x[NW], const u32* X,
+                                          long long f, const u32 r[NW]) {
+  if (FOLD) {
+    u32 x1[NW], d[NW];
+    load(x, X + (2 * f) * NW);
+    load(x1, X + (2 * f + 1) * NW);
+    sub_mod(d, x1, x);
+    fold_pair(x, x, d, r);
+  } else {
+    load(x, X + f * NW);
+  }
+}
+
+__device__ __forceinline__ void copy_row(u32* dst, const u32 x[NW]) {
+#pragma unroll
+  for (int k = 0; k < NW; ++k) dst[k] = x[k];
+}
+
+// One quadratic round: the four pair dots D_xy = sum_i mont(A'[2i+x],
+// V'[2i+y]) of the round's operands A', V' (npairs pairs), which are A and
+// V folded at rj when FOLD (written to A2, V2), else A and V themselves.
+template <bool FOLD, bool LAZY>
+__global__ void __launch_bounds__(ROUND_THREADS)
+fold_round_kernel(const u32* __restrict__ A, const u32* __restrict__ V,
+                  u32* __restrict__ A2, u32* __restrict__ V2,
+                  u32* __restrict__ partials, unsigned* __restrict__ ticket,
+                  u32* __restrict__ dots, long long npairs, Fe rj) {
+  __shared__ u32 ops[2][SWEEP_ROWS][NW];   // the sweep's rows of A', V'
+  __shared__ u32 sums[ROUND_THREADS / 32][NW];
+  const int t = threadIdx.x;
+  const int role = t / ROLE_THREADS, lane = t % ROLE_THREADS;
+  const int op = t / SWEEP_ROWS, k = t % SWEEP_ROWS;
+  Acc<LAZY> acc;
+  acc.clear();
+  for (long long base = blockIdx.x * (long long)ROUND_PAIRS; base < npairs;
+       base += (long long)gridDim.x * ROUND_PAIRS) {
+    const long long f = 2 * base + k;
+    if (f < 2 * npairs) {
+      u32 x[NW];
+      round_row<FOLD>(x, op ? V : A, f, rj.w);
+      if (FOLD) store((op ? V2 : A2) + f * NW, x);
+      copy_row(ops[op][k], x);
+    }
+    __syncthreads();      // the sweep's rows before the products read them
+    if (base + lane < npairs)
+      acc.add_prod(ops[0][2 * lane + (role >> 1)],
+                   ops[1][2 * lane + (role & 1)]);
+    __syncthreads();      // the products before the next sweep's rows
+  }
+  u32 x[NW];
+  acc.finish(x);
+  role_warp_sums(x, role, sums);
+  __syncthreads();
+  if (t < NVAL) role_value(sums, t, x);
+  grid_finish(x, partials, ticket, dots);
+}
+
+// One DOT_PROD phase-1 round: c0..c3 of the round's operands m', V0', V1'
+// (npairs pairs of V'), which are m (while it has more than one row), V0
+// and V1 folded at rj when FOLD (written to Mo, V0o, V1o), else m, V0,
+// V1.  Per pair i, as cubic_role_sweep: roles 0, 1, 2 form e0, e1, e2
+// from V1' (a, da) and V0' (b, db) and add m0 e and dm e with the m' pair
+// (i mod half_m).  When m' has one row (half_m = 0) both rows of every
+// pair are m'[0], so dm = 0: c3 = 0 and c0..c2 are m'[0] times the
+// quadratic coefficients of (V1', V0').  Role 3 has no product.
+template <bool FOLD, bool LAZY>
+__global__ void __launch_bounds__(ROUND_THREADS)
+fold_cubic_round_kernel(const u32* __restrict__ M, const u32* __restrict__ V0,
+                        const u32* __restrict__ V1, u32* __restrict__ Mo,
+                        u32* __restrict__ V0o, u32* __restrict__ V1o,
+                        u32* __restrict__ partials,
+                        unsigned* __restrict__ ticket,
+                        u32* __restrict__ coeffs, long long npairs,
+                        long long m_rows, Fe rj) {
+  // the sweep's rows of V0', V1' and, for each of its pairs, its m' pair
+  __shared__ u32 ops[3][SWEEP_ROWS][NW];
+  __shared__ u32 sums[ROUND_THREADS / 32][2][NW];
+  const bool fold_m = FOLD && m_rows > 1;
+  const long long half_m = (fold_m ? m_rows / 2 : m_rows) / 2;
+  const int t = threadIdx.x;
+  const int role = t / ROLE_THREADS, lane = t % ROLE_THREADS;
+  const int op = t / SWEEP_ROWS, k = t % SWEEP_ROWS;
+  Acc<LAZY> alo, ahi;
+  alo.clear();
+  ahi.clear();
+  for (long long base = blockIdx.x * (long long)ROUND_PAIRS; base < npairs;
+       base += (long long)gridDim.x * ROUND_PAIRS) {
+    const long long f = 2 * base + k;
+    if (f < 2 * npairs) {
+      u32 x[NW];
+      round_row<FOLD>(x, op ? V1 : V0, f, rj.w);
+      if (FOLD) store((op ? V1o : V0o) + f * NW, x);
+      copy_row(ops[op][k], x);
+    }
+    // thread t < SWEEP_ROWS: row t & 1 of the m' pair of local pair t / 2;
+    // the thread whose pair i is that m' pair itself writes it out
+    const long long i = base + k / 2;
+    if (op == 0 && i < npairs) {
+      const long long row = half_m ? 2 * (i % half_m) + (k & 1) : 0;
+      const bool own = half_m ? i < half_m : (i == 0 && (k & 1) == 0);
+      u32 x[NW];
+      if (fold_m) {
+        round_row<true>(x, M, row, rj.w);
+        if (own) store(Mo + row * NW, x);
+      } else {
+        load(x, M + row * NW);
+      }
+      copy_row(ops[2][k], x);
+    }
+    __syncthreads();      // the sweep's rows before the products read them
+    if (role < CUBIC_TERMS && base + lane < npairs) {
+      const int p0 = 2 * lane, p1 = 2 * lane + 1;
+      u32 e[NW], x[NW];
+      if (role == 0) {
+        mont_mul(e, ops[1][p0], ops[0][p0]);
+      } else {
+        u32 da[NW], db[NW];
+        sub_mod(da, ops[1][p1], ops[1][p0]);
+        sub_mod(db, ops[0][p1], ops[0][p0]);
+        if (role == 1) {
+          mont_mul(e, da, ops[0][p0]);
+          mont_mul(x, ops[1][p0], db);
+          add_mod(e, e, x);
+        } else {
+          mont_mul(e, da, db);
+        }
+      }
+      sub_mod(x, ops[2][p1], ops[2][p0]);   // dm
+      alo.add_prod(ops[2][p0], e);
+      ahi.add_prod(x, e);
+    }
+    __syncthreads();      // the products before the next sweep's rows
+  }
+  u32 lo[NW], hi[NW];
+  alo.finish(lo);
+  ahi.finish(hi);
+  cubic_role_warp_sums(lo, hi, role, sums);
+  __syncthreads();
+  if (t < NVAL) cubic_role_value(sums, t, lo);
+  grid_finish(lo, partials, ticket, coeffs);
+}
+
+// ---------------------------------------------------------------------
 // host side
 
 // Carves the scratch of one ladder; with base 0 it only measures.
@@ -851,9 +1020,121 @@ int launch_cubic_wide(const u32* M, const u32* V0, const u32* V1, u32* Mo,
   return cudaGetLastError();
 }
 
+// The grid of a one-round launch over npairs pairs of the round's
+// operands, and its scratch: a ticket and the blocks' partials when it has
+// more than one block.
+struct RoundGrid {
+  int blocks;
+  bool lazy;
+  unsigned* ticket = nullptr;
+  u32* partials = nullptr;
+};
+
+RoundGrid round_grid(long long npairs, void* scratch) {
+  RoundGrid g;
+  g.lazy = lazy_round(2 * npairs);
+  g.blocks = blocks_for(npairs, ROUND_PAIRS, g.lazy);
+  if (g.blocks > 1) {
+    Bump b{reinterpret_cast<uintptr_t>(scratch)};
+    g.ticket = b.take<unsigned>(1);
+    g.partials = b.take<u32>((size_t)g.blocks * NVAL * NW);
+  }
+  return g;
+}
+
+// The pairs of a one-round launch's operands: rows / 4 after a fold,
+// rows / 2 without.
+long long round_pairs(long long rows, bool fold) {
+  return fold ? rows / 4 : rows / 2;
+}
+
+int start_round(const RoundGrid& g, cudaStream_t s) {
+  return g.ticket ? cudaMemsetAsync(g.ticket, 0, sizeof(unsigned), s) : 0;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Bytes of scratch that one fold_round / fold_cubic_round launch on
+// operands of `rows` rows needs (fold: at a challenge or not).
+long long zk_round_scratch_bytes(long long rows, int fold) {
+  const RoundGrid g = round_grid(round_pairs(rows, fold), nullptr);
+  if (g.blocks == 1) return 0;
+  Bump b{0};
+  b.take<unsigned>(1);
+  b.take<u32>((size_t)g.blocks * NVAL * NW);
+  return (long long)b.off;
+}
+
+// One quadratic round: A, V [rows, 8]; r: the previous round's
+// Montgomery challenge [8] on the host, or null for round 1.  With r,
+// A_out and V_out [rows / 2, 8] receive the folds and rows must be a
+// multiple of 4; without, rows is even and the outputs are unused.  dots:
+// [4, 8] of the round's operands.  scratch: zk_round_scratch_bytes bytes.
+int zk_fold_round(const void* A, const void* V, void* A_out, void* V_out,
+                  void* dots, const void* r, void* scratch, long long rows,
+                  void* stream, int* launches) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool fold = r != nullptr;
+  const long long npairs = round_pairs(rows, fold);
+  const RoundGrid g = round_grid(npairs, scratch);
+  int err = start_round(g, s);
+  if (err) return err;
+  const Fe rj = fold ? to_fe(static_cast<const u32*>(r)) : Fe{};
+  const u32* a = static_cast<const u32*>(A);
+  const u32* v = static_cast<const u32*>(V);
+  u32* a2 = static_cast<u32*>(A_out);
+  u32* v2 = static_cast<u32*>(V_out);
+  u32* d = static_cast<u32*>(dots);
+#define ZK_FOLD_ROUND(F, L)                                               \
+  fold_round_kernel<F, L><<<g.blocks, ROUND_THREADS, 0, s>>>(             \
+      a, v, a2, v2, g.partials, g.ticket, d, npairs, rj)
+  if (fold && g.lazy) ZK_FOLD_ROUND(true, true);
+  else if (fold) ZK_FOLD_ROUND(true, false);
+  else if (g.lazy) ZK_FOLD_ROUND(false, true);
+  else ZK_FOLD_ROUND(false, false);
+#undef ZK_FOLD_ROUND
+  *launches = 1;
+  return cudaGetLastError();
+}
+
+// One DOT_PROD phase-1 round: m [m_rows, 8], V0, V1 [rows, 8], with
+// m_rows a divisor of rows; r as for zk_fold_round.  With r: rows a
+// multiple of 4, V0_out, V1_out [rows / 2, 8] and, when m_rows > 1,
+// m_out [m_rows / 2, 8] receive the folds (m_rows is then 2 or a multiple
+// of 4).  coeffs: [4, 8].
+int zk_fold_cubic_round(const void* m, const void* V0, const void* V1,
+                        void* m_out, void* V0_out, void* V1_out,
+                        void* coeffs, const void* r, void* scratch,
+                        long long rows, long long m_rows, void* stream,
+                        int* launches) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool fold = r != nullptr;
+  const long long npairs = round_pairs(rows, fold);
+  const RoundGrid g = round_grid(npairs, scratch);
+  int err = start_round(g, s);
+  if (err) return err;
+  const Fe rj = fold ? to_fe(static_cast<const u32*>(r)) : Fe{};
+  const u32* mm = static_cast<const u32*>(m);
+  const u32* v0 = static_cast<const u32*>(V0);
+  const u32* v1 = static_cast<const u32*>(V1);
+  u32* mo = static_cast<u32*>(m_out);
+  u32* v0o = static_cast<u32*>(V0_out);
+  u32* v1o = static_cast<u32*>(V1_out);
+  u32* c = static_cast<u32*>(coeffs);
+#define ZK_FOLD_CUBIC_ROUND(F, L)                                         \
+  fold_cubic_round_kernel<F, L><<<g.blocks, ROUND_THREADS, 0, s>>>(       \
+      mm, v0, v1, mo, v0o, v1o, g.partials, g.ticket, c, npairs, m_rows,  \
+      rj)
+  if (fold && g.lazy) ZK_FOLD_CUBIC_ROUND(true, true);
+  else if (fold) ZK_FOLD_CUBIC_ROUND(true, false);
+  else if (g.lazy) ZK_FOLD_CUBIC_ROUND(false, true);
+  else ZK_FOLD_CUBIC_ROUND(false, false);
+#undef ZK_FOLD_CUBIC_ROUND
+  *launches = 1;
+  return cudaGetLastError();
+}
 
 const char* zk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

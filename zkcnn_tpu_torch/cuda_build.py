@@ -91,6 +91,10 @@ def load(name: str) -> ctypes.CDLL:
                  [P, P, P, P, P, P, P, L, I, I, P, N])
         _declare(lib, "zk_cubic_ladder", I,
                  [P, P, P, P, P, P, P, P, P, L, L, I, P, N])
+        _declare(lib, "zk_round_scratch_bytes", L, [L, I])
+        _declare(lib, "zk_fold_round", I, [P, P, P, P, P, P, P, L, P, N])
+        _declare(lib, "zk_fold_cubic_round", I,
+                 [P, P, P, P, P, P, P, P, P, L, L, P, N])
     else:
         _declare(lib, "zk_g1_error_string", ctypes.c_char_p, [I])
         _declare(lib, "zk_g1_add", I, [P, P, P, L, P])

@@ -1,5 +1,5 @@
-from .tape import Tape
+from .tape import Tape, FiatShamirTape
 from .prover import Prover
 from .verifier import Verifier
 
-__all__ = ["Tape", "Prover", "Verifier"]
+__all__ = ["Tape", "FiatShamirTape", "Prover", "Verifier"]

@@ -16,8 +16,18 @@ Stateful dataflow preserved from the reference:
     phase (prover.cpp:312-358).
 
 The prover runs on the device its witness tensors live on.
+
+Two ways to drive it, as in the JAX package: `run_rounds_*` and the
+`_dev` finalizes run a whole phase at challenges known beforehand (the
+seeded tape's three-pass verifier); `round_quadratic(prev_r)`,
+`round_cubic(prev_r)`, `liu_round(prev_r)` and the host-int finalizes
+`finalize1`, `dotprod_finalize1`, `finalize2`, `liu_finalize` run one
+round at a time for a verifier that draws each challenge only after the
+round's message (Fiat-Shamir), accumulating `prove_time` as they go.
 """
 
+import time
+from functools import wraps
 from typing import List, Optional
 
 import numpy as np
@@ -31,12 +41,25 @@ from ..circuit.eval import two_mul_table
 from ..circuit.ir import UNI_LU, UNI_SC, BIN_SC, BIN_L
 from ..mle import beta_table, beta_table_2pt, phi_table
 from ..mle.fold import mle_eval_dev
-from .engine import Side, PhaseEngine, DotProdPhase1
+from .engine import Side, PhaseEngine, DotProdPhase1, _host, _fetch_ints
 from .kernels import (p1_mult, p2_mult, p2_uni_add_term, gather_pad,
                       zero_region_scale, mul_outer_flat, contract_counts,
                       dotprod_p1_V0_gates, dotprod_p2_mult)
 
 F_BYTE_SIZE = 32
+
+
+def _timed(fn):
+    """Accumulate wall time into prove_time (reference prove_timer,
+    src/prover.cpp:33-35 etc.).  On the per-round path every round and
+    finalize ends in a fetch, so the device work it queued is inside."""
+    @wraps(fn)
+    def wrap(self, *a, **k):
+        t0 = time.perf_counter()
+        r = fn(self, *a, **k)
+        self.prove_time += time.perf_counter() - t0
+        return r
+    return wrap
 
 
 class Prover:
@@ -63,6 +86,11 @@ class Prover:
         return beta_table(r, init, self.device)
 
     # ------------------------------------------------------------------
+
+    @_timed
+    def v_res(self, r_0: List[int]) -> int:
+        """v_res_dev as a host int."""
+        return _host(self.v_res_dev(r_0))
 
     def v_res_dev(self, r_0: List[int]):
         """Fold the output layer's MLE at the verifier's point
@@ -151,6 +179,7 @@ class Prover:
     # ------------------------------------------------------------------
     # phase 1 inits
 
+    @_timed
     def sumcheck_init_phase1(self, relu_rou: int):
         lid = self.sumcheck_id
         cur = self.C.layers[lid]
@@ -217,6 +246,7 @@ class Prover:
             sides[b] = Side(mult, V, bl)
         self.phase = PhaseEngine(sides)
 
+    @_timed
     def sumcheck_dotprod_init_phase1(self):
         lid = self.sumcheck_id
         cur = self.C.layers[lid]
@@ -270,8 +300,46 @@ class Prover:
         for p4 in polys_host:
             self.proof_size += F_BYTE_SIZE * (p4[3] != 0)
 
+    @_timed
+    def round_quadratic(self, prev_r: Optional[int]):
+        """One round of the current quadratic phase: fold at the previous
+        round's challenge (None in round 1), then the message."""
+        poly = self.phase.round(prev_r)
+        self.proof_size += F_BYTE_SIZE * 3
+        return poly
+
+    @_timed
+    def round_cubic(self, prev_r: Optional[int]):
+        """As round_quadratic, a 4-tuple; its top coefficient counts only
+        when it is nonzero (reference prover.cpp:137)."""
+        poly = self.phase.round(prev_r)
+        self.proof_size += F_BYTE_SIZE * (3 + (poly[3] != 0))
+        return poly
+
     # ------------------------------------------------------------------
     # finalizes
+
+    def _last_fold(self, r_all: List[int]):
+        """The per-round path's fold at the phase's last challenge."""
+        if r_all:
+            self.phase.receive(r_all[-1])
+
+    @_timed
+    def finalize1(self, r_all: List[int]):
+        """Host-int claims of phase 1 (per-round path); V_u0/V_u1 stay on
+        the device as finalize1_dev leaves them."""
+        self._last_fold(r_all)
+        return tuple(_fetch_ints(self.finalize1_dev(r_all)))
+
+    @_timed
+    def dotprod_finalize1(self, r_all: List[int]) -> int:
+        self._last_fold(r_all)
+        return _fetch_ints(self.dotprod_finalize1_dev(r_all)[:1])[0]
+
+    @_timed
+    def finalize2(self, r_all: List[int]):
+        self._last_fold(r_all)
+        return tuple(_fetch_ints(self.finalize2_dev(r_all)))
 
     def finalize1_dev(self, r_all: List[int]):
         """[8] claims; V_u0/V_u1 stay on the device for the phase-2 init
@@ -305,6 +373,7 @@ class Prover:
     # ------------------------------------------------------------------
     # phase 2 inits
 
+    @_timed
     def sumcheck_init_phase2(self):
         lid = self.sumcheck_id
         cur = self.C.layers[lid]
@@ -377,6 +446,7 @@ class Prover:
                 ori = cache[key]
                 yield self._beta(rr[:bl], sig)[: ori.shape[0]], ori
 
+    @_timed
     def sumcheck_liu_init(self, sig_u: List[int], sig_v: List[int]):
         self.sumcheck_id = 0
         c0 = self.C.layers[0]
@@ -387,6 +457,17 @@ class Prover:
         V = self.val[0][:total]
         self.phase = PhaseEngine([None, Side(mult, V, c0.bit_length)],
                                  include_add_term=False)
+
+    @_timed
+    def liu_round(self, prev_r: Optional[int]):
+        poly = self.phase.round(prev_r)
+        self.proof_size += F_BYTE_SIZE * 3
+        return poly
+
+    @_timed
+    def liu_finalize(self, r_all: List[int]) -> int:
+        self._last_fold(r_all)
+        return _fetch_ints([self.liu_finalize_dev(r_all)])[0]
 
     def liu_finalize_dev(self, r_all: List[int]):
         self.r_u[0] = list(r_all)

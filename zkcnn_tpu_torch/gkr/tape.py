@@ -5,8 +5,8 @@ The reference draws live CSPRNG randomness at every verifier step
 275-279), which makes transcripts irreproducible.  We make the tape an
 explicit, seeded object so that (a) proofs are replayable in tests,
 (b) one-chip and N-chip runs can be diffed bit-for-bit, and (c) a
-Fiat-Shamir transcript can be slotted in later by deriving draws from
-a running hash instead of a counter.
+Fiat-Shamir transcript (`FiatShamirTape`) derives its draws from a
+running hash of the absorbed prover messages instead of a counter.
 """
 
 import hashlib
@@ -17,8 +17,8 @@ from ..field.params import FR_P
 class Tape:
     # Draws are counter-based and independent of absorbed prover
     # messages, so a whole phase's challenges can be drawn before its
-    # first round -- this enables the fused whole-phase device runners
-    # (gkr/fused.py).  FiatShamirTape must set this False.
+    # first round -- this enables the verifier's three-pass path, one
+    # ladder a phase.  FiatShamirTape sets this False.
     precomputable = True
     # Whether the verifier must interleave absorb/draw per sumcheck
     # round (draw r_j only AFTER absorbing round poly j).  Required for
@@ -54,3 +54,35 @@ class Tape:
         """No-op for the plain seeded tape (interactive model, like the
         reference); the Fiat-Shamir tape overrides this."""
 
+
+
+class FiatShamirTape(Tape):
+    """Non-interactive challenge derivation: every draw depends on all
+    prover messages absorbed so far, making the transcript a
+    self-contained proof.  The state is a sha512 chain over the absorbed
+    values, each as 32 little-endian bytes mod p; a draw hashes the state
+    and the counter."""
+
+    precomputable = False
+    interleaved = True
+
+    def __init__(self, seed: bytes = b"zkcnn-tpu-fs"):
+        super().__init__(seed)
+        self.state = hashlib.sha512(seed).digest()
+
+    def absorb(self, *values: int):
+        h = hashlib.sha512(self.state)
+        for v in values:
+            h.update((v % FR_P).to_bytes(32, "little"))
+        self.state = h.digest()
+
+    def field(self) -> int:
+        h = hashlib.sha512(self.state + self.counter.to_bytes(8, "little"))
+        self.counter += 1
+        return int.from_bytes(h.digest(), "little") % FR_P
+
+    def clone(self) -> "FiatShamirTape":
+        t = FiatShamirTape(self.seed)
+        t.counter = self.counter
+        t.state = self.state
+        return t

@@ -1,5 +1,5 @@
 """GKR verifier: runs the protocol and evaluates the predicates itself
-(counterpart of `zkcnn_tpu/gkr/verifier.py`, precomputable-tape path).
+(counterpart of `zkcnn_tpu/gkr/verifier.py`).
 
 Mirrors the reference verifier (src/verifier.cpp) step for step: the
 verifier owns all randomness (a seeded Tape), drives the prover layer
@@ -8,8 +8,9 @@ previous claim, and rebuilds each layer's wiring-predicate evaluations
 itself (betaInitPhase1/2 + predicatePhase1/2, verifier.cpp:36-116), so
 the prover is never trusted.
 
-The seeded tape's draws do not depend on absorbed messages, so every
-challenge is known up front and the protocol runs in three passes:
+With a precomputable tape (the seeded `Tape`) the draws do not depend
+on absorbed messages, so every challenge is known up front and the
+protocol runs in three passes:
 
   pass 1 (prover, = reference PT): every sumcheck init, round and
       finalize; round polys come back per round, claims stay tensors
@@ -20,12 +21,21 @@ challenge is known up front and the protocol runs in three passes:
   pass 3 (checks, = reference "fast" VT): host replay of every round
       equality, final-value and Liu consistency check.
 
+Any other tape (`FiatShamirTape`, whose draws hash every absorbed
+message) takes the per-round path, `verify_inner_layers` then
+`verify_first_layer`: the verifier drives the prover one round at a
+time, absorbs each round message and, when the tape is `interleaved`,
+draws r_j only after absorbing round j's message (the reference's draw
+order otherwise); it builds each layer's predicates right after the
+layer.  There is no transcript digest on this path: the absorbed
+messages are the transcript.
+
 With a polynomial commitment (`pcs`, a `pcs.HyraxPCS`) the verifier sets
 its generators up from the tape before anything else, the prover commits
-to the input layer, and the input claim of the Liu phase is opened and
-verified at the end (verifier.cpp:119-128,359-373).
-
-Not ported yet: the Fiat-Shamir tape with its per-round verifier.
+to the input layer (on the per-round path the tape then absorbs the
+sha256 of the commitment's canonical encoding), and the input claim of
+the Liu phase is opened and verified at the end
+(verifier.cpp:119-128,359-373).
 """
 
 import hashlib
@@ -39,6 +49,8 @@ from ..field.params import FR_P
 from ..circuit import Circuit, LayerType
 from ..circuit.eval import two_mul_table
 from ..mle import beta_table, beta_table_2pt, phi_table
+from ..pcs import curve
+from .engine import _fetch_ints
 from .kernels import pred_uni, pred_bin, zero_region_scale, \
     mul_outer_flat, gr_term
 from .prover import Prover
@@ -50,14 +62,6 @@ def _eval_poly(coeffs, x: int) -> int:
     for c in reversed(coeffs):
         acc = (acc * x + c) % FR_P
     return acc
-
-
-def _fetch_ints(tensors) -> list:
-    """One device->host transfer of [8] Montgomery tensors -> ints."""
-    if not tensors:
-        return []
-    big = torch.stack([t.reshape(FR.n) for t in tensors]).cpu().numpy()
-    return FR.unpack_mont_host(big)
 
 
 class Verifier:
@@ -151,6 +155,18 @@ class Verifier:
                 self.uni_value[b] = pred_uni(self.beta_g, self.beta_u,
                                              self.tm, uni)
 
+    def _predicate_phase1(self, depth):
+        """_predicate_phase1_dev with host ints (per-round path)."""
+        self._predicate_phase1_dev(depth)
+        self._values_to_host()
+
+    def _values_to_host(self):
+        """uni_value and bin_value as host ints: one transfer."""
+        vals = self.uni_value + self.bin_value
+        ints = iter(_fetch_ints([v for v in vals if torch.is_tensor(v)]))
+        vals = [next(ints) if torch.is_tensor(v) else v for v in vals]
+        self.uni_value, self.bin_value = vals[:2], vals[2:]
+
     def _predicate_phase2_dev(self, depth):
         cur = self.C.layers[depth]
         cache = self.p._gate_dev(depth)
@@ -175,6 +191,11 @@ class Verifier:
                     self.bin_value[l] = t if isinstance(old, int) \
                         else FR.add(old, t)
 
+    def _predicate_phase2(self, depth):
+        """_predicate_phase2_dev with host ints (per-round path)."""
+        self._predicate_phase2_dev(depth)
+        self._values_to_host()
+
     # ------------------------------------------------------------------
 
     def _check_rounds(self, polys, rs, previous_sum: int, what: str):
@@ -190,20 +211,26 @@ class Verifier:
         return True, previous_sum
 
     def verify(self) -> bool:
-        if not self.tape.precomputable:
-            raise NotImplementedError(
-                "only the seeded precomputable tape is ported; the "
-                "Fiat-Shamir per-round verifier is not")
         if self.pcs is not None:
             # gens are set up from the verifier tape before anything
             # else (reference verifier.cpp:119-128), then the prover
-            # commits
+            # commits.  A tape that is not precomputable absorbs the
+            # commitment's canonical (affine) encoding: Jacobian words are
+            # malleable by Z-scaling.
             self.pcs.setup(self.C.layers[0].bit_length, self.tape,
                            self.device)
             self.log("pcs setup done")
             self.commitment = self.pcs.commit(self.p.val[0])
             self.log("pcs commit done")
-        return self._verify_precomputed() and self.verify_input()
+            if not self.tape.precomputable:
+                enc = curve.encode_points_host(self.commitment)
+                self.tape.absorb(int.from_bytes(
+                    hashlib.sha256(enc).digest(), "little"))
+        if self.tape.precomputable:
+            ok = self._verify_precomputed()
+        else:
+            ok = self._verify_per_round()
+        return ok and self.verify_input()
 
     def verify_input(self) -> bool:
         """Polynomial-commitment opening (verifier.cpp:359-373)."""
@@ -214,6 +241,174 @@ class Verifier:
         if not ok:
             self.log("FAIL pcs opening")
         return ok
+
+    # ------------------------------------------------------------------
+    # per-round path (see module docstring)
+
+    def _verify_per_round(self) -> bool:
+        """verify_inner_layers then verify_first_layer; vt is the wall
+        time they take less the prover's share (prove_time)."""
+        pt0 = self.p.prove_time
+        t0 = time.perf_counter()
+        ok = self.verify_inner_layers() and self.verify_first_layer()
+        self.vt = time.perf_counter() - t0 - (self.p.prove_time - pt0)
+        self.vt_slow = self.vt
+        return ok
+
+    def _sumcheck(self, step, rs: List[int], n: int, previous_sum: int,
+                  what: str):
+        """n rounds of one phase, message by message: prove, absorb, draw
+        r_j after the absorb when the tape is interleaved (else rs holds
+        the challenges already), check.  -> (ok, claim at the point)."""
+        prev_r = None
+        for j in range(n):
+            poly = step(prev_r)
+            self.tape.absorb(*poly)
+            if self.tape.interleaved:
+                rs.append(self.tape.field())
+            if (_eval_poly(poly, 0) + _eval_poly(poly, 1)) % FR_P \
+                    != previous_sum:
+                self.log(f"FAIL {what} bit {j}")
+                return False, previous_sum
+            prev_r = rs[j]
+            previous_sum = _eval_poly(poly, prev_r)
+        return True, previous_sum
+
+    def verify_inner_layers(self) -> bool:
+        C, p = self.C, self.p
+        alpha, beta = 1, 0
+        last = C.layers[C.size - 1]
+        self.r_u[C.size] = self.tape.fields(last.bit_length)
+        r_0 = self.r_u[C.size]
+        r_1 = None
+
+        previous_sum = p.v_res(r_0)
+        self.tape.absorb(previous_sum)
+        p.sumcheck_init_all(r_0)
+
+        for i in range(C.size - 1, 0, -1):
+            cur = C.layers[i]
+            p.sumcheck_init(alpha, beta)
+            if self.tape.interleaved:
+                # r_j is drawn only after round poly j is absorbed;
+                # relu_rou parameterizes the init, so it comes first
+                relu_rou = self.tape.field() \
+                    if cur.zero_start_id < cur.size else 1
+                self.r_u[i] = []
+            else:
+                # reference draw order (verifier.cpp:156-160)
+                self.r_u[i] = self.tape.fields(cur.max_bl_u)
+                relu_rou = self.tape.field() \
+                    if cur.zero_start_id < cur.size else 1
+
+            if cur.ty == LayerType.DOT_PROD:
+                p.sumcheck_dotprod_init_phase1()
+                step = p.round_cubic
+            else:
+                p.sumcheck_init_phase1(relu_rou)
+                step = p.round_quadratic
+            ok, previous_sum = self._sumcheck(
+                step, self.r_u[i], cur.max_bl_u, previous_sum,
+                f"phase1 layer {i}")
+            if not ok:
+                return False
+
+            if cur.ty == LayerType.DOT_PROD:
+                final_claim_u1 = p.dotprod_finalize1(self.r_u[i])
+                self.final_claim_u0[i] = 0
+            else:
+                self.final_claim_u0[i], final_claim_u1 = \
+                    p.finalize1(self.r_u[i])
+            self.tape.absorb(self.final_claim_u0[i], final_claim_u1)
+
+            self._beta_init_phase1(i, alpha, beta, r_0, r_1, relu_rou)
+            self._predicate_phase1(i)
+
+            final_claim_v1 = 0
+            if cur.need_phase2:
+                self.r_v[i] = [] if self.tape.interleaved \
+                    else self.tape.fields(cur.max_bl_v)
+                p.sumcheck_init_phase2()
+                ok, previous_sum = self._sumcheck(
+                    p.round_quadratic, self.r_v[i], cur.max_bl_v,
+                    previous_sum, f"phase2 layer {i}")
+                if not ok:
+                    return False
+                self.final_claim_v0[i], final_claim_v1 = \
+                    p.finalize2(self.r_v[i])
+                self.tape.absorb(self.final_claim_v0[i], final_claim_v1)
+                self._predicate_phase2(i)
+
+            test_value = self._get_final_value(
+                self.final_claim_u0[i], final_claim_u1,
+                self.final_claim_v0[i], final_claim_v1)
+            if test_value != previous_sum:
+                self.log(f"FAIL semifinal layer {i} ({cur.ty})")
+                return False
+
+            # claim linkage to the next layer down (verifier.cpp:245-255)
+            if cur.ty in (LayerType.FFT, LayerType.IFFT):
+                previous_sum = final_claim_u1
+            else:
+                alpha = self.tape.field() if cur.bit_length_u[1] >= 0 else 0
+                beta = self.tape.field() if cur.bit_length_v[1] >= 0 else 0
+                previous_sum = (alpha * final_claim_u1
+                                + beta * final_claim_v1) % FR_P
+            r_0 = self.r_u[i]
+            r_1 = self.r_v[i]
+            p.release_gates(i)
+            p.release_val(i)
+            self.log(f"layer {i:3d} {cur.ty.name:9s} bl={cur.bit_length} "
+                     f"ok")
+        return True
+
+    def verify_first_layer(self) -> bool:
+        """Liu input-consolidation sumcheck (verifier.cpp:268-357)."""
+        C, p = self.C, self.p
+        cur = C.layers[0]
+        sig_u = self.tape.fields(C.size - 1)
+        sig_v = self.tape.fields(C.size - 1)
+        self.r_u[0] = [] if self.tape.interleaved \
+            else self.tape.fields(cur.bit_length)
+
+        previous_sum = 0
+        for i in range(1, C.size):
+            if C.layers[i].bit_length_u[0] >= 0:
+                previous_sum += sig_u[i - 1] * self.final_claim_u0[i]
+            if C.layers[i].bit_length_v[0] >= 0:
+                previous_sum += sig_v[i - 1] * self.final_claim_v0[i]
+        previous_sum %= FR_P
+
+        p.sumcheck_liu_init(sig_u, sig_v)
+        ok, previous_sum = self._sumcheck(p.liu_round, self.r_u[0],
+                                          cur.bit_length, previous_sum, "liu")
+        if not ok:
+            return False
+
+        self.eval_in = p.liu_finalize(self.r_u[0])
+        self.tape.absorb(self.eval_in)
+
+        # gr = sum over layers of the subset predicate at the bound points
+        beta_g = self._beta(self.r_u[0])
+        gr = None
+        for i in range(1, C.size):
+            ly = C.layers[i]
+            cache = p._ori_dev(i)
+            for bl, ori, rr, sig in (
+                    (ly.bit_length_u[0], "ori_u", self.r_u[i], sig_u[i - 1]),
+                    (ly.bit_length_v[0], "ori_v", self.r_v[i],
+                     sig_v[i - 1])):
+                if bl < 0:
+                    continue
+                t = gr_term(beta_g, cache[ori], self._beta(rr[:bl], sig))
+                gr = t if gr is None else FR.add(gr, t)
+        gr = _fetch_ints([gr])[0] if gr is not None else 0
+
+        if self.eval_in * gr % FR_P != previous_sum:
+            self.log("FAIL liu semifinal")
+            return False
+        self.log("first layer (Liu) ok")
+        return True
 
     # ------------------------------------------------------------------
     # precomputable-tape path: three passes (see module docstring)

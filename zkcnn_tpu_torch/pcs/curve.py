@@ -413,14 +413,43 @@ def py_add(P, Q, p=FP_P):
     return (x3, (lam * (x1 - x3) - y1) % p)
 
 
+def _jac_double(X, Y, Z, p):
+    """2 (X, Y, Z) in Jacobian coordinates on y^2 = x^3 + b (Z = 0, the
+    point at infinity, stays 0)."""
+    YY = Y * Y % p
+    S, M = 4 * X * YY % p, 3 * X * X % p
+    X3 = (M * M - 2 * S) % p
+    return X3, (M * (S - X3) - 8 * YY * YY) % p, 2 * Y * Z % p
+
+
 def py_mul(P, k, p=FP_P):
-    acc = None
-    while k:
-        if k & 1:
-            acc = py_add(acc, P, p)
-        P = py_add(P, P, p)
-        k >>= 1
-    return acc
+    """k P for k >= 0: double-and-add from the top bit in Jacobian
+    coordinates, adding the affine P, with one inversion at the end
+    (py_add inverts at every step)."""
+    if P is None or k == 0:
+        return None
+    x, y = P
+    X, Y, Z = x, y, 1
+    for bit in bin(k)[3:]:
+        X, Y, Z = _jac_double(X, Y, Z, p)
+        if bit == "0":
+            continue
+        if not Z:
+            X, Y, Z = x, y, 1
+            continue
+        ZZ = Z * Z % p
+        H, R = (x * ZZ - X) % p, (y * ZZ * Z - Y) % p
+        if H == 0:                          # P + P, or P + (-P)
+            X, Y, Z = _jac_double(X, Y, Z, p) if R == 0 else (1, 1, 0)
+            continue
+        HH = H * H % p
+        HHH, V = H * HH % p, X * HH % p
+        X = (R * R - HHH - 2 * V) % p
+        Y, Z = (R * (V - X) - Y * HHH) % p, Z * H % p
+    if not Z:
+        return None
+    zi = pow(Z, -1, p)
+    return (X * zi * zi % p, Y * zi * zi * zi % p)
 
 
 def py_mul_signed(P, k):
