@@ -31,7 +31,9 @@ Phases; any failure raises and the script exits non-zero:
      shared scalar; (R, N) = (1, 1), (3, 5), (2, 512) and (3, 130) (a
      row of several blocks, the last one partly filled) with a repeated
      base for the MSM on its table (py_mul at full-size scalars, the
-     plain version at 32-bit ones);
+     plain version at 32-bit ones); the inner-product opening's round
+     scalars (ipa_scalars) against their plain version, word for word, at
+     (L, n) from (2, 2) to (1024, 64), random and p - 1;
   4. the three tiny models proven and verified on the card with a real
      sqrt commitment and opening (HyraxPCS): transcript digest and proof
      size equal to their 1-device pins, a wrong evaluation rejected; one
@@ -52,9 +54,16 @@ Phases; any failure raises and the script exits non-zero:
      verify, with WS 201734(2^18), PS 45.7188 KB, the pinned digest,
      every ladder launched, and at most one fetch per side per phase.
      With the commitment (inner-product opening): the same WS and PS,
-     POLY_PS 24.8750 KB, its own pinned digest, every curve kernel and
-     every ladder launched, and no curve operation through a plain or
-     host version.  Then LeNet5 built as cli/runner.py builds it, under
+     POLY_PS 24.8750 KB, its own pinned digest, every ladder launched,
+     g1_msm_table, g1_msm and ipa_scalars launched (at most 7 tables, one
+     ipa_scalars a round), no g1_scalar_mul and no g1_add (the opening
+     folds no point), and no curve operation through a plain or host
+     version.  Its opening's own b, x, Q and tape then go through
+     ipa_prove_by_folds (whose curve launches and shapes are G1's and
+     G2's run): every L_k, R_k, b0 and the tape after must equal the
+     opening's, and both openings are timed, the new one split into Q's
+     table, the MSMs, the ipa_scalars launches (and their plain version)
+     and the rest.  Then LeNet5 built as cli/runner.py builds it, under
      FiatShamirTape(b"zkcnn-demo-17") with the inner-product commitment,
      counts reset just before the proof: the same WS, PS and POLY_PS, the
      CPU-pinned final tape state and counter, fold_round and
@@ -77,13 +86,16 @@ Phases; any failure raises and the script exits non-zero:
      (each entry's launches, shape and times belong to the run its `run`
      key names: the ladders' to LeNet --no-pcs, the per-round path's
      entries to LeNet under FiatShamirTape, the curve kernels' to LeNet
-     with the commitment), the nvidia-smi name/power line, and the final
-     JSON status line.
+     with the commitment, but g1_add's and g1_scalar_mul's to the
+     fold-based opening, with their launches on the main path, 0, beside
+     them), the nvidia-smi name/power line, and the final JSON status
+     line.
 """
 
 import json
 import os
 import random
+import statistics
 import subprocess
 import sys
 import time
@@ -153,7 +165,9 @@ G1_SOURCE = "zkcnn_tpu_torch/csrc/g1_kernels.cu"
 G1_REPLACES = {"g1_add": "zkcnn_tpu/pcs/curve.py:81",         # and pdouble :58
                "g1_scalar_mul": "zkcnn_tpu/pcs/curve.py:147",
                "g1_msm_table": "zkcnn_tpu/pcs/msm.py:100",   # from :269
-               "g1_msm": "zkcnn_tpu/pcs/msm.py:271"}    # and ipa._msm_small :45
+               "g1_msm": "zkcnn_tpu/pcs/msm.py:271",  # ipa._msm_small :45
+               # the fold of G, whose work the weights take over
+               "ipa_scalars": "zkcnn_tpu/pcs/ipa.py:60"}
 FR_P = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 FP_P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
 QUAD = "zkcnn_tpu/field/pallas_round2.py:237"       # and pallas_round.py:249
@@ -195,6 +209,12 @@ POINT_BYTES = 144
 LENET_RUN = "lenet --no-pcs"
 LENET_PCS_RUN = "lenet with the commitment"
 LENET_FS_RUN = "lenet under FiatShamirTape with the commitment"
+FOLDS_RUN = "ipa_prove_by_folds on the opening of lenet with the commitment"
+# curve kernels that the LeNet opening no longer runs: their shapes and
+# launches come from FOLDS_RUN
+FOLD_KERNELS = ("g1_add", "g1_scalar_mul")
+# calls of each opening, in turns, when the two are timed
+OPENING_PAIRS = 8
 
 
 def say(msg):
@@ -723,6 +743,49 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
         "with a zero scalar and a repeated base")
 
 
+def ipa_scalars_inputs(torch, ipa, shape, gen, rng, fill=rand_fe):
+    """Operands of kernel ipa_scalars at (L, n) on the card (b, the
+    weights and the Q column from `fill`), as round log2(L / n) of an
+    opening lays them out (a previous challenge, p - 1 with pm1_fe,
+    unless n = L): (the kernel call, the plain call)."""
+    L, n = shape
+    b, s, q = fill(torch, n, gen), fill(torch, L, gen), fill(torch, 2, gen)
+    prev = None
+    if n < L:
+        c = FR_P - 1 if fill is pm1_fe else rng.randrange(1, FR_P)
+        prev = (c, pow(c, -1, FR_P))
+    args = (b, s, prev, q[0], q[1])
+    return (lambda: ipa.ipa_scalars(*args)), \
+        (lambda: ipa.ipa_scalars_plain(*args))
+
+
+def ipa_scalars_compare(torch, ipa, shape, gen, rng, fill=rand_fe):
+    """ipa_scalars against its plain version at (L, n), word for word;
+    raises on a mismatch.  Returns (max_abs_err, kernel_fn, plain_fn)."""
+    kern, plain = ipa_scalars_inputs(torch, ipa, shape, gen, rng, fill)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = max(max_err(torch, g, w) for g, w in zip(got, want))
+    if err or any(g.shape != w.shape for g, w in zip(got, want)):
+        raise AssertionError(f"ipa_scalars at {shape}: kernel differs from "
+                             f"its plain version (max abs err {err})")
+    return err, kern, plain
+
+
+def ipa_scalars_bound(shape):
+    """(bound_ms, bound_by) of ipa_scalars at (L, n): b, the weights and
+    the Q column read once, the weights and the rows written once,
+    against a Montgomery product a term (two past round 0: the weight
+    too) of 128 multiplies."""
+    L, n = shape
+    nbytes = (n + 2 * L + 2 * (L + 1) + 2) * ROW_BYTES
+    muls = L * (1 + (n < L)) * FULL_MULS
+    by_bytes = nbytes / MEM_BYTES_S * 1e3
+    by_ops = muls / INT32_MULS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
 def table_shapes(torch, curve, msm_mod, shapes, gen):
     """g1_msm_table at each of its shapes (N, nwin) against one call of
     the plain version on all their bases at once (its time is a chain of
@@ -741,6 +804,120 @@ def table_shapes(torch, curve, msm_mod, shapes, gen):
         at += N
     say(f"g1_msm_table equals its plain version, entry by entry as group "
         f"elements, at {shapes}")
+
+
+def capture_opening(hyrax):
+    """Wraps hyrax.ipa_prove so that the openings that follow keep their
+    inputs: returns the dict the last one fills (b, x, the generators'
+    FixedBaseMSM, Q, t and a clone of the tape as the rounds start) and a
+    function that undoes the wrap."""
+    seen, real = {}, hyrax.ipa_prove
+
+    def run(b, x, gen_msm, Q, t, tape):
+        seen.update(b=b.clone(), x=x.clone(), gen_msm=gen_msm, Q=Q.clone(),
+                    t=t, tape=tape.clone())
+        return real(b, x, gen_msm, Q, t, tape)
+
+    hyrax.ipa_prove = run
+    return seen, lambda: setattr(hyrax, "ipa_prove", real)
+
+
+def wall_ms(torch, fn) -> float:
+    """Host milliseconds of one call of fn, the device finished, after
+    one call of warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def opening_checks(torch, ipa, curve, msm_mod, seen, smi, run):
+    """The captured opening of the LeNet run `run` again, on its own b,
+    x, Q and tape:
+    ipa_prove_by_folds (its curve launches and shapes counted alone) held
+    against ipa_prove, every L_k and R_k as group elements and b0, and
+    the tapes after; both timed, a call each in turns, the new one split
+    into Q's table, the MSMs on [G; Q], the ipa_scalars launches and the
+    rest.  Returns the by-folds run's (launches, shapes)."""
+    b, x, gen_msm, Q, t = (seen[k] for k in ("b", "x", "gen_msm", "Q", "t"))
+    G = gen_msm.points
+    torch.cuda.synchronize()
+    curve.reset_launches()
+    ftape = seen["tape"].clone()
+    folds = ipa.ipa_prove_by_folds(b, x, G, Q, t, ftape)
+    torch.cuda.synchronize()
+    fold_run = ({k: curve.LAUNCHES[k] for k in curve.NAMES},
+                {k: sorted(curve.SHAPES[k]) for k in curve.NAMES})
+    ntape = seen["tape"].clone()
+    new = ipa.ipa_prove(b, x, gen_msm, Q, t, ntape)
+    if len(new.Ls) != len(folds.Ls) or new.b0 != folds.b0:
+        raise AssertionError("the opening on the setup's table and the "
+                             "fold-based opening differ in rounds or b0")
+    for mine, ref, what in ((new.Ls, folds.Ls, "L_k"),
+                            (new.Rs, folds.Rs, "R_k")):
+        same_points(msm_mod, torch.stack(mine), torch.stack(ref),
+                    f"the opening's {what} against ipa_prove_by_folds")
+    if (ntape.counter, getattr(ntape, "state", None)) != (
+            ftape.counter, getattr(ftape, "state", None)):
+        raise AssertionError("the two openings leave their tapes apart")
+    say(f"{run}: the opening on the setup's table equals ipa_prove_by_folds "
+        f"at L = {b.shape[0]}: {len(new.Ls)} L_k and R_k as group elements, "
+        f"b0, the tape after")
+    # the MSMs and the ipa_scalars launches of one run, each timed again
+    # on its own operands (host work included)
+    msms, scalars = [], []
+    real_msm, real_scalars = msm_mod.FixedBaseMSM.compute, ipa.ipa_scalars
+
+    def keep_msm(self, rows):
+        msms.append((self, rows))
+        return real_msm(self, rows)
+
+    def keep_scalars(*args):
+        scalars.append(args)
+        return real_scalars(*args)
+
+    msm_mod.FixedBaseMSM.compute, ipa.ipa_scalars = keep_msm, keep_scalars
+    try:
+        ipa.ipa_prove(b, x, gen_msm, Q, t, seen["tape"].clone())
+    finally:
+        msm_mod.FixedBaseMSM.compute = real_msm
+        ipa.ipa_scalars = real_scalars
+    # the two openings in turns (new, folds, folds, new, ...), a call each
+    calls = {"new": lambda: ipa.ipa_prove(b, x, gen_msm, Q, t,
+                                          seen["tape"].clone()),
+             "folds": lambda: ipa.ipa_prove_by_folds(b, x, G, Q, t,
+                                                     seen["tape"].clone())}
+    turns = {"new": [], "folds": []}
+    for i in range(OPENING_PAIRS):
+        for k in (("new", "folds") if i % 2 == 0 else ("folds", "new")):
+            turns[k].append(wall_ms(torch, calls[k]))
+    times = {
+        "new": statistics.median(turns["new"]),
+        "folds": statistics.median(turns["folds"]),
+        "q_table": time_ms(torch, lambda: gen_msm.extend(Q[None]), 5),
+        "msms": sum(time_ms(torch, lambda: real_msm(m, rows), 5)
+                    for m, rows in msms),
+        "scalars": sum(time_ms(torch, lambda: real_scalars(*args), 5)
+                       for args in scalars),
+        "plain_scalars": sum(time_ms(
+            torch, lambda: ipa.ipa_scalars_plain(*args), 5)
+            for args in scalars)}
+    times["rest"] = times["new"] - times["q_table"] - times["msms"] \
+        - times["scalars"]
+    say(f"{run}: the opening at L = {b.shape[0]} (a call, the device "
+        f"finished): on the setup's table {times['new']:.4f} ms = Q's table "
+        f"and the join {times['q_table']:.4f} ms + {len(msms)} MSMs on [G; Q] "
+        f"{times['msms']:.4f} ms + the scalar prep: {len(scalars)} "
+        f"ipa_scalars {times['scalars']:.4f} ms (their plain version "
+        f"{times['plain_scalars']:.4f} ms) and the rest (the dots and folds "
+        f"of b and x on the plain Fr ops, the tape, b0's fetch) "
+        f"{times['rest']:.4f} ms; by folds {times['folds']:.4f} ms (medians "
+        f"of {OPENING_PAIRS} calls each in turns; on the table "
+        f"{[round(v, 4) for v in turns['new']]}, by folds "
+        f"{[round(v, 4) for v in turns['folds']]}) ({smi})")
+    return fold_run
 
 
 def main():
@@ -778,7 +955,7 @@ def main():
     lap("build")
     from zkcnn_tpu_torch.field import FP, FR, round_kernels as rk
     from zkcnn_tpu_torch.gkr import engine
-    from zkcnn_tpu_torch.pcs import HyraxPCS, curve
+    from zkcnn_tpu_torch.pcs import HyraxPCS, curve, hyrax, ipa
     from zkcnn_tpu_torch.pcs import msm as msm_mod
     rk._lib()
     curve.g1_lib()
@@ -804,6 +981,13 @@ def main():
     fp_checks(torch, curve, FP, rng, smi)
     lap("Fp product")
     g1_checks(torch, curve, msm_mod, FR, gen, rng)
+    ipa_edge = [(2, 2), (4, 2), (8, 8), (8, 4), (128, 2), (512, 512),
+                (512, 256), (512, 2), (1024, 64)]
+    for shape in ipa_edge:
+        for fill in (rand_fe, pm1_fe):
+            ipa_scalars_compare(torch, ipa, shape, gen, rng, fill)
+    say(f"ipa_scalars exact (tolerance 0; random rows and rows of p - 1) "
+        f"at (L, n) = {ipa_edge}")
     lap("curve kernels' checks")
 
     from zkcnn_tpu_torch.nn import random_source, NeuralNetwork
@@ -955,13 +1139,17 @@ def main():
     lap("lenet --no-pcs")
 
     # LeNet again with the commitment (inner-product opening); the counts
-    # of the curve kernels and of the ladders cover exactly this run
+    # of the curve kernels and of the ladders cover exactly this run, and
+    # the opening keeps its inputs for the fold-based opening below
+    seen, uncapture = capture_opening(hyrax)
     rk.reset_launches()
     curve.reset_launches()
     res = demo_lenet.main(["--synthetic", "--seed", "17", "--pic-cnt", "1"])
     torch.cuda.synchronize()
+    uncapture()
     g1_launches = dict(curve.LAUNCHES)
     g1_shapes = {k: sorted(curve.SHAPES[k]) for k in curve.NAMES}
+    g1_plain = dict(curve.PLAIN_CALLS)
     row = res["row"]
     say(f"lenet with the commitment: Verification pass, WS {row['WS']}, PS "
         f"{row['PS']} KB, POLY_PS {row['POLY_PS']} KB, PT {row['PT']} s, "
@@ -973,7 +1161,7 @@ def main():
     say(f"lenet row: {res['line']}")
     say(f"lenet with the commitment, curve wrapper calls that launched: "
         f"{g1_launches} (device kernels {dict(curve.KERNEL_LAUNCHES)}), "
-        f"not through a kernel: {dict(curve.PLAIN_CALLS)}; ladders: "
+        f"not through a kernel: {g1_plain}; ladders: "
         f"{ {k: rk.LAUNCHES[k] for k in LADDERS} }")
     if (row["WS"], row["PS"], row["POLY_PS"]) != (
             PINNED_LENET["WS"], PINNED_LENET["PS"],
@@ -983,18 +1171,45 @@ def main():
     if res["digest"] != PINNED_LENET_PCS["digest"]:
         raise AssertionError(f"lenet digest {res['digest']} differs from "
                              f"the CPU pin {PINNED_LENET_PCS['digest']}")
+    # the opening runs on the setup's table: a round is one ipa_scalars
+    # and one g1_msm launch, no fold of G and no table of its own; the
+    # tables are the setup's, the tape's generators', Q's in open, Q's
+    # opening table, Q's in verify and the verifier's two
+    rounds_ipa = len(seen["b"]).bit_length() - 1
     for name in curve.NAMES:
-        if g1_launches[name] <= 0:
+        if name not in FOLD_KERNELS and g1_launches[name] <= 0:
             raise AssertionError(f"lenet never launched kernel {name}")
-    if any(curve.PLAIN_CALLS.values()):
+    for name in FOLD_KERNELS:
+        if g1_launches[name]:
+            raise AssertionError(f"lenet launched {name} "
+                                 f"{g1_launches[name]} times: the opening "
+                                 f"should fold no point")
+    if g1_launches["g1_msm_table"] > 7 or \
+            g1_launches["ipa_scalars"] != rounds_ipa:
+        raise AssertionError(f"lenet with the commitment: "
+                             f"{g1_launches['g1_msm_table']} tables (at most "
+                             f"7), {g1_launches['ipa_scalars']} ipa_scalars "
+                             f"launches for {rounds_ipa} rounds")
+    if any(g1_plain.values()):
         raise AssertionError(f"curve operations went past the kernels: "
-                             f"{dict(curve.PLAIN_CALLS)}")
+                             f"{g1_plain}")
     for name in LADDERS:
         if rk.LAUNCHES[name] <= 0:
             raise AssertionError(f"lenet with the commitment never launched "
                                  f"kernel {name}")
 
     lap("lenet with the commitment")
+
+    # the same opening by folds, on its own inputs: the proof must not
+    # change; its curve launches and shapes are G1's and G2's run
+    fold_run = opening_checks(torch, ipa, curve, msm_mod, seen, smi,
+                              LENET_PCS_RUN)
+    say(f"{FOLDS_RUN}, curve wrapper calls that launched: {fold_run[0]}")
+    for name in FOLD_KERNELS:
+        if fold_run[0][name] <= 0:
+            raise AssertionError(f"{FOLDS_RUN} never launched kernel {name}")
+
+    lap("the opening against the fold-based opening")
 
     # LeNet under Fiat-Shamir with the commitment (inner-product opening),
     # built as cli/runner.py builds it; the counts cover exactly the proof
@@ -1041,6 +1256,7 @@ def main():
     for obj, name in ((pcs, "setup"), (pcs, "commit"),
                       (v, "_verify_per_round"), (v, "verify_input")):
         spanned(obj, name)
+    fs_seen, uncapture = capture_opening(hyrax)
     torch.cuda.synchronize()
     rk.reset_launches()
     engine.FETCHES["rounds"] = 0
@@ -1048,6 +1264,7 @@ def main():
     ok = v.verify()
     torch.cuda.synchronize()
     fs_wall = time.perf_counter() - t0
+    uncapture()
     span = {k: b - a for k, (a, b) in marks.items()}
     span["absorb"] = marks["_verify_per_round"][0] - marks["commit"][1]
     fs = {k: rk.LAUNCHES[k] for k in rk.NAMES}
@@ -1098,6 +1315,10 @@ def main():
         raise AssertionError(f"lenet under FiatShamirTape: {fs_fetches} "
                              f"round fetches for {rounds} rounds")
 
+    # its opening against the fold-based one too: under FiatShamirTape a
+    # round's absorb of L_k and R_k waits for the device
+    opening_checks(torch, ipa, curve, msm_mod, fs_seen, smi, LENET_FS_RUN)
+
     lap("lenet under Fiat-Shamir")
 
     # 6. every entry against its plain version at the shapes of its run,
@@ -1133,29 +1354,55 @@ def main():
 
     lap("round kernels at their runs' shapes")
 
-    # the curve kernels at every shape of the LeNet run, as group
-    # elements: against the plain version on 32-bit scalars (it takes
-    # seconds a shape), and at the largest shape on full-size scalars too
-    # (one call of the plain version: about a minute)
+    # the curve kernels at every shape of their run (the LeNet run with
+    # the commitment; G1 and G2: the fold-based opening of its opening),
+    # as group elements: against the plain version on 32-bit scalars (it
+    # takes seconds a shape), and at the largest shape on full-size
+    # scalars too (one call of the plain version: about a minute);
+    # ipa_scalars word for word
     for name in curve.NAMES:
-        say(f"shapes of {name} in its run: {g1_shapes[name]}")
+        run, seen_shapes, launched = LENET_PCS_RUN, g1_shapes, g1_launches
+        if name in FOLD_KERNELS:
+            run, seen_shapes, launched = FOLDS_RUN, fold_run[1], fold_run[0]
+        say(f"shapes of {name} in its run ({run}): {seen_shapes[name]}")
+        shape = max(seen_shapes[name])
+        if name == "ipa_scalars":
+            err = 0
+            for sh in seen_shapes[name]:
+                e, kern, _ = ipa_scalars_compare(torch, ipa, sh, gen, rng)
+                err = max(err, e)
+                say(f"time {name} {sh}: kernel {time_ms(torch, kern, 20):.4f} "
+                    f"ms ({smi})")
+            e, kern, plain = ipa_scalars_compare(torch, ipa, shape, gen, rng)
+            err = max(err, e)
+            ms, pms = time_ms(torch, kern, 20), time_ms(torch, plain, 5)
+            b_ms, b_by = ipa_scalars_bound(shape)
+            kernels.append({"name": name, "route": "cuda",
+                            "source": G1_SOURCE,
+                            "replaces": G1_REPLACES[name],
+                            "launches": launched[name], "max_abs_err": err,
+                            "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": None,
+                            "shape": list(shape), "run": run})
+            say(f"reported time of {name}: the largest shape of its run "
+                f"({run}) {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                f"bound {b_ms:.6f} ms by {b_by} ({smi})")
+            continue
         if name == "g1_msm_table":
-            table_shapes(torch, curve, msm_mod, g1_shapes[name], gen)
-        for shape in g1_shapes[name]:
+            table_shapes(torch, curve, msm_mod, seen_shapes[name], gen)
+        for sh in seen_shapes[name]:
             if name != "g1_msm_table":
                 _, kern, plain = g1_inputs(torch, curve, msm_mod, FR, name,
-                                           shape, gen, 32)
+                                           sh, gen, 32)
                 same_points(msm_mod, kern(), plain(),
-                            f"{name} at {shape}, 32-bit scalars")
-            _, kern, _ = g1_inputs(torch, curve, msm_mod, FR, name, shape,
-                                   gen)
+                            f"{name} at {sh}, 32-bit scalars")
+            _, kern, _ = g1_inputs(torch, curve, msm_mod, FR, name, sh, gen)
             with_table = ""
             if name == "g1_msm":
                 with_table = (f", with building its table "
                               f"{time_ms(torch, kern.with_table, 3):.4f} ms")
-            say(f"time {name} {shape}: kernel "
+            say(f"time {name} {sh}: kernel "
                 f"{time_ms(torch, kern, 3):.4f} ms{with_table} ({smi})")
-        shape = max(g1_shapes[name])
         scalars, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
                                          name, shape, gen)
         pms, want = time_once_ms(torch, plain)
@@ -1167,22 +1414,25 @@ def main():
             b_ms, b_by = g1_bound(torch, curve, name, shape, scalars)
         entry = {"name": name, "route": "cuda", "source": G1_SOURCE,
                  "replaces": G1_REPLACES[name],
-                 "launches": g1_launches[name], "max_abs_err": err,
+                 "launches": launched[name], "max_abs_err": err,
                  "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": None,
-                 "shape": list(shape), "run": LENET_PCS_RUN}
+                 "shape": list(shape), "run": run}
+        if name in FOLD_KERNELS:
+            entry["launches_on_the_main_path"] = g1_launches[name]
         with_table = ""
         if name == "g1_msm":
             entry["ms_with_table"] = time_ms(torch, kern.with_table, 5)
             with_table = (f" (with building its table "
                           f"{entry['ms_with_table']:.4f} ms)")
         say(f"reported time of {name}: the largest shape of its run "
-            f"({LENET_PCS_RUN}) {shape}: kernel {ms:.4f} ms{with_table}, "
+            f"({run}) {shape}: kernel {ms:.4f} ms{with_table}, "
             f"plain {pms:.4f} ms (one call), bound {b_ms:.6f} ms by {b_by} "
             f"({smi})")
         kernels.append(entry)
     say("curve kernels equal to their plain versions as group elements "
-        "(tolerance 0 after normalising Z) at every shape of their run")
+        "(tolerance 0 after normalising Z; ipa_scalars word for word) at "
+        "every shape of their run")
 
     lap("curve kernels at their run's shapes")
 

@@ -24,7 +24,7 @@ from zkcnn_tpu.pcs import curve as jcurve
 from zkcnn_tpu_torch.field import FP, FR, FP_P, FR_P
 from zkcnn_tpu_torch.interop import limbs16_to_words, points_from_jax, \
     points_to_jax
-from zkcnn_tpu_torch.pcs import curve
+from zkcnn_tpu_torch.pcs import curve, ipa
 
 G = (curve.G1_X, curve.G1_Y)
 
@@ -129,6 +129,11 @@ void h_scalar_mul(u32* r, const u32* p, const u32* k, int nbits, int mont) {
   pt_scalar_mul(&acc, &a, kk, nbits);
   st(r, &acc);
 }
+void h_fr_mul(u32* r, const u32* a, const u32* b) { fr_mul(r, a, b); }
+void h_ipa_terms(const u32* b, const u32* s_in, u32* s_out, const u32* c,
+                 u32* rows, long long L, long long n) {
+  for (long long i = 0; i < L; ++i) ipa_term(b, s_in, s_out, c, rows, i, L, n);
+}
 }
 """
 
@@ -136,7 +141,9 @@ void h_scalar_mul(u32* r, const u32* p, const u32* k, int nbits, int mont) {
 def test_cuda_arithmetic_built_for_the_host_matches_python_ints(tmp_path):
     """csrc/g1_arith.cuh is plain C++ behind its macros: Fp add/sub/mul,
     the complete point addition (every alias of the result) and the
-    double-and-add loop, as the kernels run them, against Python ints."""
+    double-and-add loop, as the kernels run them, against Python ints;
+    the Fr product likewise, and the inner-product opening's round terms
+    (ipa_term) against ipa_scalars_plain, word for word."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the CUDA arithmetic for the host")
@@ -183,3 +190,29 @@ def test_cuda_arithmetic_built_for_the_host_matches_python_ints(tmp_path):
             lib.h_scalar_mul(ptr(r), ptr(P), ptr(kk), nbits, mont)
             assert curve.to_affine_host(r) == \
                 [curve.py_mul(ps[7], k & ((1 << nbits) - 1))]
+
+    # the Fr product, and the inner-product opening's round terms against
+    # their plain version (the Q column, which the kernel copies, aside)
+    frs = [0, 1, 2, FR_P - 1, FR_P - 2] + \
+        [int.from_bytes(rng.bytes(32), "little") % FR_P for _ in range(30)]
+    for x in frs:
+        for y in frs[:7]:
+            r = np.zeros(8, np.int32)
+            lib.h_fr_mul(ptr(r), ptr(FR.to_mont_host(x)),
+                         ptr(FR.to_mont_host(y)))
+            assert FR.int_host(r) < FR_P
+            assert FR.from_mont_host(r) == x * y % FR_P
+    for L, n, prev in ((2, 2, None), (8, 8, None), (8, 4, (frs[5], frs[6])),
+                       (16, 2, (FR_P - 1, FR_P - 1))):
+        b = torch.from_numpy(FR.pack_mont_host(frs[:n]))
+        s_in = torch.from_numpy(FR.pack_mont_host(frs[-L:]))
+        cl, cr = b[0], b[-1]
+        want_rows, want_s = ipa.ipa_scalars_plain(b, s_in, prev, cl, cr)
+        rows = np.zeros((2, L + 1, 8), np.int32)
+        rows[:, L] = [cl.numpy(), cr.numpy()]
+        s_out = np.zeros((L, 8), np.int32)
+        chal = None if prev is None else ptr(FR.pack_mont_host(prev))
+        lib.h_ipa_terms(ptr(b.numpy()), ptr(s_in.numpy()), ptr(s_out), chal,
+                        ptr(rows), ctypes.c_longlong(L), ctypes.c_longlong(n))
+        np.testing.assert_array_equal(rows, want_rows.numpy())
+        np.testing.assert_array_equal(s_out, want_s.numpy())

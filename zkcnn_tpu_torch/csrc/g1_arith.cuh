@@ -39,6 +39,9 @@
 // windows (table_sum) with no doubling at all.  It costs 4 nwin - 1
 // doublings a base (the chain, whose doublings are the entries d = 1, 2,
 // 4, 8) and 11 additions a window (the other digits).
+//
+// An Fr product (fr_mul, a portable loop) and the inner-product opening's
+// round term (ipa_term) serve kernel ipa_scalars.
 
 #ifndef ZKCNN_G1_ARITH_CUH
 #define ZKCNN_G1_ARITH_CUH
@@ -101,7 +104,8 @@ constexpr int NR = 8;    // words of an Fr scalar
 constexpr int PW = 3 * NP;  // words of a point (X, Y, Z)
 
 // The Fp modulus and -p^-1 mod 2^32; the Fr modulus and its inverse
-// likewise (for taking a scalar out of Montgomery form, R = 2^256).
+// likewise (for taking a scalar out of Montgomery form and for fr_mul,
+// R = 2^256).
 ZK_CONST u32 FP_MOD[NP] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u,
     0x6730d2a0u, 0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u,
@@ -418,6 +422,84 @@ ZK_DEV inline void fr_from_mont(u32* k) {
   if (!borrow)
 #pragma unroll
     for (int j = 0; j < NR; ++j) k[j] = d[j];
+}
+
+// r = a b R^-1 mod the Fr modulus (R = 2^256) for canonical Montgomery
+// words a, b: a CIOS product on 64-bit intermediates, canonical out; r
+// may alias a or b.  The inner-product opening forms two of these a
+// generator a round, so the portable loop serves (no PTX).
+ZK_DEV inline void fr_mul(u32* r, const u32* a, const u32* b) {
+  u32 t[NR + 2];
+#pragma unroll
+  for (int j = 0; j < NR + 2; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    u64 c = 0, s;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      s = (u64)a[j] * b[i] + t[j] + c;
+      t[j] = (u32)s;
+      c = s >> 32;
+    }
+    s = (u64)t[NR] + c;
+    t[NR] = (u32)s;
+    t[NR + 1] = (u32)(s >> 32);
+    const u32 m = t[0] * FR_INV;
+    c = ((u64)m * FR_MOD[0] + t[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < NR; ++j) {
+      s = (u64)m * FR_MOD[j] + t[j] + c;
+      t[j - 1] = (u32)s;
+      c = s >> 32;
+    }
+    s = (u64)t[NR] + c;
+    t[NR - 1] = (u32)s;
+    t[NR] = t[NR + 1] + (u32)(s >> 32);
+  }
+  u32 d[NR];                   // t < 2p: one conditional subtraction
+  u64 borrow = 0;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    u64 s = (u64)t[j] - FR_MOD[j] - borrow;
+    d[j] = (u32)s;
+    borrow = (s >> 32) & 1;
+  }
+  const bool take = t[NR] != 0 || !borrow;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) r[j] = take ? d[j] : t[j];
+}
+
+// Term i < L of round k of the inner-product opening on the original
+// generators (zkcnn_tpu_torch/pcs/ipa.py): n = n_k (a power of two, 2 <=
+// n <= L) terms are left.  Its weight s_i takes the previous round's
+// challenge, c[0..7] where the bit n of i is set, else its inverse
+// c[8..15] (c null in round 0: s_out = s_in); then b at the partner index
+// (i mod n) XOR n/2, times s_i, goes to row 0 where the bit n/2 of i is
+// set, else to row 1, and a zero to the other row.  b: [n, 8]; s_in,
+// s_out: [L, 8]; rows: [2, L + 1, 8]; all Montgomery words.
+ZK_DEV inline void ipa_term(const u32* b, const u32* s_in, u32* s_out,
+                            const u32* c, u32* rows, long long i,
+                            long long L, long long n) {
+  u32 s[NR], x[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) s[j] = s_in[i * NR + j];
+  if (c) fr_mul(s, s, c + ((i & n) ? 0 : NR));
+  const long long h = n >> 1;
+  const long long p = (i & (n - 1)) ^ h;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    s_out[i * NR + j] = s[j];
+    x[j] = b[p * NR + j];
+  }
+  fr_mul(x, x, s);
+  const bool hi = (i & h) != 0;
+  u32* on = rows + ((hi ? 0 : L + 1) + i) * NR;
+  u32* off = rows + ((hi ? L + 1 : 0) + i) * NR;
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    on[j] = x[j];
+    off[j] = 0;
+  }
 }
 
 // acc = k p for the low nbits (1..256) bits of the plain scalar k, by

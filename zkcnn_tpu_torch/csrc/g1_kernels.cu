@@ -23,6 +23,17 @@
 //     (base, window, digit) adds the other 11 digits in three rounds
 //     (entry m + e = entry m + entry e, e < m, m = 2, 4, 8) within a
 //     block;
+//   * ipa_scalars_kernel (zk_ipa_scalars): the scalars of a round of the
+//     inner-product opening on the original generators and Q
+//     (zkcnn_tpu_torch/pcs/ipa.py), where the JAX package folds G by a
+//     scalar multiplication every round (zkcnn_tpu/pcs/ipa.py:60): a
+//     thread a generator updates its weight by the last challenge and
+//     puts b at its partner index times the weight in its row, on the Fr
+//     product of g1_arith.cuh (a plain PyTorch round of it is hundreds of
+//     small launches).  Bound by its launch: at 512 generators it moves
+//     about 66 KB and does about 1,000 Fr products, tens of nanoseconds
+//     of the card's bytes or multiplies, against tens of microseconds of
+//     launch and wrapper;
 //   * g1_msm_kernel + g1_sum_rows_kernel (zk_g1_msm):
 //     msm.py::FixedBaseMSM.compute and ipa.py::_msm_small on that table,
 //     and curve.py::scalar_mul with one shared point (one base, a row a
@@ -71,6 +82,7 @@ constexpr int DIGIT_PAIRS = 16;    // (base, window) pairs a block
 constexpr int MSM_SPLIT = 4;       // threads a term: NWIN / 4 windows each
 constexpr int MSM_THREADS = 64;    // the largest block of the MSM kernels
 constexpr int FP_THREADS = 128;    // a block of fp_mul_kernel
+constexpr int IPA_THREADS = 128;   // a block of ipa_scalars_kernel
 
 // out[i] = p[i] + q[i], or 2 p[i] where q is null.
 __global__ void g1_add_kernel(const u32* __restrict__ p,
@@ -193,6 +205,32 @@ __global__ void g1_sum_rows_kernel(const u32* __restrict__ parts,
   pt_copy(&sh[threadIdx.x], &acc);
   block_sum(sh);
   if (threadIdx.x == 0) pt_store(out + (size_t)blockIdx.x * PW, &sh[0]);
+}
+
+// (c, c^-1) of the inner-product opening's last round, by value.
+struct FrPair {
+  u32 w[2 * NR];
+};
+
+// Thread i < L: term i of the opening's round (ipa_term); thread L: the Q
+// column, (cl, cr), of both rows.
+__global__ void ipa_scalars_kernel(const u32* __restrict__ b,
+                                   const u32* __restrict__ s_in,
+                                   u32* __restrict__ s_out, FrPair c,
+                                   int reweigh, const u32* __restrict__ cl,
+                                   const u32* __restrict__ cr,
+                                   u32* __restrict__ rows, long long L,
+                                   long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < L) {
+    ipa_term(b, s_in, s_out, reweigh ? c.w : nullptr, rows, i, L, n);
+  } else if (i == L) {
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      rows[L * NR + j] = cl[j];
+      rows[(2 * L + 1) * NR + j] = cr[j];
+    }
+  }
 }
 
 // The Fp product alone, for checking it and its latency: out[i] =
@@ -328,6 +366,29 @@ int zk_g1_msm(const void* tab, const void* ks, void* out, void* parts,
     *launches = 2;
   }
   return 0;
+}
+
+// The scalars of round k of the inner-product opening on the original
+// generators and Q: rows [2, L + 1, 8] and the weights s_out [L, 8] from
+// b [n, 8] (n = n_k), the weights s_in [L, 8] of the round before and cl,
+// cr [8] (ipa_term); chal: host words of (c, c^-1) of the round before,
+// [2, 8], or null in round 0.  All Montgomery words; L and n powers of
+// two, 2 <= n <= L.  s_out may be s_in.
+int zk_ipa_scalars(const void* b, const void* s_in, void* s_out,
+                   const void* chal, const void* cl, const void* cr,
+                   void* rows, long long L, long long n, void* stream) {
+  if (n < 2 || n > L || (n & (n - 1)) || (L & (L - 1)))
+    return cudaErrorInvalidValue;
+  FrPair c = {};
+  if (chal)
+    for (int j = 0; j < 2 * NR; ++j) c.w[j] = static_cast<const u32*>(chal)[j];
+  ipa_scalars_kernel<<<(unsigned)((L + IPA_THREADS) / IPA_THREADS),
+                       IPA_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u32*>(b), static_cast<const u32*>(s_in),
+      static_cast<u32*>(s_out), c, chal != nullptr,
+      static_cast<const u32*>(cl), static_cast<const u32*>(cr),
+      static_cast<u32*>(rows), L, n);
+  return cudaGetLastError();
 }
 
 // The check entry of the Fp product: out[i] = a[i] b[i] R^-1 mod p for

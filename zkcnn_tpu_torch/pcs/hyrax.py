@@ -21,8 +21,9 @@ This is the transparent non-ZK variant.  Everything runs on the device
 given to `setup`; the timings `pt` and `vt` are read after the device
 has finished its work.  `setup` builds the generators' fixed-base table
 (`FixedBaseMSM`), as the JAX package does, outside `pt`; its seconds
-are `table_s`.  Every table the opening and the verifier build for
-their own bases is inside `pt` or `vt`.
+are `table_s`.  The inner-product opening reuses that table (it adds
+Q's); every table the opening and the verifier build for their own
+bases is inside `pt` or `vt`.
 """
 
 import time
@@ -122,7 +123,7 @@ class HyraxPCS:
         Q = self._aux_gen(tape)
         eq_lo = beta_table(r[: self.l_col], 1, self.device)
         t0 = self._clock()
-        proof = ipa_prove(b, eq_lo, self.gens, Q, eval_in, tape)
+        proof = ipa_prove(b, eq_lo, self.gen_msm, Q, eval_in, tape)
         self.pt += self._clock() - t0
         self.ps += len(proof.Ls) * 2 * G_BYTE_SIZE + F_BYTE_SIZE
         return proof

@@ -22,12 +22,29 @@ order and the same b0 as the JAX package.  What differs is how the
 curve work is grouped, because on a CUDA device a launch of one term
 and a launch of 512 take about the same time (one thread's chain of
 doublings: the table chain of a base, or a windowed scalar
-multiplication): a round's L_k and R_k, Q terms included, are ONE
-two-row MSM over the bases [G_hi, Q, G_lo, Q] (one table of those bases,
-built inside the round) with zeros where a row does not reach; a fold
-of G is one scalar multiplication with a scalar a point; and the
-verifier's final check is one MSM on the generators' table (the
-setup's) and one over [L_k, R_k, Q, P].  The prover's rounds fetch
+multiplication).  The JAX package folds G by a scalar multiplication
+every round; the port never folds G.  After k rounds generator i is a
+combination of the original ones,
+
+    G^(k)_i = sum over m = i (mod n_k) of s^(k)_m G_m,
+    s^(k)_m = prod over j < k of (c_j if bit (logn-1-j) of m else c_j^-1),
+
+the prefix of the verifier's own weight vector, so round k's L_k and
+R_k, Q terms included, are ONE two-row MSM over the original generators
+and Q: row 0 holds b[(m mod n_k) - n_k/2] s_m on the bases m whose bit
+(logn-1-k) is set, row 1 b[(m mod n_k) + n_k/2] s_m on the others, and
+the Q column (<b_lo, x_hi>, <b_hi, x_lo>).  The generators' table is the
+setup's (`HyraxPCS.gen_msm`); the opening builds Q's table once and
+joins it (`FixedBaseMSM.extend`), so no round runs a chain of
+doublings.  The weight vector s stays on the device; a round's rows come
+from one launch of kernel `ipa_scalars` (csrc/g1_kernels.cu), which
+first multiplies s by c_(k-1) or c_(k-1)^-1 by index bit, and whose
+plain version `ipa_scalars_plain` (hundreds of small launches on the
+card) runs on the CPU.  `ipa_prove_by_folds` is the
+fold-based prover (a round's table of [G_hi, Q, G_lo, Q], a fold of G by
+scalar multiplication), kept as the reference that the opening is held
+against.  The verifier's final check is one MSM on the generators' table
+(the setup's) and one over [L_k, R_k, Q, P].  The prover's rounds fetch
 nothing from the device.
 """
 
@@ -93,8 +110,97 @@ def _round_messages(b, x, G, Q):
     return FixedBaseMSM(bases).compute(rows)
 
 
-def ipa_prove(b, x, G, Q, t: int, tape) -> IpaProof:
-    """b, x: [L, 8] Montgomery; G: [L, 3, 12]; Q: [3, 12]."""
+def _reweigh(s, n: int, c: int, cinv: int):
+    """The weights after round k (of n_k = n terms) from those before it:
+    times c where the bit n/2 of the index is set, c^-1 elsewhere --
+    ipa_verify's orientation."""
+    dev = s.device
+    m = torch.arange(s.shape[0], device=dev)
+    hi = ((m & (n >> 1)) != 0)[:, None]
+    return FR.mul(s, torch.where(hi, FR.const(c, dev), FR.const(cinv, dev)))
+
+
+def ipa_scalars_plain(b, s, prev, cl, cr):
+    """Round k's two MSM rows over [G; Q] (the original generators, then
+    Q) and the weights s^(k), in plain PyTorch: ([2, L + 1, 8], [L, 8])
+    Montgomery.  b: [n_k, 8]; s: [L, 8], the weights s^(k-1); prev: the
+    round before's (c, c^-1) as integers, None in round 0 (s is then
+    s^(0)); cl, cr: [8], the Q column.  Base m takes b at its partner
+    index (m mod n_k) XOR n_k/2, times s_m, in row 0 where its bit
+    (logn-1-k) (the bit n_k/2) is set, else in row 1."""
+    curve.PLAIN_CALLS["ipa_scalars"] += 1
+    n, L = b.shape[0], s.shape[0]
+    if prev is not None:
+        s = _reweigh(s, 2 * n, *prev)
+    m = torch.arange(L, device=b.device)
+    hi = ((m & (n >> 1)) != 0)[:, None]
+    w = FR.mul(b[(m & (n - 1)) ^ (n >> 1)], s)
+    zero = torch.zeros_like(w)
+    rows = torch.stack([
+        torch.cat([torch.where(hi, w, zero), cl[None]]),
+        torch.cat([torch.where(hi, zero, w), cr[None]])])
+    return rows, s
+
+
+def ipa_scalars(b, s, prev, cl, cr):
+    """`ipa_scalars_plain`'s function: on a CUDA device one launch of
+    kernel ipa_scalars (csrc/g1_kernels.cu), on the CPU the plain
+    version."""
+    n, L = b.shape[0], s.shape[0]
+    for t, shape in ((b, (n, FR.n)), (s, (L, FR.n)), (cl, (FR.n,)),
+                     (cr, (FR.n,))):
+        if t.dtype != torch.int32 or t.shape != shape \
+                or t.device != b.device:
+            raise ValueError(f"ipa_scalars: expected int32 {shape} words "
+                             f"on {b.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    if n < 2 or n > L or n & (n - 1) or L & (L - 1):
+        raise ValueError(f"ipa_scalars: {n} terms of {L} generators")
+    if b.device.type != "cuda":
+        return ipa_scalars_plain(b, s, prev, cl, cr)
+    rows = torch.empty((2, L + 1, FR.n), dtype=torch.int32, device=b.device)
+    s_out = torch.empty_like(s)
+    chal = None if prev is None else FR.pack_mont_host(prev)
+    s = s.contiguous()
+    curve.launch(curve.g1_lib().zk_ipa_scalars, b.contiguous().data_ptr(),
+                 s.data_ptr(), s_out.data_ptr(),
+                 None if chal is None else chal.ctypes.data,
+                 cl.contiguous().data_ptr(), cr.contiguous().data_ptr(),
+                 rows.data_ptr(), L, n, curve.stream_of(b.device))
+    curve.count_launch("ipa_scalars", (L, n))
+    return rows, s_out
+
+
+def ipa_prove(b, x, gen_msm: FixedBaseMSM, Q, t: int, tape) -> IpaProof:
+    """b, x: [L, 8] Montgomery; gen_msm: the setup's FixedBaseMSM over
+    the L generators; Q: [3, 12].  A round is one MSM on [G; Q]."""
+    proof = IpaProof()
+    L, prev = b.shape[0], None
+    if L > 1:
+        msm = gen_msm.extend(Q[None])
+        s = FR.const(1, b.device).expand(L, FR.n).contiguous()
+    while b.shape[0] > 1:
+        n = b.shape[0]
+        cl = FR.dot_mont(b[:n // 2], x[n // 2:])
+        cr = FR.dot_mont(b[n // 2:], x[:n // 2])
+        rows, s = ipa_scalars(b, s, prev, cl, cr)
+        Lk, Rk = msm.compute(rows)
+        proof.Ls.append(Lk)
+        proof.Rs.append(Rk)
+        _absorb_lr(tape, Lk, Rk)
+        c = tape.field()
+        cinv = pow(c, FR_P - 2, FR_P)
+        b = _fold_scalars(b, c, cinv)
+        x = _fold_scalars(x, cinv, c)     # x folds with inverse roles
+        prev = (c, cinv)
+    proof.b0 = FR.from_mont_host(b[0].cpu().numpy())
+    tape.absorb(proof.b0)
+    return proof
+
+
+def ipa_prove_by_folds(b, x, G, Q, t: int, tape) -> IpaProof:
+    """The fold-based prover, the reference `ipa_prove` is held against:
+    G: [L, 3, 12], folded every round; the same proof."""
     proof = IpaProof()
     while b.shape[0] > 1:
         Lk, Rk = _round_messages(b, x, G, Q)
@@ -109,6 +215,21 @@ def ipa_prove(b, x, G, Q, t: int, tape) -> IpaProof:
     proof.b0 = FR.from_mont_host(b[0].cpu().numpy())
     tape.absorb(proof.b0)
     return proof
+
+
+def weights_host(chals, L: int) -> List[int]:
+    """The weight vector after the rounds of challenges (c, c^-1):
+    s_i = prod over rounds of (c_k if bit else c_k^-1); round k splits
+    on index bit (logn-1-k) from the top; the lo half takes the inverse
+    role.  G and x fold with the SAME orientation, so one weight vector
+    serves both."""
+    logn = L.bit_length() - 1
+    s = [1] * L
+    for k, (c, cinv) in enumerate(chals):
+        bit = 1 << (logn - 1 - k)
+        for i in range(L):
+            s[i] = s[i] * (c if (i & bit) else cinv) % FR_P
+    return s
 
 
 def ipa_verify(proof: IpaProof, x, G, Q, P, t: int, tape) -> bool:
@@ -126,15 +247,7 @@ def ipa_verify(proof: IpaProof, x, G, Q, P, t: int, tape) -> bool:
         c = tape.field()
         chals.append((c, pow(c, FR_P - 2, FR_P)))
     tape.absorb(proof.b0)     # mirror the prover's transcript
-    # s_i = prod over rounds of (c_k if bit else c_k^-1); round k splits
-    # on index bit (logn-1-k) from the top; the lo half takes the
-    # inverse role.  G and x fold with the SAME orientation, so one
-    # weight vector serves both.
-    s = [1] * L
-    for k, (c, cinv) in enumerate(chals):
-        bit = 1 << (logn - 1 - k)
-        for i in range(L):
-            s[i] = s[i] * (c if (i & bit) else cinv) % FR_P
+    s = weights_host(chals, L)
     # The check b0 G_final + (b0 x_final) Q == P*_final, with G_final =
     # <s, G>, x_final = <s, x> and P*_final = P + t Q + sum_k (c_k^2 L_k +
     # c_k^-2 R_k), as <b0 s, G> == P + (t - b0 x_final) Q + sum_k (...):

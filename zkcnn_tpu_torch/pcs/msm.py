@@ -15,7 +15,10 @@ nonzero digit of every term (no doubling), a thread a term's quarter of
 the windows, a tree within a block and a second kernel across a row's
 blocks.  What the JAX package does for XLA's dense model (signed
 radix-256 digits, GLV, a gather a window and a Horner step between
-windows) is not carried over.  The plain PyTorch versions,
+windows) is not carried over.  `extend(extra)` gives an MSM over the
+bases and a few more that reuses the table: only the extra bases' table
+is built, then joined (the inner-product opening's [generators; Q]).
+The plain PyTorch versions,
 `msm_table_plain` (the table from the plain doubling and addition) and
 `msm_plain` (the scalars out of Montgomery form, `scalar_mul_plain` a
 term, a tree along each row), take tensors on either device and are
@@ -93,6 +96,21 @@ class FixedBaseMSM:
         self.points = points.contiguous()
         self.n_points = int(points.shape[0])
         self.table = curve.table_kernel(self.points) if on_cuda else None
+
+    def extend(self, extra):
+        """A FixedBaseMSM over [self.points; extra] that reuses this
+        table: on a CUDA device only the extra bases' table is built (one
+        launch of g1_msm_table) and joined to this one (one copy); for
+        CPU tensors `compute` runs `msm_host` over the joined points."""
+        on_cuda = curve.check_points("FixedBaseMSM.extend", self.points,
+                                     extra)
+        out = FixedBaseMSM.__new__(FixedBaseMSM)
+        out.points = torch.cat([self.points, extra.reshape(-1, 3, FP.n)])
+        out.n_points = int(out.points.shape[0])
+        out.table = torch.cat([self.table, curve.table_kernel(
+            out.points[self.n_points:], self.table.shape[1])]) \
+            if on_cuda else None
+        return out
 
     def compute(self, scalars_mont):
         """scalars_mont [R, N, 8] (Montgomery) -> [R, 3, 12] points."""
