@@ -18,11 +18,17 @@ Phases; any failure raises and the script exits non-zero:
      ladders are covered, and 2^21 rows; the per-round path's one-round
      entries (fold_round, fold_cubic_round) at 2, 4, 2^12, 2^18 and 2^21
      rows with and without the fold, fold_cubic_round also with m folding
-     to one row and with one row.  Then the curve kernels' Fp product (the
-     check entry zk_fp_mul) against Python integers on 0, 1, p - 1,
-     R mod p, words of 0xffffffff below p and 10^5 random pairs, and one
-     thread's chain of dependent products, whose latency it prints; the
-     curve kernels (g1_add, g1_scalar_mul, g1_msm_table, g1_msm) against
+     to one row and with one row.  Then the curve kernels' Fp product in
+     one thread (the check entry zk_fp_mul) and split over the table
+     chain's lanes (zk_fp_mul_lanes) against Python integers on 0, 1,
+     p - 1, R mod p, words of 0xffffffff below p, pairs that need the
+     final subtraction and 10^5 random pairs, and a chain of dependent
+     products in each form, whose latency it prints; the table's two
+     stages apart (zk_g1_table_chain, zk_g1_table_digits) at LeNet's table
+     shapes: the chain on lane groups word for word equal to the one-thread
+     chain, chain and digits equal to the table word for word, each timed
+     beside its bound; the curve
+     kernels (g1_add, g1_scalar_mul, g1_msm_table, g1_msm) against
      their plain versions on the card, as group elements, and against
      Python integers on the host: the four edge cases of the addition,
      n = 1, 2, 3, 1554 and 2^18; scalars 0, 1, p - 1 and one with bit
@@ -55,8 +61,9 @@ Phases; any failure raises and the script exits non-zero:
      every ladder launched, and at most one fetch per side per phase.
      With the commitment (inner-product opening): the same WS and PS,
      POLY_PS 24.8750 KB, its own pinned digest, every ladder launched,
-     g1_msm_table, g1_msm and ipa_scalars launched (at most 7 tables, one
-     ipa_scalars a round), no g1_scalar_mul and no g1_add (the opening
+     g1_msm_table, g1_msm and ipa_scalars launched (at most 5 tables, the
+     base point's built once as in a fresh process; one ipa_scalars a
+     round), no g1_scalar_mul and no g1_add (the opening
      folds no point), and no curve operation through a plain or host
      version.  Its opening's own b, x, Q and tape then go through
      ipa_prove_by_folds (whose curve launches and shapes are G1's and
@@ -68,7 +75,8 @@ Phases; any failure raises and the script exits non-zero:
      counts reset just before the proof: the same WS, PS and POLY_PS, the
      CPU-pinned final tape state and counter, fold_round and
      fold_cubic_round launched, no round or cubic ladder (one fold ladder:
-     the output layer's MLE at its point), one fetch a round; PT, VT,
+     the output layer's MLE at its point), one fetch a round, at most 4
+     tables; PT, VT,
      POLY_PT and POLY_VT printed, and verify()'s wall time span by span
      (the commitment's setup, its hash-to-curve apart from its table,
      the commit, the encode-and-absorb of the commitment, the per-round
@@ -77,24 +85,32 @@ Phases; any failure raises and the script exits non-zero:
      launched it at (the round kernels exact; the curve kernels as group
      elements, on 32-bit scalars laid out as the run lays them out, and
      at the largest shape on full-size scalars too; the tables entry by
-     entry), timed with CUDA events (g1_msm with and without building its
-     table), with the least time the card could take for the same work
-     beside it;
+     entry, also at edge shapes that leave groups of a warp and of a block
+     empty and at 1 and 2 windows), timed with CUDA events (g1_msm with
+     and without building its table), with the least time the card could
+     take for the same work beside it;
      Then a LeNet side's rounds one by one as the per-round path runs
      them (fold_round, a fetch a round) against one ladder;
-  7. the seconds each phase took, one JSON line of kernel results
-     (each entry's launches, shape and times belong to the run its `run`
-     key names: the ladders' to LeNet --no-pcs, the per-round path's
-     entries to LeNet under FiatShamirTape, the curve kernels' to LeNet
+  7. the seconds each phase took, one JSON line of phase 3's lane
+     measurements (each Fp product form's dependent ns; the table's chain
+     on lane groups and in one thread, digits and whole, in ms, by
+     shape; the registers and spills of the table's and the product's
+     kernels), one JSON line of kernel results (each entry's launches,
+     shape and times belong to the run its `run` key names: the ladders'
+     to LeNet --no-pcs, the per-round path's entries to LeNet under
+     FiatShamirTape, the curve kernels' to LeNet
      with the commitment, but g1_add's and g1_scalar_mul's to the
      fold-based opening, with their launches on the main path, 0, beside
      them), the nvidia-smi name/power line, and the final JSON status
      line.
 """
 
+import contextlib
+import io
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -215,10 +231,50 @@ FOLDS_RUN = "ipa_prove_by_folds on the opening of lenet with the commitment"
 FOLD_KERNELS = ("g1_add", "g1_scalar_mul")
 # calls of each opening, in turns, when the two are timed
 OPENING_PAIRS = 8
+# g1_msm_table's shapes in a LeNet proof with the commitment (N, nwin); and
+# edge shapes: chain blocks (2 bases) partly filled, one and two windows,
+# the digits on a ragged last block
+TABLE_SHAPES = ((1, 64), (20, 64), (512, 64))
+TABLE_EDGES = [(3, 64), (5, 2), (7, 1), (37, 63)]
+# g1_msm_table launches at most: a three-pass LeNet proof with the
+# commitment in a fresh process (the setup's table, the base point's
+# table, Q's opening table, the verifier's two) and one under
+# FiatShamirTape (no base point: hash-to-curve generators and Q)
+TABLES_THREE_PASS = 5
+TABLES_FIAT_SHAMIR = 4
 
 
 def say(msg):
     print(msg, flush=True)
+
+
+def ptxas_summary(text: str):
+    """`nvcc -Xptxas -v` output -> one "kernel<args>: registers, spills"
+    line a kernel (names read from the mangled ones: length-prefixed parts,
+    then the integer template arguments)."""
+    out, name, spills = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '_ZN?(\w+)'", line)
+        if m:
+            rest, parts = m.group(1), []
+            while rest[:1].isdigit():
+                n = re.match(r"\d+", rest).group()
+                parts.append(rest[len(n):len(n) + int(n)])
+                rest = rest[len(n) + int(n):]
+            args = re.findall(r"L[ib](\d+)E", rest[:rest.find("EE") + 2]) \
+                if rest.startswith("I") else []
+            name = parts[-1] + (f"<{', '.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)} bytes spilled/reloaded"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spills}")
+            name = None
+    return out
 
 
 def smi_line() -> str:
@@ -576,66 +632,167 @@ def g1_bound(torch, curve, name, shape, scalars):
                                                            "operations")
 
 
-def table_bound(shape):
+def table_bound(shape, part: str = "table"):
     """(bound_ms, bound_by) of g1_msm_table at (N, nwin), counted as
     g1_bound counts: the chain 2^t P, t < 4 nwin, is 4 nwin - 1 doublings
     of 7 products a base and holds the digits 1, 2, 4 and 8 of every
     window; the other 11 digits are one addition of 11 products (a Z = 1
-    entry) each.  Or the bytes of the bases in and the table out."""
+    entry) each.  Or the bytes of the bases in and the table out.  part:
+    "table", or one of its kernels, "chain" (the bases in, 4 entries a
+    window out) or "digits" (4 entries a window in, 11 out)."""
     N, nwin = shape
-    products = N * (DOUBLE_PRODUCTS * (4 * nwin - 1)
-                    + MIXED_ADD_PRODUCTS * 11 * nwin)
-    nbytes = N * POINT_BYTES * (1 + 15 * nwin)
+    doublings = N * DOUBLE_PRODUCTS * (4 * nwin - 1)
+    adds = N * MIXED_ADD_PRODUCTS * 11 * nwin
+    products, entries = {"table": (doublings + adds, 1 + 15 * nwin),
+                         "chain": (doublings, 1 + 4 * nwin),
+                         "digits": (adds, 15 * nwin)}[part]
+    nbytes = N * POINT_BYTES * entries
     by_bytes = nbytes / MEM_BYTES_S * 1e3
     by_ops = products * FP_MULS / INT32_MULS_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
 
+def table_lanes(curve):
+    """(lanes a product, lanes a base) of g1_msm_table's chain."""
+    import ctypes
+    product, base = ctypes.c_int(), ctypes.c_int()
+    curve.g1_lib().zk_g1_table_lanes(ctypes.byref(product),
+                                     ctypes.byref(base))
+    return product.value, base.value
+
+
+def needs_final_subtraction(x: int, y: int) -> bool:
+    """Whether the CIOS product of x and y ends at or above p (R = 2^384)."""
+    r = 1 << 384
+    t = x * y
+    m = t * (-pow(FP_P, -1, r)) % r
+    return (t + m * FP_P) >> 384 >= FP_P
+
+
 def fp_checks(torch, curve, FP, rng, smi):
-    """The curve kernels' Fp product (zk_fp_mul) against Python integers
-    on edge values (all pairs) and 10^5 random pairs, and the latency of
-    one thread's dependent products, which it prints; raises on a
-    mismatch."""
+    """The curve kernels' Fp product, in one thread (zk_fp_mul) and split
+    over the table chain's lanes (zk_fp_mul_lanes), against Python
+    integers on edge values (all pairs), 64 pairs that need the final
+    subtraction and 10^5 random pairs, and over a chain of 20000 dependent
+    products, whose latency it prints form by form; raises on a mismatch.
+    Returns {lanes: ns a dependent product} (1: one thread)."""
     import numpy as np
     lib = curve.g1_lib()
     rinv = pow(1 << 384, -1, FP_P)
     top = FP_P >> 352
     edge = [0, 1, 2, FP_P - 1, FP_P - 2, (1 << 384) % FP_P,
             (top << 352) - 1, (1 << 352) - 1, (1 << 380) - 1]
-    xs = [a for a in edge for _ in edge] + \
+    sub = []
+    while len(sub) < 64:
+        x, y = rng.randrange(FP_P), rng.randrange(FP_P)
+        if needs_final_subtraction(x, y):
+            sub.append((x, y))
+    xs = [a for a in edge for _ in edge] + [x for x, _ in sub] + \
         [rng.randrange(FP_P) for _ in range(100000)]
-    ys = edge * len(edge) + [rng.randrange(FP_P) for _ in range(100000)]
+    ys = edge * len(edge) + [y for _, y in sub] + \
+        [rng.randrange(FP_P) for _ in range(100000)]
 
     def pack(vals):
         return torch.from_numpy(np.stack(
             [FP.words_host(v) for v in vals])).to("cuda")
 
-    def product(a, b, n, chain):
+    def product(lanes, a, b, n, chain):
         out = torch.empty_like(a[:n])
-        curve.launch(lib.zk_fp_mul, a.data_ptr(), b.data_ptr(),
-                     out.data_ptr(), n, chain, curve.stream_of(a.device))
+        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), n, chain)
+        fn = lib.zk_fp_mul if lanes == 1 else lib.zk_fp_mul_lanes
+        curve.launch(fn, *args, curve.stream_of(a.device))
         return out
 
     A, B = pack(xs), pack(ys)
-    got = [FP.int_host(w) for w in product(A, B, len(xs), 0).cpu().numpy()]
-    wrong = sum(g != x * y * rinv % FP_P for g, x, y in zip(got, xs, ys))
-    if wrong:
-        raise AssertionError(f"the device Fp product differs from Python "
-                             f"integers at {wrong} of {len(xs)} pairs")
-    times = {}
-    for chain in (2000, 20000):
-        times[chain] = time_ms(
-            torch, lambda: product(A[-1:], B[-1:], 1, chain), 3)
-    x = FP.int_host(product(A[-1:], B[-1:], 1, 20000).cpu().numpy()[0])
-    if x != xs[-1] * pow(ys[-1] * rinv, 20000, FP_P) % FP_P:
-        raise AssertionError("a chain of 20000 device Fp products differs "
-                             "from Python integers")
-    ns = (times[20000] - times[2000]) / 18000 * 1e6
-    say(f"device Fp product equals Python integers on {len(edge)}^2 edge "
-        f"pairs (0, 1, p - 1, R mod p, words of 0xffffffff below p, ...) "
-        f"and 10^5 random pairs, and over a chain of 20000; one thread's "
-        f"dependent product {ns:.1f} ns ({smi})")
+    want = [x * y * rinv % FP_P for x, y in zip(xs, ys)]
+    chained = xs[-1] * pow(ys[-1] * rinv, 20000, FP_P) % FP_P
+    ns = {}
+    for lanes in (1, table_lanes(curve)[0]):
+        got = [FP.int_host(w) for w in
+               product(lanes, A, B, len(xs), 0).cpu().numpy()]
+        wrong = sum(g != w for g, w in zip(got, want))
+        if wrong:
+            raise AssertionError(f"the device Fp product ({lanes} lanes) "
+                                 f"differs from Python integers at {wrong} "
+                                 f"of {len(xs)} pairs")
+        times = {}
+        for chain in (2000, 20000):
+            times[chain] = time_ms(
+                torch, lambda: product(lanes, A[-1:], B[-1:], 1, chain), 3)
+        x = FP.int_host(product(lanes, A[-1:], B[-1:], 1, 20000)
+                        .cpu().numpy()[0])
+        if x != chained:
+            raise AssertionError(f"a chain of 20000 device Fp products "
+                                 f"({lanes} lanes) differs from Python "
+                                 f"integers")
+        ns[lanes] = (times[20000] - times[2000]) / 18000 * 1e6
+    say(f"device Fp product, one thread and split over lanes, "
+        f"equals Python integers on {len(edge)}^2 edge pairs (0, 1, p - 1, "
+        f"R mod p, words of 0xffffffff below p, ...), {len(sub)} pairs that "
+        f"need the final subtraction and 10^5 random pairs, and over a chain "
+        f"of 20000; a dependent product: "
+        + ", ".join(f"{'one thread' if k == 1 else f'{k} lanes'} "
+                    f"{v:.1f} ns" for k, v in ns.items()) + f" ({smi})")
+    return ns
+
+
+def table_sweep(torch, curve, gen, smi):
+    """g1_msm_table's stages apart at TABLE_SHAPES: the chain
+    (zk_g1_table_chain) on lane groups and in one thread a base, the lane
+    chain's entries d = 1, 2, 4, 8 word for word equal to the one-thread
+    chain's; the digits (zk_g1_table_digits) on the lane chain, which then
+    equals the whole table (zk_g1_msm_table) word for word; each timed
+    beside its bound, and the whole table.  Raises on a mismatch; returns
+    {shape: {"chain": ms, "thread_chain": ms, "digits": ms, "table":
+    ms}}."""
+    lib = curve.g1_lib()
+    base = curve.base_point("cuda")
+    lanes, per_base = table_lanes(curve)
+    chain_entries = [(1 << s) - 1 for s in range(curve.WBITS)]
+    out = {}
+    for N, nwin in TABLE_SHAPES:
+        pts = curve.scalar_mul(base, rand_fe(torch, N, gen))
+        stream = curve.stream_of(pts.device)
+        tabs, times = {}, {}
+        for one_thread in (1, 0):
+            tab = torch.zeros((N, nwin, curve.WTAB, 3, 12), dtype=torch.int32,
+                              device="cuda")
+            run = lambda: curve.launch(  # noqa: E731
+                lib.zk_g1_table_chain, pts.data_ptr(), tab.data_ptr(), N,
+                nwin, one_thread, stream)
+            run()
+            tabs[one_thread] = tab
+            times[one_thread] = time_ms(torch, run, 5)
+        if not torch.equal(tabs[0][:, :, chain_entries],
+                           tabs[1][:, :, chain_entries]):
+            raise AssertionError(f"the table's chain on lane groups differs "
+                                 f"from the one-thread chain at {(N, nwin)}")
+        whole = curve.table_kernel(pts, nwin)
+        tab = tabs[0]
+        run = lambda: curve.launch(  # noqa: E731
+            lib.zk_g1_table_digits, tab.data_ptr(), N, nwin, stream)
+        run()
+        if not torch.equal(tab, whole):
+            raise AssertionError(f"chain and digits apart differ from "
+                                 f"g1_msm_table at {(N, nwin)}")
+        out[(N, nwin)] = t = {
+            "chain": times[0], "thread_chain": times[1],
+            "digits": time_ms(torch, run, 5),
+            "table": time_ms(torch, lambda: curve.table_kernel(pts, nwin), 5)}
+        bounds = {k: table_bound((N, nwin), k)
+                  for k in ("chain", "digits", "table")}
+        say(f"g1_msm_table at {(N, nwin)}: chain on lane groups ({lanes} "
+            f"lanes a product, {per_base} a base) {t['chain']:.4f} ms, one "
+            f"thread a base {t['thread_chain']:.4f} ms (bound "
+            f"{bounds['chain'][0]:.6f} ms by {bounds['chain'][1]}); digits "
+            f"{t['digits']:.4f} ms (bound {bounds['digits'][0]:.6f} ms by "
+            f"{bounds['digits'][1]}); the table {t['table']:.4f} ms (bound "
+            f"{bounds['table'][0]:.6f} ms by {bounds['table'][1]}) ({smi})")
+    say(f"g1_msm_table's chain on lane groups equals the one-thread chain "
+        f"word for word, and chain plus digits the table, at "
+        f"{list(TABLE_SHAPES)}")
+    return out
 
 
 def g1_checks(torch, curve, msm_mod, FR, gen, rng):
@@ -949,9 +1106,13 @@ def main():
     # 2. build
     from zkcnn_tpu_torch import cuda_build
     t0 = time.time()
-    libs = cuda_build.build(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        libs = cuda_build.build(verbose=True)
+    regs = ptxas_summary(report.getvalue())
     say(f"build: {sorted(p.name for p in libs.values())} in "
-        f"{time.time() - t0:.1f}s")
+        f"{time.time() - t0:.1f}s; registers and spills (ptxas): "
+        + "; ".join(regs))
     lap("build")
     from zkcnn_tpu_torch.field import FP, FR, round_kernels as rk
     from zkcnn_tpu_torch.gkr import engine
@@ -978,9 +1139,10 @@ def main():
 
     # the Fp product and the curve kernels against Python integers and
     # their plain versions
-    fp_checks(torch, curve, FP, rng, smi)
+    fp_ns = fp_checks(torch, curve, FP, rng, smi)
     lap("Fp product")
     g1_checks(torch, curve, msm_mod, FR, gen, rng)
+    sweep = table_sweep(torch, curve, gen, smi)
     ipa_edge = [(2, 2), (4, 2), (8, 8), (8, 4), (128, 2), (512, 512),
                 (512, 256), (512, 2), (1024, 64)]
     for shape in ipa_edge:
@@ -1142,7 +1304,8 @@ def main():
     # of the curve kernels and of the ladders cover exactly this run, and
     # the opening keeps its inputs for the fold-based opening below
     seen, uncapture = capture_opening(hyrax)
-    rk.reset_launches()
+    curve.BASE_TABLES.clear()          # the base point's table as a fresh
+    rk.reset_launches()                # process builds it
     curve.reset_launches()
     res = demo_lenet.main(["--synthetic", "--seed", "17", "--pic-cnt", "1"])
     torch.cuda.synchronize()
@@ -1173,8 +1336,9 @@ def main():
                              f"the CPU pin {PINNED_LENET_PCS['digest']}")
     # the opening runs on the setup's table: a round is one ipa_scalars
     # and one g1_msm launch, no fold of G and no table of its own; the
-    # tables are the setup's, the tape's generators', Q's in open, Q's
-    # opening table, Q's in verify and the verifier's two
+    # tables are the setup's, the base point's (the tape's generators and
+    # Q's in open and in verify draw on it), Q's opening table and the
+    # verifier's two
     rounds_ipa = len(seen["b"]).bit_length() - 1
     for name in curve.NAMES:
         if name not in FOLD_KERNELS and g1_launches[name] <= 0:
@@ -1184,11 +1348,12 @@ def main():
             raise AssertionError(f"lenet launched {name} "
                                  f"{g1_launches[name]} times: the opening "
                                  f"should fold no point")
-    if g1_launches["g1_msm_table"] > 7 or \
+    if g1_launches["g1_msm_table"] > TABLES_THREE_PASS or \
             g1_launches["ipa_scalars"] != rounds_ipa:
         raise AssertionError(f"lenet with the commitment: "
                              f"{g1_launches['g1_msm_table']} tables (at most "
-                             f"7), {g1_launches['ipa_scalars']} ipa_scalars "
+                             f"{TABLES_THREE_PASS}), "
+                             f"{g1_launches['ipa_scalars']} ipa_scalars "
                              f"launches for {rounds_ipa} rounds")
     if any(g1_plain.values()):
         raise AssertionError(f"curve operations went past the kernels: "
@@ -1259,6 +1424,7 @@ def main():
     fs_seen, uncapture = capture_opening(hyrax)
     torch.cuda.synchronize()
     rk.reset_launches()
+    curve.reset_launches()
     engine.FETCHES["rounds"] = 0
     t0 = time.perf_counter()
     ok = v.verify()
@@ -1268,6 +1434,7 @@ def main():
     span = {k: b - a for k, (a, b) in marks.items()}
     span["absorb"] = marks["_verify_per_round"][0] - marks["commit"][1]
     fs = {k: rk.LAUNCHES[k] for k in rk.NAMES}
+    fs_tables = curve.LAUNCHES["g1_msm_table"]
     fs_fetches = engine.FETCHES["rounds"]
     launches.update({k: fs[k] for k in PER_ROUND})
     shapes.update({k: sorted(rk.SHAPES[k]) for k in PER_ROUND})
@@ -1291,7 +1458,7 @@ def main():
     say(f"lenet under FiatShamirTape, wrapper calls that launched: {fs} "
         f"(device kernels {dict(rk.KERNEL_LAUNCHES)}); {fs_fetches} round "
         f"fetches for {rounds} rounds; round loops {round_s[0]:.4f} s "
-        f"({smi})")
+        f"({smi}); curve wrapper calls {dict(curve.LAUNCHES)}")
     if not ok:
         raise AssertionError("lenet under FiatShamirTape: verification "
                              "failed on cuda")
@@ -1314,6 +1481,9 @@ def main():
     if fs_fetches != rounds:
         raise AssertionError(f"lenet under FiatShamirTape: {fs_fetches} "
                              f"round fetches for {rounds} rounds")
+    if fs_tables > TABLES_FIAT_SHAMIR:
+        raise AssertionError(f"lenet under FiatShamirTape: {fs_tables} "
+                             f"tables (at most {TABLES_FIAT_SHAMIR})")
 
     # its opening against the fold-based one too: under FiatShamirTape a
     # round's absorb of L_k and R_k waits for the device
@@ -1389,7 +1559,8 @@ def main():
                 f"bound {b_ms:.6f} ms by {b_by} ({smi})")
             continue
         if name == "g1_msm_table":
-            table_shapes(torch, curve, msm_mod, seen_shapes[name], gen)
+            table_shapes(torch, curve, msm_mod,
+                         sorted(seen_shapes[name]) + TABLE_EDGES, gen)
         for sh in seen_shapes[name]:
             if name != "g1_msm_table":
                 _, kern, plain = g1_inputs(torch, curve, msm_mod, FR, name,
@@ -1420,6 +1591,10 @@ def main():
                  "shape": list(shape), "run": run}
         if name in FOLD_KERNELS:
             entry["launches_on_the_main_path"] = g1_launches[name]
+        if name == "g1_msm_table" and shape in sweep:
+            entry.update(chain_ms=sweep[shape]["chain"],
+                         digits_ms=sweep[shape]["digits"],
+                         lanes_a_base=table_lanes(curve)[1])
         with_table = ""
         if name == "g1_msm":
             entry["ms_with_table"] = time_ms(torch, kern.with_table, 5)
@@ -1458,7 +1633,14 @@ def main():
     lap("per round against a ladder")
     say(f"seconds by phase: {'; '.join(laps)} ({smi})")
 
-    # 7. results
+    # 7. results: the lane forms' measurements of phase 3 and the
+    # registers of their kernels again, where the end of the output keeps
+    # them, then the kernels
+    say(json.dumps({"fp_product_ns": {str(k): v for k, v in fp_ns.items()},
+                    "table_ms": {str(shape): t for shape, t in sweep.items()},
+                    "ptxas": [r for r in regs
+                              if r.startswith(("g1_table", "fp_mul"))],
+                    "device": smi}))
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 // BLS12-381 G1 arithmetic for one thread: Fp on 12 little-endian 32-bit
 // words (Montgomery, R = 2^384), Jacobian points, windowed scalar
-// multiplication, and the fixed-base window table that an MSM sums from.
+// multiplication, and the fixed-base window table that an MSM sums from;
+// and, at the end, the same table's doublings on groups of lanes of a
+// warp (lane_mul, table_chain_lanes).
 //
 // Device functions only, no kernel: g1_kernels.cu includes this file.
 // Every function is plain C++ on integer arrays behind the ZK_DEV,
@@ -8,7 +10,8 @@
 // build the same arithmetic (define the first two empty and ZK_CONST as
 // `static const`; ZK_INLINE defaults to `inline` off nvcc) and hold it
 // against Python integers where there is no nvcc;
-// tests/test_torch_pcs_field.py and tests/test_torch_pcs_table.py do.
+// tests/test_torch_pcs_field.py, tests/test_torch_pcs_table.py and
+// tests/test_torch_pcs_lanes.py do.
 //
 // The point formulas are those of zkcnn_tpu/pcs/curve.py (pdouble, padd
 // with its four edge cases), on canonical residues, so an addition or a
@@ -47,6 +50,7 @@
 #define ZKCNN_G1_ARITH_CUH
 
 #include <cstdint>
+#include <type_traits>
 
 #ifndef ZK_DEV
 #define ZK_DEV __device__
@@ -599,6 +603,384 @@ ZK_DEV inline void table_sum(Pt* acc, const u32* tab, const u32* k, int j0,
       pt_add(acc, acc, &e);
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// Lane groups: the table's doublings spread over the lanes of a warp.
+//
+// One thread's chain of doublings is bound by latency: 7 dependent Fp
+// products a doubling, each a serial run of carry chains.  Here a group of
+// G = S K lanes runs the chain of one base.  Every lane of the group holds
+// the whole point and every other value of the doubling, so the modular
+// additions are one thread's code, run by all lanes alike; a product is
+// split over S lanes by words (lane j of the product's sub-group owns words
+// j W .. j W + W - 1, W = 12 / S), and K = 3 sub-groups run the three
+// products of a dependency level of the doubling at once (the check entry
+// of the product alone takes K = 1).  The lanes exchange values by
+// __shfl_sync on the card; on the host (g++) a lane value is an array over
+// the 32 lanes of a warp and each operation a loop over them, so the same
+// lane code runs there in lock step and the tests hold it against the
+// one-thread functions above.
+//
+// The lane code branches on nothing that differs between lanes: a whole
+// warp runs every shuffle, also its lanes that hold no base.
+
+constexpr int WARP = 32;
+
+#ifdef __CUDACC__
+typedef u32 LW;          // a lane's word
+typedef u64 LD;          // a lane's double word
+typedef int LI;          // a lane's index
+typedef long long LL;    // a lane's offset
+typedef bool LB;         // a lane's flag
+
+ZK_INLINE LW lshfl(LW v, LI src) { return __shfl_sync(0xffffffffu, v, src); }
+template <class T>
+ZK_INLINE T lsel(LB c, T a, T b) { return c ? a : b; }
+ZK_INLINE LB land(LB a, LB b) { return a && b; }
+ZK_INLINE LD lwide(LW x) { return x; }
+ZK_INLINE LL lwide_ll(LI x) { return x; }
+ZK_INLINE LW llo(LD x) { return (u32)x; }
+ZK_INLINE LD lhi(LD x) { return x >> 32; }
+ZK_INLINE LD lmad(LW a, LW b, LD c) { return (u64)a * b + c; }
+ZK_INLINE LW lload(const u32* p, LL i) { return p[i]; }
+ZK_INLINE void lstore(u32* p, LL i, LW v, LB on) {
+  if (on) p[i] = v;
+}
+ZK_INLINE void lfp_add(LW* r, const LW* a, const LW* b) { fp_add(r, a, b); }
+ZK_INLINE void lfp_sub(LW* r, const LW* a, const LW* b) { fp_sub(r, a, b); }
+ZK_INLINE void lfp_cond_sub(LW* r, const LW* t) { fp_cond_sub(r, t); }
+#else
+template <class T>
+struct Lanes {
+  T v[WARP];
+  Lanes() = default;
+  Lanes(T x) {                       // every lane the same value
+    for (auto& e : v) e = x;
+  }
+};
+
+template <class T>
+struct lane_scalar : std::is_arithmetic<T> {};
+
+#define ZK_LANE_OP(op)                                                     \
+  template <class A, class B>                                              \
+  auto operator op(const Lanes<A>& a, const Lanes<B>& b) {                 \
+    Lanes<decltype(a.v[0] op b.v[0])> r;                                   \
+    for (int l = 0; l < WARP; ++l) r.v[l] = a.v[l] op b.v[l];              \
+    return r;                                                              \
+  }                                                                        \
+  template <class A, class B,                                              \
+            class = typename std::enable_if<lane_scalar<B>::value>::type>  \
+  auto operator op(const Lanes<A>& a, B b) {                               \
+    return a op Lanes<B>(b);                                               \
+  }                                                                        \
+  template <class A, class B,                                              \
+            class = typename std::enable_if<lane_scalar<A>::value>::type>  \
+  auto operator op(A a, const Lanes<B>& b) {                               \
+    return Lanes<A>(a) op b;                                               \
+  }
+ZK_LANE_OP(+)
+ZK_LANE_OP(-)
+ZK_LANE_OP(*)
+ZK_LANE_OP(/)
+ZK_LANE_OP(%)
+ZK_LANE_OP(==)
+ZK_LANE_OP(<)
+#undef ZK_LANE_OP
+
+typedef Lanes<u32> LW;
+typedef Lanes<u64> LD;
+typedef Lanes<int> LI;
+typedef Lanes<long long> LL;
+typedef Lanes<bool> LB;
+
+// __shfl_sync with its source lane taken modulo the warp
+inline LW lshfl(const LW& v, const LI& src) {
+  LW r;
+  for (int l = 0; l < WARP; ++l) r.v[l] = v.v[src.v[l] & (WARP - 1)];
+  return r;
+}
+template <class T>
+inline Lanes<T> lsel(const LB& c, const Lanes<T>& a, const Lanes<T>& b) {
+  Lanes<T> r;
+  for (int l = 0; l < WARP; ++l) r.v[l] = c.v[l] ? a.v[l] : b.v[l];
+  return r;
+}
+inline LB land(const LB& a, const LB& b) {
+  LB r;
+  for (int l = 0; l < WARP; ++l) r.v[l] = a.v[l] && b.v[l];
+  return r;
+}
+inline LD lwide(const LW& x) { return x + (u64)0; }
+inline LL lwide_ll(const LI& x) { return x + (long long)0; }
+inline LW llo(const LD& x) {
+  LW r;
+  for (int l = 0; l < WARP; ++l) r.v[l] = (u32)x.v[l];
+  return r;
+}
+inline LD lhi(const LD& x) {
+  LD r;
+  for (int l = 0; l < WARP; ++l) r.v[l] = x.v[l] >> 32;
+  return r;
+}
+inline LD lmad(const LW& a, const LW& b, const LD& c) {
+  LD r;
+  for (int l = 0; l < WARP; ++l) r.v[l] = (u64)a.v[l] * b.v[l] + c.v[l];
+  return r;
+}
+inline LW lload(const u32* p, const LL& i) {
+  LW r;
+  for (int l = 0; l < WARP; ++l) r.v[l] = p[i.v[l]];
+  return r;
+}
+inline void lstore(u32* p, const LL& i, const LW& v, const LB& on) {
+  for (int l = 0; l < WARP; ++l)
+    if (on.v[l]) p[i.v[l]] = v.v[l];
+}
+// one thread's modular operations, lane by lane
+#define ZK_LANE_FP(name, call, ...)                                        \
+  inline void name(__VA_ARGS__) {                                          \
+    for (int l = 0; l < WARP; ++l) {                                       \
+      u32 x[NP], y[NP], z[NP];                                             \
+      for (int k = 0; k < NP; ++k) {                                       \
+        x[k] = a[k].v[l];                                                  \
+        y[k] = b[k].v[l];                                                  \
+      }                                                                    \
+      call;                                                                \
+      for (int k = 0; k < NP; ++k) r[k].v[l] = z[k];                       \
+    }                                                                      \
+  }
+ZK_LANE_FP(lfp_add, fp_add(z, x, y), LW* r, const LW* a, const LW* b)
+ZK_LANE_FP(lfp_sub, fp_sub(z, x, y), LW* r, const LW* a, const LW* b)
+#undef ZK_LANE_FP
+inline void lfp_cond_sub(LW* r, const LW* t) {
+  for (int l = 0; l < WARP; ++l) {
+    u32 x[NP];
+    for (int k = 0; k < NP; ++k) x[k] = t[k].v[l];
+    fp_cond_sub(x, x);
+    for (int k = 0; k < NP; ++k) r[k].v[l] = x[k];
+  }
+}
+#endif
+
+// A lane's place in its group: `first` the group's lane 0, g its
+// sub-group, j its place there, `sub` the sub-group's lane 0 and `up` the
+// lane of j + 1 (its own for the last).
+template <int S, int K>
+struct LaneGroup {
+  static_assert(NP % S == 0 && (K == 1 || K == 3) && S * K <= WARP,
+                "a product splits 12 words evenly; 1 or 3 sub-groups a warp");
+  LI first, g, j, sub, up;
+  ZK_DEV explicit LaneGroup(const LI& lane) {
+    const LI q = lane % (S * K);
+    first = lane - q;
+    g = q / S;
+    j = q % S;
+    sub = first + g * S;
+    up = lsel(j == S - 1, lane, lane + 1);
+  }
+};
+
+// This lane's share of the Montgomery product a b R^-1 of its sub-group,
+// for the whole operands a, b (the same on every lane of the sub-group):
+// its W words nw and a carry cy (at most 4) that belongs one word above
+// them.  A CIOS product by words of b: lane j adds a_k b_i + m p_k into
+// its words k (two carry chains of W steps on 64-bit sums), m = t_0
+// (-p^-1) taken from lane 0 of the sub-group; the carry out of its top
+// word stays in a spare (sp, below 2^34) that the shift leaves on the same
+// word, and the shift brings the bottom word of lane j + 1 in at the top.
+// The spare is folded into the top word once a step; lane_gather resolves
+// the carries that remain.
+template <int S, int K>
+ZK_INLINE void lane_mul_part(LW* nw, LW& cy, const LW* a, const LW* b,
+                             const LaneGroup<S, K>& grp) {
+  constexpr int W = NP / S;
+  static_assert(W > 1, "the spare needs a top word above word 0");
+  LW aw[W], pw[W], t[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    aw[k] = a[k];
+    pw[k] = LW(FP_MOD[k]);
+#pragma unroll
+    for (int q = 1; q < S; ++q) {
+      aw[k] = lsel(grp.j == q, a[q * W + k], aw[k]);
+      pw[k] = lsel(grp.j == q, LW(FP_MOD[q * W + k]), pw[k]);
+    }
+    t[k] = LW(0u);
+  }
+  LD sp = LD(0ull);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const LW bi = b[i];
+    LD s1 = lmad(aw[0], bi, lwide(t[0]));
+    LW x0 = llo(s1);
+    const LW m = lshfl(x0 * FP_INV, grp.sub);
+    LD s2 = lmad(m, pw[0], lwide(llo(s1)));
+    LD c1 = lhi(s1), c2 = lhi(s2);
+    nw[0] = llo(s2);
+#pragma unroll
+    for (int k = 1; k < W; ++k) {
+      s1 = lmad(aw[k], bi, lwide(t[k]) + c1);
+      c1 = lhi(s1);
+      s2 = lmad(m, pw[k], lwide(llo(s1)) + c2);
+      c2 = lhi(s2);
+      nw[k] = llo(s2);
+    }
+    const LD s3 = lwide(nw[W - 1]) + sp;
+    nw[W - 1] = llo(s3);
+    sp = c1 + c2 + lhi(s3);
+    const LW in = lshfl(nw[0], grp.up);
+#pragma unroll
+    for (int k = 0; k + 1 < W; ++k) t[k] = nw[k + 1];
+    t[W - 1] = lsel(grp.j == S - 1, LW(0u), in);
+  }
+  const LD s3 = lwide(t[W - 1]) + sp;
+#pragma unroll
+  for (int k = 0; k + 1 < W; ++k) nw[k] = t[k];
+  nw[W - 1] = llo(s3);
+  cy = llo(lhi(s3));
+}
+
+// The product whose shares the sub-group at lane `from` holds, whole and
+// canonical on every lane: its 12 words and S carries by shuffle, the
+// carries added (the value is below 2p), then one conditional subtraction.
+template <int S>
+ZK_INLINE void lane_gather(LW* r, const LW* nw, const LW& cy,
+                           const LI& from) {
+  constexpr int W = NP / S;
+  LW u[NP], v[NP];
+#pragma unroll
+  for (int w = 0; w < NP; ++w) {
+    u[w] = lshfl(nw[w % W], from + w / W);
+    v[w] = LW(0u);
+  }
+  // the last lane's carry lies above word 11, so it is 0
+#pragma unroll
+  for (int q = 0; q + 1 < S; ++q) v[(q + 1) * W] = lshfl(cy, from + q);
+  LD c = LD(0ull);
+#pragma unroll
+  for (int w = 0; w < NP; ++w) {
+    const LD s = lwide(u[w]) + v[w] + c;
+    u[w] = llo(s);
+    c = lhi(s);
+  }
+  lfp_cond_sub(r, u);
+}
+
+// r_n = x_n y_n for n < 3, on every lane: sub-group n takes product n.
+// No r_n may be an operand of a later product.
+template <int S, int K>
+ZK_INLINE void lane_mul3(LW* r0, LW* r1, LW* r2, const LW* x0, const LW* y0,
+                         const LW* x1, const LW* y1, const LW* x2,
+                         const LW* y2, const LaneGroup<S, K>& grp) {
+  static_assert(K == 3, "three sub-groups");
+  LW nw[NP / S], cy, a[NP], b[NP];
+  const LB g0 = grp.g == 0, g1 = grp.g == 1;
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    a[k] = lsel(g0, x0[k], lsel(g1, x1[k], x2[k]));
+    b[k] = lsel(g0, y0[k], lsel(g1, y1[k], y2[k]));
+  }
+  lane_mul_part(nw, cy, a, b, grp);
+  lane_gather<S>(r0, nw, cy, grp.first);
+  lane_gather<S>(r1, nw, cy, grp.first + S);
+  lane_gather<S>(r2, nw, cy, grp.first + 2 * S);
+}
+
+// r = x y on every lane (every sub-group computes it); r may be x or y.
+template <int S, int K>
+ZK_INLINE void lane_mul(LW* r, const LW* x, const LW* y,
+                        const LaneGroup<S, K>& grp) {
+  LW nw[NP / S], cy;
+  lane_mul_part(nw, cy, x, y, grp);
+  lane_gather<S>(r, nw, cy, grp.first);
+}
+
+// pt_double's formula on the lanes of a group, in place, its seven
+// products in three levels: {Y Z, X^2, Y^2}, {B^2, (X + B)^2, E^2},
+// {E (D - X3)}.  The results are pt_double's words.
+template <int S, int K>
+ZK_INLINE void lane_double(LW* X, LW* Y, LW* Z, const LaneGroup<S, K>& grp) {
+  LW YZ[NP], A[NP], B[NP], C[NP], D[NP], E[NP], F[NP], T[NP];
+  lane_mul3(YZ, A, B, Y, Z, X, X, Y, Y, grp);
+  lfp_add(Z, YZ, YZ);                    // Z3 = 2 Y Z
+  lfp_add(E, A, A);
+  lfp_add(E, E, A);                      // E = 3A
+  lfp_add(T, X, B);
+  lane_mul3(C, D, F, B, B, T, T, E, E, grp);
+  lfp_sub(D, D, A);
+  lfp_sub(D, D, C);
+  lfp_add(D, D, D);
+  lfp_add(T, D, D);
+  lfp_sub(X, F, T);                      // X3 = F - 2D
+  lfp_add(C, C, C);
+  lfp_add(C, C, C);
+  lfp_add(C, C, C);                      // 8C
+  lfp_sub(T, D, X);
+  lane_mul(T, E, T, grp);
+  lfp_sub(Y, T, C);                      // Y3 = E (D - X3) - 8C
+}
+
+// table_chain on lane groups: warp `warp` (lanes `lane`) takes bases
+// warp * (32 / G) ... of the N in pts; each group runs its base's chain of
+// 4 nwin - 1 doublings and stores entries d = 1, 2, 4, 8 of every window,
+// lane q of the group the words q, q + G, ... of each.  Lanes past the last
+// whole group, and groups past base N - 1, run a base of their neighbours'
+// and store nothing.
+template <int S, int K>
+ZK_INLINE void table_chain_lanes(u32* tab, const u32* pts, long long N,
+                                 int nwin, long long warp, const LI& lane) {
+  constexpr int G = S * K, PER = WARP / G;
+  const LaneGroup<S, K> grp(lane);
+  const LI slot = lane / G, q = lane % G;
+  const LL i = lwide_ll(slot) + warp * PER;
+  const LB live = land(slot < PER, i < N);
+  const LL src = lsel(i < N, i, LL(N - 1));
+  LW X[NP], Y[NP], Z[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    X[k] = lload(pts, src * PW + k);
+    Y[k] = lload(pts, src * PW + NP + k);
+    Z[k] = lload(pts, src * PW + 2 * NP + k);
+  }
+  for (int j = 0; j < nwin; ++j)
+    for (int s = 0; s < WBITS; ++s) {
+      if (j || s) lane_double(X, Y, Z, grp);
+      const LL at = ((i * nwin + j) * WTAB + (1 << s) - 1) * PW;
+#pragma unroll
+      for (int w = 0; w < PW; ++w)
+        lstore(tab, at + w,
+               w < NP ? X[w] : w < 2 * NP ? Y[w - NP] : Z[w - 2 * NP],
+               land(live, q == w % G));
+    }
+}
+
+// out[i] = a[i] b[i] R^-1 for the n operand pairs, a pair a sub-group of S
+// lanes (warp `warp` takes pairs warp * (32 / S) ...); or, where chain > 0
+// (n = 1), x <- x b[0] chain times from x = a[0], each product waiting for
+// the last.
+template <int S>
+ZK_INLINE void fp_mul_lanes(u32* out, const u32* a, const u32* b,
+                            long long n, long long chain, long long warp,
+                            const LI& lane) {
+  constexpr int PER = WARP / S;
+  const LaneGroup<S, 1> grp(lane);
+  const LI slot = lane / S, q = lane % S;
+  const LL i = lwide_ll(slot) + warp * PER;
+  const LB live = land(slot < PER, i < n);
+  const LL src = lsel(i < n, i, LL(n - 1));
+  LW x[NP], y[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    x[k] = lload(a, src * NP + k);
+    y[k] = lload(b, src * NP + k);
+  }
+  const long long reps = chain > 0 ? chain : 1;
+  for (long long r = 0; r < reps; ++r) lane_mul(x, x, y, grp);
+#pragma unroll
+  for (int w = 0; w < NP; ++w)
+    lstore(out, src * NP + w, x[w], land(live, q == w % S));
 }
 
 }  // namespace g1

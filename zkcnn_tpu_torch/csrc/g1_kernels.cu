@@ -13,16 +13,28 @@
 //     accumulator and a table of 15 multiples over all steps (4-bit
 //     windows: 254 doublings and up to 64 additions), where the XLA
 //     program runs a 255-step loop of whole-batch programs;
-//   * g1_table_chain_kernel + g1_table_digits_kernel (zk_g1_msm_table):
-//     zkcnn_tpu/pcs/msm.py::build_table, the fixed-base table that
-//     FixedBaseMSM builds when it is made.  For each base P and window j
-//     it holds d 2^(4j) P, d = 1..15 (4-bit digits, unsigned; the JAX
-//     package's signed radix-256 digits and GLV are not carried over).  A
-//     thread a base runs the chain 2^t P, t < 4 nwin (255 doublings), and
-//     stores each as entry d = 1, 2, 4 or 8 of its window; then a thread a
-//     (base, window, digit) adds the other 11 digits in three rounds
-//     (entry m + e = entry m + entry e, e < m, m = 2, 4, 8) within a
-//     block;
+//   * g1_table_lanes_kernel, then g1_table_round_kernel three times
+//     (zk_g1_msm_table):
+//     zkcnn_tpu/pcs/msm.py:100 build_table (called from :269), the
+//     fixed-base table that FixedBaseMSM builds when it is made.  For each
+//     base P and window j it holds d 2^(4j) P, d = 1..15 (4-bit digits,
+//     unsigned; the JAX package's signed radix-256 digits and GLV are not
+//     carried over).  Its first kernel runs the chain 2^t P, t < 4 nwin,
+//     and stores each as entry d = 1, 2, 4 or 8 of its window; then three
+//     launches add the other 11 digits in rounds (entry m + e = entry m +
+//     entry e, e < m, m = 2, 4, 8).  The chain bounds the table: 255
+//     doublings, each waiting for the last, whatever N, so its time is
+//     latency.  One thread a base ran it at 7 dependent Fp products a
+//     doubling (2.8 ms for one base); here a group of lanes of one warp
+//     runs a base's chain (g1_arith.cuh, table_chain_lanes): the three
+//     products of each of a doubling's three dependency levels at once on
+//     three sub-groups, each product split by words over the TABLE_LANES
+//     lanes of its sub-group, so a doubling waits for 3 products of about
+//     a third of the latency, and the group's lanes share its stores.  A
+//     block takes TABLE_WARPS warps, so 512 bases spread over 256 blocks.
+//     The digits run a thread an addition, a launch a round.
+//     g1_table_thread_kernel (the one-thread chain this replaced) stays as
+//     the reference that chip_smoke.py holds the lane chain against;
 //   * ipa_scalars_kernel (zk_ipa_scalars): the scalars of a round of the
 //     inner-product opening on the original generators and Q
 //     (zkcnn_tpu_torch/pcs/ipa.py), where the JAX package folds G by a
@@ -59,10 +71,9 @@
 // 11 additions a window; an MSM then costs one addition a nonzero digit
 // (about 64 a 255-bit term), against 144 bytes a table entry read.  For
 // one or two rows the bound is a chain: the table's 255 dependent
-// doublings, then a thread's 16 additions and the trees.  Left for later
-// work: GLV, signed digits, Z = 1 entries with mixed addition (a batch
-// inversion), Pippenger buckets for very large N, a product shared by
-// several threads.
+// doublings (on lane groups, above), then a thread's 16 additions and the
+// trees.  Left for later work: GLV, signed digits, Z = 1 entries with
+// mixed addition (a batch inversion), Pippenger buckets for very large N.
 
 #include <cstddef>
 #include <cstdint>
@@ -76,9 +87,11 @@ using namespace g1;
 
 constexpr int ADD_THREADS = 128;   // a block of g1_add_kernel
 constexpr int MUL_THREADS = 64;    // a block of g1_scalar_mul_kernel
-constexpr int CHAIN_THREADS = 64;  // bases a block of g1_table_chain_kernel
-constexpr int DIGIT_THREADS = 8;   // threads a (base, window); 1 idles
-constexpr int DIGIT_PAIRS = 16;    // (base, window) pairs a block
+constexpr int CHAIN_THREADS = 64;  // bases a block of g1_table_thread_kernel
+constexpr int TABLE_LANES = 6;     // lanes a product of g1_table_lanes_kernel
+constexpr int TABLE_GROUPS = 3;    // products a doubling level runs at once
+constexpr int TABLE_WARPS = 2;     // warps a block of g1_table_lanes_kernel
+constexpr int ROUND_THREADS = 64;  // a block of g1_table_round_kernel
 constexpr int MSM_SPLIT = 4;       // threads a term: NWIN / 4 windows each
 constexpr int MSM_THREADS = 64;    // the largest block of the MSM kernels
 constexpr int FP_THREADS = 128;    // a block of fp_mul_kernel
@@ -119,8 +132,9 @@ __global__ void g1_scalar_mul_kernel(const u32* __restrict__ pts,
   pt_store(out + i * PW, &acc);
 }
 
-// Thread i: entries d = 1, 2, 4, 8 of every window of base i's table.
-__global__ void g1_table_chain_kernel(const u32* __restrict__ pts,
+// Thread i: entries d = 1, 2, 4, 8 of every window of base i's table, one
+// thread's chain (for comparison with g1_table_lanes_kernel).
+__global__ void g1_table_thread_kernel(const u32* __restrict__ pts,
                                       u32* __restrict__ tab, long long N,
                                       int nwin) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -130,19 +144,23 @@ __global__ void g1_table_chain_kernel(const u32* __restrict__ pts,
   table_chain(tab + i * nwin * WTAB * PW, &p, nwin);
 }
 
-// The other digit multiples of `pairs` (base, window) pairs: DIGIT_THREADS
-// threads a pair, thread e = 1..8 making entry m + e in round m when
-// e < m and m + e <= 15.  A block holds its pairs for all three rounds, so
-// a barrier orders them (it also orders the block's global writes).
-__global__ void g1_table_digits_kernel(u32* tab, long long pairs) {
-  const long long pair =
-      (long long)blockIdx.x * DIGIT_PAIRS + threadIdx.x / DIGIT_THREADS;
-  const int e = threadIdx.x % DIGIT_THREADS + 1;
-  u32* win = tab + pair * WTAB * PW;
-  for (int m = 2; m < WTAB; m *= 2) {
-    if (pair < pairs && e < m && m + e <= WTAB) table_step(win, m, e);
-    __syncthreads();
-  }
+// The same on lane groups: TABLE_LANES lanes a product, TABLE_GROUPS
+// products at once (table_chain_lanes).
+__global__ void g1_table_lanes_kernel(const u32* __restrict__ pts,
+                                      u32* __restrict__ tab, long long N,
+                                      int nwin) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  table_chain_lanes<TABLE_LANES, TABLE_GROUPS>(tab, pts, N, nwin, t / WARP,
+                                               (int)(threadIdx.x % WARP));
+}
+
+// Round m of the digit multiples, one thread an addition: thread a <
+// pairs (m - 1) makes entry m + e of pair a / (m - 1), e = a mod (m - 1)
+// + 1 (table_step).
+__global__ void g1_table_round_kernel(u32* tab, long long pairs, int m) {
+  const long long a = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (a >= pairs * (m - 1)) return;
+  table_step(tab + a / (m - 1) * WTAB * PW, m, (int)(a % (m - 1)) + 1);
 }
 
 // The points of a block summed by a tree in shared memory; the sum ends
@@ -257,6 +275,51 @@ __global__ void fp_mul_kernel(const u32* __restrict__ a,
   for (int k = 0; k < NP; ++k) out[i * NP + k] = x[k];
 }
 
+// The lane product alone (fp_mul_lanes): a pair a sub-group of
+// TABLE_LANES lanes.
+__global__ void fp_mul_lanes_kernel(const u32* __restrict__ a,
+                                    const u32* __restrict__ b,
+                                    u32* __restrict__ out, long long n,
+                                    long long chain) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  fp_mul_lanes<TABLE_LANES>(out, a, b, n, chain, t / WARP,
+                            (int)(threadIdx.x % WARP));
+}
+
+// The chain of a table (entries d = 1, 2, 4, 8 of every window): on lane
+// groups, or in one thread a base where one_thread is set.
+int launch_chain(const u32* pts, u32* tab, long long N, int nwin,
+                 int one_thread, cudaStream_t s) {
+  if (one_thread) {
+    g1_table_thread_kernel<<<(unsigned)((N + CHAIN_THREADS - 1) /
+                                        CHAIN_THREADS),
+                             CHAIN_THREADS, 0, s>>>(pts, tab, N, nwin);
+  } else {
+    constexpr int per = WARP / (TABLE_LANES * TABLE_GROUPS);   // bases a warp
+    const long long warps = (N + per - 1) / per;
+    g1_table_lanes_kernel<<<(unsigned)((warps + TABLE_WARPS - 1) /
+                                       TABLE_WARPS),
+                            TABLE_WARPS * WARP, 0, s>>>(pts, tab, N, nwin);
+  }
+  return cudaGetLastError();
+}
+
+// The digit multiples of a table whose chain entries are in place: a
+// launch a round, a thread an addition.
+int launch_digits(u32* tab, long long N, int nwin, cudaStream_t s) {
+  const long long pairs = N * nwin;
+  if (pairs > (1LL << 30)) return cudaErrorInvalidValue;   // grid sizes
+  for (int m = 2; m < WTAB; m *= 2) {
+    const long long adds = pairs * (m - 1);
+    g1_table_round_kernel<<<(unsigned)((adds + ROUND_THREADS - 1) /
+                                       ROUND_THREADS),
+                            ROUND_THREADS, 0, s>>>(tab, pairs, m);
+    const int err = cudaGetLastError();
+    if (err) return err;
+  }
+  return 0;
+}
+
 // Threads a block of the MSM for N terms: MSM_SPLIT a term, up to 16
 // terms, a power of two.
 int msm_block(long long N) {
@@ -309,22 +372,38 @@ int zk_g1_msm_table(const void* pts, void* tab, long long N, int nwin,
   *launches = 0;
   if (N <= 0 || nwin < 1 || nwin > NWIN) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long pairs = N * nwin;
-  const long long digit_blocks = (pairs + DIGIT_PAIRS - 1) / DIGIT_PAIRS;
-  if (digit_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  g1_table_chain_kernel<<<(unsigned)((N + CHAIN_THREADS - 1) / CHAIN_THREADS),
-                          CHAIN_THREADS, 0, s>>>(
-      static_cast<const u32*>(pts), static_cast<u32*>(tab), N, nwin);
-  int err = cudaGetLastError();
+  int err = launch_chain(static_cast<const u32*>(pts), static_cast<u32*>(tab),
+                         N, nwin, 0, s);
   if (err) return err;
   *launches = 1;
-  g1_table_digits_kernel<<<(unsigned)digit_blocks,
-                           DIGIT_PAIRS * DIGIT_THREADS, 0, s>>>(
-      static_cast<u32*>(tab), pairs);
-  err = cudaGetLastError();
+  err = launch_digits(static_cast<u32*>(tab), N, nwin, s);
   if (err) return err;
-  *launches = 2;
+  *launches = 4;                   // the chain and three rounds of digits
   return 0;
+}
+
+// The two stages of zk_g1_msm_table apart, for timing them: the chain
+// (entries d = 1, 2, 4, 8) on lane groups, or in one thread a base where
+// one_thread is set (the reference), and the other digits on a table
+// whose chain is in place.
+int zk_g1_table_chain(const void* pts, void* tab, long long N, int nwin,
+                      int one_thread, void* stream) {
+  if (N <= 0 || nwin < 1 || nwin > NWIN) return cudaErrorInvalidValue;
+  return launch_chain(static_cast<const u32*>(pts), static_cast<u32*>(tab), N,
+                      nwin, one_thread, static_cast<cudaStream_t>(stream));
+}
+
+int zk_g1_table_digits(void* tab, long long N, int nwin, void* stream) {
+  if (N <= 0 || nwin < 1 || nwin > NWIN) return cudaErrorInvalidValue;
+  return launch_digits(static_cast<u32*>(tab), N, nwin,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The lanes of zk_g1_msm_table's chain: *product lanes a product, *base
+// lanes a base.
+void zk_g1_table_lanes(int* product, int* base) {
+  *product = TABLE_LANES;
+  *base = TABLE_LANES * TABLE_GROUPS;
 }
 
 // The block sums a row of N terms is cut into; with 1 the sums of
@@ -400,6 +479,21 @@ int zk_fp_mul(const void* a, const void* b, void* out, long long n,
   if (n <= 0 || chain < 0 || (chain && n != 1)) return cudaErrorInvalidValue;
   fp_mul_kernel<<<(unsigned)((n + FP_THREADS - 1) / FP_THREADS), FP_THREADS,
                   0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u32*>(a), static_cast<const u32*>(b),
+      static_cast<u32*>(out), n, chain);
+  return cudaGetLastError();
+}
+
+// The check entry of the lane product: the same as zk_fp_mul with a
+// product split over TABLE_LANES lanes.
+int zk_fp_mul_lanes(const void* a, const void* b, void* out, long long n,
+                    long long chain, void* stream) {
+  if (n <= 0 || chain < 0 || (chain && n != 1)) return cudaErrorInvalidValue;
+  constexpr int per = WARP / TABLE_LANES;   // pairs a warp
+  const long long warps = (n + per - 1) / per;
+  fp_mul_lanes_kernel<<<(unsigned)((warps * WARP + FP_THREADS - 1) /
+                                   FP_THREADS),
+                        FP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const u32*>(a), static_cast<const u32*>(b),
       static_cast<u32*>(out), n, chain);
   return cudaGetLastError();

@@ -100,8 +100,12 @@ def load(name: str) -> ctypes.CDLL:
         _declare(lib, "zk_g1_add", I, [P, P, P, L, P])
         _declare(lib, "zk_g1_scalar_mul", I, [P, P, L, P, L, I, P])
         _declare(lib, "zk_g1_msm_table", I, [P, P, L, I, P, N])
+        _declare(lib, "zk_g1_table_chain", I, [P, P, L, I, I, P])
+        _declare(lib, "zk_g1_table_digits", I, [P, L, I, P])
+        _declare(lib, "zk_g1_table_lanes", None, [N, N])
         _declare(lib, "zk_g1_msm_parts", L, [L])
         _declare(lib, "zk_g1_msm", I, [P, P, P, P, L, L, I, I, I, P, N])
         _declare(lib, "zk_fp_mul", I, [P, P, P, L, L, P])
+        _declare(lib, "zk_fp_mul_lanes", I, [P, P, P, L, L, P])
         _declare(lib, "zk_ipa_scalars", I, [P, P, P, P, P, P, P, L, L, P])
     return lib

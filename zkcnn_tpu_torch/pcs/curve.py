@@ -11,6 +11,10 @@ MSM of one base: it builds that point's fixed-base table (`table_kernel`,
 kernel `g1_msm_table`) and sums a row a scalar from it
 (`table_msm_kernel`, kernel `g1_msm`, which `msm.FixedBaseMSM` also
 runs); with a point a thread it is the windowed `g1_scalar_mul` kernel.
+`base_mul` is the same MSM for the curve's base point G, whose table
+depends on nothing else: it is built once a process and device
+(`base_table`, kept in `BASE_TABLES`), so the tape's generator draws of
+a proof's setup, opening and verification share it.
 Each kernel has a plain PyTorch version (`padd_plain`, `pdouble_plain`,
 `scalar_mul_plain`, and in `msm.py` `msm_table_plain` and `msm_plain`:
 the JAX formulas on `FP.mul/add/sub` with `torch.where` selects) that
@@ -71,6 +75,8 @@ SHAPES = {k: set() for k in NAMES}
 PLAIN_CALLS = {k: 0 for k in NAMES}
 
 _LIB = None
+# the base point's fixed-base table on each CUDA device (`base_table`)
+BASE_TABLES = {}
 
 
 def reset_launches():
@@ -327,7 +333,8 @@ def _flat(x, lead, tail):
 def table_kernel(points, nwin: int = NWIN):
     """The fixed-base table of CUDA points [N, 3, 12] over nwin windows:
     [N, nwin, 15, 3, 12], entry (i, j, d - 1) = d 2^(4j) P_i.  One launch
-    of g1_msm_table (two device kernels)."""
+    of g1_msm_table (four device kernels: the chain, three rounds of
+    digits)."""
     pts = points.contiguous()
     N = pts.shape[0]
     tab = torch.empty((N, nwin, WTAB, 3, FP.n), dtype=torch.int32,
@@ -360,6 +367,16 @@ def table_msm_kernel(tab, ks, nbits: int, mont: bool):
     return out
 
 
+def _check_scalars(name, scalars_plain, device, nbits):
+    if scalars_plain.dtype != torch.int32 or scalars_plain.shape[-1] != FR.n \
+            or scalars_plain.device != device:
+        raise ValueError(f"{name}: expected [..., {FR.n}] int32 scalars "
+                         f"on {device}, got {tuple(scalars_plain.shape)} "
+                         f"{scalars_plain.dtype} on {scalars_plain.device}")
+    if not 1 <= nbits <= 32 * FR.n:
+        raise ValueError(f"{name}: nbits {nbits} outside 1..256")
+
+
 def scalar_mul(pt, scalars_plain, nbits: int = 255):
     """pt: [..., 3, 12] points; scalars_plain: [..., 8] plain (not
     Montgomery) Fr words; both broadcast over the leading dimensions.
@@ -368,13 +385,7 @@ def scalar_mul(pt, scalars_plain, nbits: int = 255):
     of a row a scalar (g1_msm_table, g1_msm); else one launch of
     g1_scalar_mul."""
     on_cuda = check_points("scalar_mul", pt)
-    if scalars_plain.dtype != torch.int32 or scalars_plain.shape[-1] != FR.n \
-            or scalars_plain.device != pt.device:
-        raise ValueError(f"scalar_mul: expected [..., {FR.n}] int32 scalars "
-                         f"on {pt.device}, got {tuple(scalars_plain.shape)} "
-                         f"{scalars_plain.dtype} on {scalars_plain.device}")
-    if not 1 <= nbits <= 32 * FR.n:
-        raise ValueError(f"scalar_mul: nbits {nbits} outside 1..256")
+    _check_scalars("scalar_mul", scalars_plain, pt.device, nbits)
     if not on_cuda:
         return scalar_mul_host(pt, scalars_plain, nbits)
     lead = torch.broadcast_shapes(pt.shape[:-2], scalars_plain.shape[:-1])
@@ -394,6 +405,35 @@ def scalar_mul(pt, scalars_plain, nbits: int = 255):
     count_launch("g1_scalar_mul",
                  (n, nbits, "scalar" if k_stride == 0 else ""))
     return out.reshape(lead + (3, FP.n))
+
+
+def base_table(device):
+    """The base point's table over NWIN windows on a CUDA device: built
+    by the first call on that device (one launch of g1_msm_table) and
+    kept in `BASE_TABLES`."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    if dev not in BASE_TABLES:
+        BASE_TABLES[dev] = table_kernel(base_point(dev)[None])
+    return BASE_TABLES[dev]
+
+
+def base_mul(scalars_plain, nbits: int = 255):
+    """k G for the base point G and plain scalars [..., 8] (the low nbits
+    bits of each): on a CUDA device one MSM of a row a scalar on
+    `base_table` (g1_msm); on the CPU `scalar_mul` (Python integers)."""
+    dev = scalars_plain.device
+    if dev.type != "cuda":
+        return scalar_mul(base_point(dev), scalars_plain, nbits)
+    _check_scalars("base_mul", scalars_plain, dev, nbits)
+    lead = tuple(scalars_plain.shape[:-1])
+    n = math.prod(lead)
+    if not n:
+        return torch.empty(lead + (3, FP.n), dtype=torch.int32, device=dev)
+    k = scalars_plain.reshape(n, 1, FR.n)
+    return table_msm_kernel(base_table(dev), k, nbits, False).reshape(
+        lead + (3, FP.n))
 
 
 # ---------------------------------------------------------------------

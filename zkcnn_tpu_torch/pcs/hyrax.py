@@ -130,13 +130,14 @@ class HyraxPCS:
 
     def _tape_gens(self, scalars):
         """s_i*G for tape-drawn scalars: one scalar multiplication over
-        all of them (on a CUDA device one kernel launch; on the CPU
-        Python integers on the host, which give the same POINTS with
-        Z = 1 -- encodings and points_equal do not depend on the
-        representation, so transcripts do not change)."""
+        all of them (on a CUDA device one MSM launch on the base point's
+        table, which the process builds once: setup, open and verify
+        share it; on the CPU Python integers on the host, which give the
+        same POINTS with Z = 1 -- encodings and points_equal do not
+        depend on the representation, so transcripts do not change)."""
         plain = torch.from_numpy(np.stack(
             [FR.words_host(s) for s in scalars])).to(self.device)
-        return curve.scalar_mul(curve.base_point(self.device), plain)
+        return curve.base_mul(plain)
 
     def _aux_gen(self, tape):
         """The IPA's auxiliary generator Q: tape-drawn (interactive) or
