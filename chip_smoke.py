@@ -18,7 +18,16 @@ Phases; any failure raises and the script exits non-zero:
      ladders are covered, and 2^21 rows; the per-round path's one-round
      entries (fold_round, fold_cubic_round) at 2, 4, 2^12, 2^18 and 2^21
      rows with and without the fold, fold_cubic_round also with m folding
-     to one row and with one row.  Then the curve kernels' Fp product in
+     to one row and with one row.  The device tape (check entry
+     fs_tape_check: absorb, draw, the digest's reduction mod p) against
+     hashlib on 10^4 random states and the edge cases (values 0, 1,
+     p - 1; counters 0, 255, 256, 2^32; digests 0, all 0xff and next to
+     multiples of p), and one thread's absorb and draw timed; the phase
+     calls (fold_round_phase, fold_cubic_round_phase: a whole Fiat-Shamir
+     phase, the tape on the card) against their plain versions word for
+     word at 2, 4, 2^12, 2^18 and 2^21 rows, at LeNet's largest phases,
+     with sides that exhaust mid-phase and Liu's phase, random rows and
+     rows of p - 1.  Then the curve kernels' Fp product in
      one thread (the check entry zk_fp_mul) and split over the table
      chain's lanes (zk_fp_mul_lanes) against Python integers on 0, 1,
      p - 1, R mod p, words of 0xffffffff below p, pairs that need the
@@ -48,12 +57,13 @@ Phases; any failure raises and the script exits non-zero:
      too): verified, final tape state and counter equal to the CPU pins,
      a tampered witness rejected; the per-round path on a plain tape
      that is not precomputable absorbing what the three-pass path
-     absorbs; then the per-round engines (PhaseEngine.round,
-     DotProdPhase1.round, then receive) driven on card tensors at the
-     shapes of LeNet's largest phases, with the launch counts reset
-     before and read after: fold_round, fold_cubic_round and fold
-     launched, no ladder, every round message and final claim equal to
-     run_all's;
+     absorbs; then the engines' phase calls (run_fs, which draws the
+     challenges on the card) and the per-round engines (PhaseEngine.round,
+     DotProdPhase1.round, then receive) at those challenges, driven on
+     card tensors at the shapes of LeNet's largest phases, with the
+     launch counts reset before and read after each: one phase call a
+     phase; fold_round, fold_cubic_round and fold launched per round, no
+     ladder; every round message and final claim equal to run_all's;
   5. LeNet5, pic_cnt=1, through the port's demo_lenet entry (--synthetic
      --seed 17) on the card, twice, each with the kernel launch counts
      reset just before and read just after.  With --no-pcs: it must
@@ -74,13 +84,16 @@ Phases; any failure raises and the script exits non-zero:
      FiatShamirTape(b"zkcnn-demo-17") with the inner-product commitment,
      counts reset just before the proof: the same WS, PS and POLY_PS, the
      CPU-pinned final tape state and counter, fold_round and
-     fold_cubic_round launched, no round or cubic ladder (one fold ladder:
-     the output layer's MLE at its point), one fetch a round, at most 4
-     tables; PT, VT,
+     fold_cubic_round launched as phase calls, no fold and no round or
+     cubic ladder (one fold ladder: the output layer's MLE at its point),
+     at most one round fetch a phase, at most 4 tables; PT, VT,
      POLY_PT and POLY_VT printed, and verify()'s wall time span by span
      (the commitment's setup, its hash-to-curve apart from its table,
      the commit, the encode-and-absorb of the commitment, the per-round
-     proof and check, the opening);
+     proof and check, the opening).  Then the same proof with its rounds
+     in the one-round form (round(prev_r), the host tape, a fetch a
+     round): the same fingerprint, and its round loops' seconds beside
+     the phase calls';
   6. each entry against its plain version at every shape its run
      launched it at (the round kernels exact; the curve kernels as group
      elements, on 32-bit scalars laid out as the run lays them out, and
@@ -89,9 +102,15 @@ Phases; any failure raises and the script exits non-zero:
      empty and at 1 and 2 windows), timed with CUDA events (g1_msm with
      and without building its table), with the least time the card could
      take for the same work beside it;
-     Then a LeNet side's rounds one by one as the per-round path runs
-     them (fold_round, a fetch a round) against one ladder;
-  7. the seconds each phase took, one JSON line of phase 3's lane
+     fold_round's and fold_cubic_round's phase calls at every phase
+     shape of the Fiat-Shamir LeNet run, timed a phase.  Then a LeNet
+     side's rounds one by one as the one-round form runs them
+     (fold_round, a fetch a round) against one ladder and one phase
+     call;
+  7. the seconds each phase took, one JSON line of the Fiat-Shamir
+     path's measurements (round loops of the phase calls and of the
+     one-round form, the device tape's microseconds, fetches, phases and
+     device launches, one side three ways), one JSON line of phase 3's lane
      measurements (each Fp product form's dependent ns; the table's chain
      on lane groups and in one thread, digits and whole, in ms, by
      shape; the registers and spills of the table's and the product's
@@ -194,6 +213,8 @@ REPLACES = {"fold_round": QUAD, "fold": QUAD, "fold_cubic_round": CUBIC,
 # the entries of the per-round (Fiat-Shamir) path and of the three-pass one
 PER_ROUND = ("fold_round", "fold", "fold_cubic_round")
 LADDERS = ("round_ladder", "fold_ladder", "cubic_ladder")
+# the entries whose kernels also run a Fiat-Shamir phase whole
+PHASES = ("fold_round", "fold_cubic_round")
 P_WORDS = [0x00000001, 0xFFFFFFFF, 0xFFFE5BFE, 0x53BDA402,
            0x09A1D805, 0x3339D808, 0x299D7D48, 0x73EDA753]   # Fr modulus
 
@@ -226,6 +247,7 @@ LENET_RUN = "lenet --no-pcs"
 LENET_PCS_RUN = "lenet with the commitment"
 LENET_FS_RUN = "lenet under FiatShamirTape with the commitment"
 FOLDS_RUN = "ipa_prove_by_folds on the opening of lenet with the commitment"
+ENGINES_RUN = "the per-round engines at lenet's largest phases"
 # curve kernels that the LeNet opening no longer runs: their shapes and
 # launches come from FOLDS_RUN
 FOLD_KERNELS = ("g1_add", "g1_scalar_mul")
@@ -468,12 +490,14 @@ def recording_tape(Tape):
     return Recording
 
 
-def per_round_phases(torch, engine, how):
+def per_round_phases(torch, engine, FiatShamirTape, how, rss=None):
     """A quadratic phase (sides of 2^18 and 2^12 rows, a nonzero add_term,
     one round past the longer side) and a DOT_PROD phase 1 ((K, M) =
-    (2^16, 2^9)) on card tensors made from a fixed seed, run by `run_all`
-    or per round (`round(prev_r)`, then `receive` at the last challenge);
-    returns both lists of round messages and the final claims."""
+    (2^16, 2^9)) on card tensors made from a fixed seed, run whole under
+    a FiatShamirTape (`run_fs`, which draws the challenges), or at the
+    challenges rss it drew by `run_all` or per round (`round(prev_r)`,
+    then `receive` at the last challenge); returns both lists of round
+    messages, the final claims and the challenges."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(24)
     rng = random.Random(24)
@@ -483,9 +507,15 @@ def per_round_phases(torch, engine, how):
     cubic = engine.DotProdPhase1(rand_fe(torch, 1 << 9, gen),
                                  rand_fe(torch, 1 << 16, gen),
                                  rand_fe(torch, 1 << 16, gen), 9, 16)
-    out = []
-    for phase, R in ((quad, 19), (cubic, 16)):
-        rs = [rng.getrandbits(254) for _ in range(R)]
+    out, drawn = [], []
+    for k, (phase, R) in enumerate(((quad, 19), (cubic, 16))):
+        if how == "fs":
+            tape = FiatShamirTape(b"engines")
+            polys, rs, _, _ = phase.run_fs(R, tape.state, tape.counter)
+            out.append(polys)
+            drawn.append(rs)
+            continue
+        rs = rss[k]
         if how == "round":
             out.append([phase.round(rs[j - 1] if j else None)
                         for j in range(R)])
@@ -494,7 +524,124 @@ def per_round_phases(torch, engine, how):
             out.append(phase.run_all(rs))
     claims = [quad.final_claim_dev(0, 18), quad.final_claim_dev(1, 12),
               *cubic.finalize_dev()]
-    return out, torch.stack(claims)
+    return out, torch.stack(claims), drawn or rss
+
+
+def phase_edges():
+    """Phase shapes held against the plain version in phase 3: one side
+    of 2, 4, 2^12, 2^18 and 2^21 rows (as many rounds), Liu's phase
+    (include_add_term False), LeNet's largest sides (2^18 and 2^12 rows,
+    one round past the longer), sides that exhaust mid-phase, a side of
+    one and of two rows; DOT_PROD phases with m folding to one row, as
+    wide as V and of one row, LeNet's largest (2^16, 2^9), and 2^21."""
+    quad = [(-1, nb, nb, True) for nb in (1, 2, 12, 18, 21)]
+    quad += [(-1, 12, 12, False), (18, 12, 19, True), (3, 10, 10, True),
+             (0, 9, 9, True), (1, 2, 4, True)]
+    cubic = [(2, 2, 1), (4, 2, 2), (1 << 12, 1 << 5, 12), (1 << 8, 1, 8),
+             (1 << 10, 1 << 10, 10), (1 << 16, 1 << 9, 16),
+             (1 << 21, 1 << 11, 21)]
+    return {"fold_round": quad, "fold_cubic_round": cubic}
+
+
+def phase_compare(torch, rk, name, shape, gen, rng, fill=rand_fe):
+    """The phase call against its plain version on the same card tensors,
+    word for word (its buffer: the tape's state and counter, add_term, the
+    challenges and messages; each side's last rows); raises on a
+    mismatch.  A quadratic shape is (nb0, nb1, n, include) with -1 for no
+    side (add_term an [8] tensor when both sides are there, else a host
+    int), a cubic one (K, M, n).  Returns (max_abs_err, kernel_fn,
+    plain_fn)."""
+    state, counter = bytes(rng.getrandbits(8) for _ in range(64)), \
+        rng.choice([0, 255, 256, 1 << 32, rng.getrandbits(40)])
+    if name == "fold_round":
+        nb0, nb1, n, include = shape
+        sides = [None if nb < 0 else (fill(torch, 1 << nb, gen),
+                                      fill(torch, 1 << nb, gen))
+                 for nb in (nb0, nb1)]
+        add = fill(torch, 1, gen)[0] if nb0 >= 0 else rng.getrandbits(254)
+        args = (sides, n, add, include, state, counter)
+    else:
+        K, M, n = shape
+        args = (fill(torch, M, gen), fill(torch, K, gen), fill(torch, K, gen),
+                n, state, counter)
+    kern = getattr(rk, name + "_phase")
+    plain = getattr(rk, name + "_phase_plain")
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    err = max(max_err(torch, g, w) for g, w in zip(got[:2], want[:2]))
+    if err:
+        raise AssertionError(f"{name} phase at {shape}: kernel differs from "
+                             f"its plain version (max abs err {err})")
+    return err, (lambda: kern(*args)), (lambda: plain(*args))
+
+
+def phase_bound(name: str, shape):
+    """(bound_ms, bound_by) of a whole phase: its operands read once, the
+    buffer and last rows written once; the multiplies of every round (a
+    fold pair's full product, a dot's unreduced one; a cubic pair's terms)
+    at the integer rate.  The device tape's hashing is not counted."""
+    if name == "fold_round":
+        nb0, nb1, n, _ = shape
+        rows_in = sum(2 << nb for nb in (nb0, nb1) if nb >= 0)
+        rows_out = 4 + 4 * n + 4
+        muls = 0
+        for nb in (nb0, nb1):
+            for j in range(max(nb, 0)):      # round j: fold, then dots
+                muls += (j > 0) * 2 * (1 << (nb - j)) * FOLD_PAIR_MULS \
+                    + (1 << (nb - j - 1)) * 4 * DOT_MULS
+            muls += (nb >= 0) * 2 * FOLD_PAIR_MULS          # the last fold
+    else:
+        K, M, n = shape
+        rows_in, rows_out = 2 * K + M, 4 + 5 * n + 3
+        muls = sum(CUBIC_PAIR_MULS * (K >> (j + 1))
+                   + FOLD_PAIR_MULS * (M >> (j + 1)) for j in range(n))
+    by_bytes = (rows_in + rows_out) * ROW_BYTES / MEM_BYTES_S * 1e3
+    by_ops = muls / INT32_MULS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def tape_checks(torch, rk, FR, gen, rng, smi):
+    """The device tape (check entry fs_tape_check) against the host's
+    hashlib, word for word: 10^4 random states, absorbs of three values
+    (0, 1 and p - 1 among them), draws at counters 0, 255, 256, 2^32 and
+    random ones, and digests 0, all 0xff and next to multiples of p; then
+    one case on one thread, timed: a round's absorb and draw."""
+    n = 10000
+
+    def table(xs, w):
+        rows = [[(x >> (32 * k)) & 0xFFFFFFFF for k in range(w)] for x in xs]
+        t = torch.tensor(rows, dtype=torch.int64)
+        return (t - ((t >> 31) << 32)).to(torch.int32).to("cuda")
+
+    states = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, 16), dtype=torch.int32,
+                           device="cuda", generator=gen)
+    vals = rand_fe(torch, 3 * n, gen).reshape(n, 3, 8)
+    vals[:3] = torch.from_numpy(FR.pack_mont_host([0, 1, FR_P - 1] * 3)) \
+        .reshape(3, 3, 8).to("cuda")
+    ctrs = [0, 255, 256, 1 << 32, (1 << 32) - 1]
+    ctrs += [rng.getrandbits(62) for _ in range(n - len(ctrs))]
+    top = (1 << 512) // FR_P
+    digs = [0, (1 << 512) - 1, (1 << 256) - 1]
+    for k in [1, 2, top - 1, top] + [rng.randrange(top) for _ in range(30)]:
+        digs += [k * FR_P - 1, k * FR_P, k * FR_P + 1]
+    digs += [rng.getrandbits(512) for _ in range(n - len(digs))]
+    counters, digests = table(ctrs, 2), table(digs, 16)
+    got = rk.fs_tape_check(states, vals.contiguous(), counters, digests)
+    want = rk.fs_tape_check_plain(states, vals, counters, digests)
+    torch.cuda.synchronize()
+    err = max(max_err(torch, g, w) for g, w in zip(got, want))
+    if err:
+        raise AssertionError(f"the device tape differs from hashlib (max abs "
+                             f"err {err})")
+    one = tuple(x[:1].contiguous() for x in (states, vals, counters,
+                                             digests))
+    us = time_ms(torch, lambda: rk.fs_tape_check(*one), 50) * 1e3
+    say(f"device tape (fs_tape_check) exact against hashlib on {n} cases "
+        f"(values 0, 1, p - 1; counters 0, 255, 256, 2^32; digests 0, all "
+        f"0xff, next to multiples of p); one thread's absorb of three "
+        f"values and draw, launch included: {us:.2f} us ({smi})")
+    return us
 
 
 def time_once_ms(torch, fn):
@@ -1115,7 +1262,7 @@ def main():
         + "; ".join(regs))
     lap("build")
     from zkcnn_tpu_torch.field import FP, FR, round_kernels as rk
-    from zkcnn_tpu_torch.gkr import engine
+    from zkcnn_tpu_torch.gkr import engine, FiatShamirTape
     from zkcnn_tpu_torch.pcs import HyraxPCS, curve, hyrax, ipa
     from zkcnn_tpu_torch.pcs import msm as msm_mod
     rk._lib()
@@ -1133,6 +1280,15 @@ def main():
                 err, _, _ = compare(torch, rk, name, shape, gen, rng, fill)
                 worst[name] = max(worst[name], err)
         say(f"edge sizes exact (tolerance 0; random rows and rows of "
+            f"p - 1): {name} at {shapes}")
+
+    # the device tape, then the phase calls against their plain versions
+    tape_us = tape_checks(torch, rk, FR, gen, rng, smi)
+    for name, shapes in phase_edges().items():
+        for shape in shapes:
+            for fill in (rand_fe, pm1_fe):
+                phase_compare(torch, rk, name, shape, gen, rng, fill)
+        say(f"phase calls exact (tolerance 0; random rows and rows of "
             f"p - 1): {name} at {shapes}")
 
     lap("round kernels at edge sizes")
@@ -1155,7 +1311,7 @@ def main():
     from zkcnn_tpu_torch.nn import random_source, NeuralNetwork
     from zkcnn_tpu_torch.nn import models as zoo
     from zkcnn_tpu_torch.nn import params as P
-    from zkcnn_tpu_torch.gkr import Prover, Verifier, Tape, FiatShamirTape
+    from zkcnn_tpu_torch.gkr import Prover, Verifier, Tape
 
     # 4. tiny models on the card, with a real commitment and opening
     for name, build in tiny_models(zoo, NeuralNetwork, P):
@@ -1235,26 +1391,43 @@ def main():
 
     lap("tiny models under Fiat-Shamir")
 
-    # the per-round engines, whose counts cover exactly their two phases
+    # the engines' phase call (run_fs), which draws the challenges, then
+    # the per-round engines at those challenges, whose counts cover exactly
+    # their two phases, then run_all
     rk.reset_launches()
-    round_polys, round_claims = per_round_phases(torch, engine, "round")
+    fs_polys, fs_claims, rss = per_round_phases(torch, engine,
+                                                FiatShamirTape, "fs")
+    torch.cuda.synchronize()
+    phases_ran = dict(rk.LAUNCHES)
+    rk.reset_launches()
+    round_polys, round_claims, _ = per_round_phases(
+        torch, engine, FiatShamirTape, "round", rss)
     torch.cuda.synchronize()
     engines_ran = dict(rk.LAUNCHES)
-    say(f"per-round engines, wrapper calls that launched: {engines_ran}")
+    engine_shapes = {k: sorted(rk.SHAPES[k]) for k in PER_ROUND}
+    say(f"engines' phase calls, wrapper calls that launched: {phases_ran}; "
+        f"per-round engines: {engines_ran}")
     for name in PER_ROUND:
         if engines_ran[name] <= 0:
             raise AssertionError(f"the per-round engines never launched "
                                  f"{name}")
-    if any(engines_ran[k] for k in LADDERS):
-        raise AssertionError(f"the per-round engines ran ladders: "
+    if any(engines_ran[k] for k in LADDERS) or phases_ran["fold"] or \
+            any(phases_ran[k] != 1 for k in PHASES):
+        raise AssertionError(f"the engines ran other kernels: {phases_ran}, "
                              f"{engines_ran}")
-    all_polys, all_claims = per_round_phases(torch, engine, "run_all")
-    if round_polys != all_polys or not torch.equal(round_claims, all_claims):
-        raise AssertionError("the per-round engines and run_all give "
-                             "different round messages or claims")
-    say(f"per-round engines: {len(round_polys[0])} quadratic and "
+    all_polys, all_claims, _ = per_round_phases(torch, engine,
+                                                FiatShamirTape, "run_all",
+                                                rss)
+    if not (fs_polys == round_polys == all_polys) or not (
+            torch.equal(fs_claims, all_claims)
+            and torch.equal(round_claims, all_claims)):
+        raise AssertionError("the phase calls, the per-round engines and "
+                             "run_all give different round messages or "
+                             "claims")
+    say(f"engines: {len(round_polys[0])} quadratic and "
         f"{len(round_polys[1])} cubic round messages and the final claims "
-        f"equal to run_all's")
+        f"of the phase calls and of the per-round engines equal to "
+        f"run_all's")
 
     lap("per-round engines")
 
@@ -1378,27 +1551,29 @@ def main():
 
     # LeNet under Fiat-Shamir with the commitment (inner-product opening),
     # built as cli/runner.py builds it; the counts cover exactly the proof
-    C, vals = zoo.lenet(32, 32, 1, 1, P.PoolType.MAX).create(
-        random_source(17))
+    def fs_lenet():
+        C, vals = zoo.lenet(32, 32, 1, 1, P.PoolType.MAX).create(
+            random_source(17))
+        p = Prover(C, vals, own_vals=True)
+        pcs, tape = HyraxPCS(mode="ipa"), FiatShamirTape(b"zkcnn-demo-17")
+        return C, p, pcs, tape, Verifier(p, C, tape, pcs=pcs)
+
+    C, p, pcs, tape, v = fs_lenet()
     rounds = C.layers[0].bit_length + sum(
         ly.max_bl_u + (ly.max_bl_v if ly.need_phase2 else 0)
         for ly in C.layers[1:])
-    p = Prover(C, vals, own_vals=True)
-    del vals
-    pcs, tape = HyraxPCS(mode="ipa"), FiatShamirTape(b"zkcnn-demo-17")
-    v = Verifier(p, C, tape, pcs=pcs)
-    # the round loops' seconds: every round call, which ends in its fetch
+    # the round loops' seconds: every phase call, which ends in its fetch
     round_s = [0.0]
 
     def timed_round(fn):
-        def run(prev_r):
+        def run(*args):
             t = time.perf_counter()
-            out = fn(prev_r)
+            out = fn(*args)
             round_s[0] += time.perf_counter() - t
             return out
         return run
 
-    for m in ("round_quadratic", "round_cubic", "liu_round"):
+    for m in ("phase_quadratic", "phase_cubic", "liu_phase"):
         setattr(p, m, timed_round(getattr(p, m)))
     # verify() span by span: the commitment's setup (hash-to-curve of the
     # generators, then their table), its commit, the encode-and-absorb of
@@ -1434,10 +1609,13 @@ def main():
     span = {k: b - a for k, (a, b) in marks.items()}
     span["absorb"] = marks["_verify_per_round"][0] - marks["commit"][1]
     fs = {k: rk.LAUNCHES[k] for k in rk.NAMES}
+    fs_device = dict(rk.KERNEL_LAUNCHES)
     fs_tables = curve.LAUNCHES["g1_msm_table"]
     fs_fetches = engine.FETCHES["rounds"]
+    fs_phases = fs["fold_round"] + fs["fold_cubic_round"]
+    phase_shapes = {k: sorted(rk.PHASE_SHAPES[k]) for k in PHASES}
     launches.update({k: fs[k] for k in PER_ROUND})
-    shapes.update({k: sorted(rk.SHAPES[k]) for k in PER_ROUND})
+    shapes.update(engine_shapes)
     ws = f"{C.layers[0].size}(2^{(C.layers[0].size - 1).bit_length()})"
     ps, poly_ps = f"{p.proof_size / 1024:.4f}", f"{pcs.ps / 1024:.4f}"
     fingerprint = (tape.state.hex(), tape.counter)
@@ -1456,9 +1634,10 @@ def main():
         f"opening {span['verify_input']:.4f} s, the rest "
         f"{fs_wall - sum(span.values()):.4f} s ({smi})")
     say(f"lenet under FiatShamirTape, wrapper calls that launched: {fs} "
-        f"(device kernels {dict(rk.KERNEL_LAUNCHES)}); {fs_fetches} round "
-        f"fetches for {rounds} rounds; round loops {round_s[0]:.4f} s "
-        f"({smi}); curve wrapper calls {dict(curve.LAUNCHES)}")
+        f"(device kernels {fs_device}); {fs_fetches} round fetches for "
+        f"{fs_phases} phases of {rounds} rounds; round loops (the phase "
+        f"calls) {round_s[0]:.4f} s ({smi}); curve wrapper calls "
+        f"{dict(curve.LAUNCHES)}")
     if not ok:
         raise AssertionError("lenet under FiatShamirTape: verification "
                              "failed on cuda")
@@ -1473,14 +1652,16 @@ def main():
         if fs[name] <= 0:
             raise AssertionError(f"lenet under FiatShamirTape never launched "
                                  f"kernel {name}")
-    # the rounds run no ladder; the output layer's MLE evaluation (v_res,
-    # at a point drawn whole before anything is absorbed) is one fold
-    # ladder
-    if fs["round_ladder"] or fs["cubic_ladder"] or fs["fold_ladder"] != 1:
-        raise AssertionError(f"lenet under FiatShamirTape ran ladders: {fs}")
-    if fs_fetches != rounds:
+    # the rounds run no ladder and no fold; the output layer's MLE
+    # evaluation (v_res, at a point drawn whole before anything is
+    # absorbed) is one fold ladder
+    if fs["round_ladder"] or fs["cubic_ladder"] or fs["fold_ladder"] != 1 \
+            or fs["fold"]:
+        raise AssertionError(f"lenet under FiatShamirTape ran ladders or "
+                             f"folds: {fs}")
+    if fs_fetches > fs_phases:
         raise AssertionError(f"lenet under FiatShamirTape: {fs_fetches} "
-                             f"round fetches for {rounds} rounds")
+                             f"round fetches for {fs_phases} phases")
     if fs_tables > TABLES_FIAT_SHAMIR:
         raise AssertionError(f"lenet under FiatShamirTape: {fs_tables} "
                              f"tables (at most {TABLES_FIAT_SHAMIR})")
@@ -1488,15 +1669,60 @@ def main():
     # its opening against the fold-based one too: under FiatShamirTape a
     # round's absorb of L_k and R_k waits for the device
     opening_checks(torch, ipa, curve, msm_mod, fs_seen, smi, LENET_FS_RUN)
+    del p, v
+
+    # the same proof with its rounds in the one-round form (round(prev_r),
+    # a fetch a round, the challenges on the host tape), in this process:
+    # its round loops' seconds beside the phase calls'
+    C, p, pcs, tape, v = fs_lenet()
+    one_s = [0.0]
+
+    def one_round_form(step):
+        def run(n, state, counter):
+            t0 = time.perf_counter()
+            host = FiatShamirTape()
+            host.state, host.counter = state, counter
+            polys, rs = [], []
+            for _ in range(n):
+                polys.append(step(rs[-1] if rs else None))
+                host.absorb(*polys[-1])
+                rs.append(host.field())
+            p.phase.receive(rs[-1])
+            one_s[0] += time.perf_counter() - t0
+            return polys, rs, host.state, host.counter
+        return run
+
+    for m, step in (("phase_quadratic", p.round_quadratic),
+                    ("phase_cubic", p.round_cubic),
+                    ("liu_phase", p.liu_round)):
+        setattr(p, m, one_round_form(step))
+    rk.reset_launches()
+    engine.FETCHES["rounds"] = 0
+    if not v.verify() or (tape.state.hex(), tape.counter) != PINNED_FS_LENET:
+        raise AssertionError("lenet under FiatShamirTape in the one-round "
+                             "form: not verified or another fingerprint")
+    one = dict(rk.LAUNCHES)
+    say(f"lenet under FiatShamirTape, the rounds in the one-round form: "
+        f"verified, the same fingerprint; round loops {one_s[0]:.4f} s "
+        f"(the phase calls {round_s[0]:.4f} s) ({smi}); "
+        f"{engine.FETCHES['rounds']} round fetches; wrapper calls {one} "
+        f"(device kernels {dict(rk.KERNEL_LAUNCHES)})")
+    if engine.FETCHES["rounds"] != rounds or one["fold_round"] <= 0:
+        raise AssertionError(f"the one-round form: {engine.FETCHES['rounds']}"
+                             f" fetches for {rounds} rounds, {one}")
+    del p, v
 
     lap("lenet under Fiat-Shamir")
 
     # 6. every entry against its plain version at the shapes of its run,
-    # timed; the reported time is at the largest of them
+    # timed; the reported time is at the largest of them.  The per-round
+    # entries' one-round form: the per-round engines' shapes; fold_round's
+    # and fold_cubic_round's phase calls: LeNet under Fiat-Shamir's
     kernels = []
     for name in rk.NAMES:
         seen = shapes[name]
-        say(f"shapes of {name} in its run: {seen}")
+        run = ENGINES_RUN if name in PER_ROUND else LENET_RUN
+        say(f"shapes of {name} in its run ({run}): {seen}")
         err, times = worst[name], []
         for shape in seen:
             e, kern, _ = compare(torch, rk, name, shape, gen, rng)
@@ -1505,7 +1731,6 @@ def main():
         for shape, ms in times:
             say(f"time {name} {shape}: kernel {ms:.4f} ms ({smi})")
         shape = max(seen)
-        run = LENET_FS_RUN if name in PER_ROUND else LENET_RUN
         e, kern, plain = compare(torch, rk, name, shape, gen, rng)
         ms, pms = time_ms(torch, kern, 20), time_ms(torch, plain, 3)
         b_ms, b_by = bound(name, shape)
@@ -1513,13 +1738,45 @@ def main():
             f"({run}) {shape}: "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.6f} ms "
             f"by {b_by} ({smi})")
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES[name],
-                        "launches": launches[name],
-                        "max_abs_err": max(err, e), "ms": ms,
-                        "plain_ms": pms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": None,
-                        "shape": list(shape), "run": run})
+        entry = {"name": name, "route": "cuda", "source": SOURCE,
+                 "replaces": REPLACES[name], "launches": launches[name],
+                 "max_abs_err": max(err, e), "ms": ms, "plain_ms": pms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "shape": list(shape), "run": run}
+        if name == "fold":
+            entry["launches"] = engines_ran[name]
+            entry["launches_on_the_main_path"] = launches[name]
+        if name in PHASES:
+            # the phase calls of the main path, each word for word against
+            # its plain version, timed a phase (the launch sequence, no
+            # fetch); reported at the phase of the most rows
+            one_round = {k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "shape", "run")}
+            one_round["launches"] = engines_ran[name]
+            perr, ptimes = err, []
+            for shape in phase_shapes[name]:
+                e, kern, _ = phase_compare(torch, rk, name, shape, gen, rng)
+                perr = max(perr, e)
+                ptimes.append((shape, time_ms(torch, kern, 5)))
+            for shape, ms in ptimes:
+                say(f"time {name} phase {shape}: {ms:.4f} ms ({smi})")
+            big = max(phase_shapes[name], key=lambda sh: (
+                sum(1 << nb for nb in sh[:2] if nb >= 0), sh)
+                if name == "fold_round" else sh)
+            e, kern, plain = phase_compare(torch, rk, name, big, gen, rng)
+            ms, pms = time_ms(torch, kern, 10), time_ms(torch, plain, 1)
+            b_ms, b_by = phase_bound(name, big)
+            say(f"reported time of {name}: its largest phase in "
+                f"{LENET_FS_RUN} {big}: kernels {ms:.4f} ms a phase "
+                f"({fs_device[name]} device launches in {launches[name]} "
+                f"phases), plain {pms:.4f} ms, bound {b_ms:.6f} ms by "
+                f"{b_by} ({smi})")
+            entry.update(launches=launches[name],
+                         device_launches=fs_device[name],
+                         max_abs_err=max(perr, e), ms=ms, plain_ms=pms,
+                         bound_ms=b_ms, bound_by=b_by, shape=list(big),
+                         run=LENET_FS_RUN, one_round_form=one_round)
+        kernels.append(entry)
     say("kernels exact (tolerance 0) at every shape of their runs")
 
     lap("round kernels at their runs' shapes")
@@ -1625,10 +1882,14 @@ def main():
             d.cpu()
             prev = r
 
+    state = FiatShamirTape(b"side").state
     per_ms = time_ms(torch, per_round, 10)
     lad_ms = time_ms(torch, lambda: rk.round_ladder(A, V, rs)[0].cpu(), 10)
+    fs_ms = time_ms(torch, lambda: rk.fold_round_phase(
+        [None, (A, V)], R, 0, True, state, 0)[0].cpu(), 10)
     say(f"{R} rounds from {rows} rows, dots fetched: per round "
-        f"{per_ms:.4f} ms, one ladder {lad_ms:.4f} ms ({smi})")
+        f"{per_ms:.4f} ms, one ladder {lad_ms:.4f} ms, one phase call "
+        f"drawing its own challenges {fs_ms:.4f} ms ({smi})")
 
     lap("per round against a ladder")
     say(f"seconds by phase: {'; '.join(laps)} ({smi})")
@@ -1636,6 +1897,14 @@ def main():
     # 7. results: the lane forms' measurements of phase 3 and the
     # registers of their kernels again, where the end of the output keeps
     # them, then the kernels
+    say(json.dumps({"round_loops_s": {"phase_calls": round_s[0],
+                                      "one_round_form": one_s[0]},
+                    "device_tape_us": tape_us,
+                    "fs_fetches": fs_fetches, "fs_phases": fs_phases,
+                    "fs_device_launches": fs_device,
+                    "one_side_ms": {"per_round": per_ms, "ladder": lad_ms,
+                                    "phase_call": fs_ms},
+                    "device": smi}))
     say(json.dumps({"fp_product_ns": {str(k): v for k, v in fp_ns.items()},
                     "table_ms": {str(shape): t for shape, t in sweep.items()},
                     "ptxas": [r for r in regs

@@ -52,15 +52,15 @@ def test_wrappers_reject_bad_operands():
 
 
 def test_cuda_source_constants_match_fr():
-    """The modulus words, R^2 mod p and -p^-1 mod 2^32 hard-coded in the
-    CUDA source are those of Fr."""
+    """The modulus words, R^2, R^3 and R mod p and -p^-1 mod 2^32
+    hard-coded in the CUDA sources' Fr header are those of Fr."""
     src = (pathlib.Path(__file__).resolve().parents[1] / "zkcnn_tpu_torch"
-           / "csrc" / "round_kernels.cu").read_text()
-    body = re.search(r"__constant__ u32 P\[NW\] = \{([^}]*)\}", src).group(1)
-    words = [int(x.strip().rstrip("u"), 16) for x in body.split(",")]
-    assert sum(w << (32 * k) for k, w in enumerate(words)) == FR_P
-    body = re.search(r"__constant__ u32 R2\[NW\] = \{([^}]*)\}", src).group(1)
-    words = [int(x.strip().rstrip("u"), 16) for x in body.split(",")]
-    assert sum(w << (32 * k) for k, w in enumerate(words)) == FR.R2
+           / "csrc" / "fr_arith.cuh").read_text()
+    R = 1 << 256
+    for name, want in (("P", FR_P), ("R2", FR.R2), ("R3", R ** 3 % FR_P),
+                       ("ONE", R % FR_P)):
+        body = re.search(name + r"\[NW\] = \{([^}]*)\}", src).group(1)
+        words = [int(x.strip().rstrip("u"), 16) for x in body.split(",")]
+        assert sum(w << (32 * k) for k, w in enumerate(words)) == want, name
     pinv = int(re.search(r"PINV = (0x[0-9a-f]+)u", src).group(1), 16)
     assert (FR_P * pinv + 1) % (1 << 32) == 0

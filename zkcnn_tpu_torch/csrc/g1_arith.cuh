@@ -43,8 +43,9 @@
 // doublings a base (the chain, whose doublings are the entries d = 1, 2,
 // 4, 8) and 11 additions a window (the other digits).
 //
-// An Fr product (fr_mul, a portable loop) and the inner-product opening's
-// round term (ipa_term) serve kernel ipa_scalars.
+// The Fr product (fr_mul, fr_arith.cuh's, which the round kernels use
+// too) and the inner-product opening's round term (ipa_term) serve kernel
+// ipa_scalars.
 
 #ifndef ZKCNN_G1_ARITH_CUH
 #define ZKCNN_G1_ARITH_CUH
@@ -52,18 +53,7 @@
 #include <cstdint>
 #include <type_traits>
 
-#ifndef ZK_DEV
-#define ZK_DEV __device__
-#define ZK_DEV_NOINLINE __device__ __noinline__
-#define ZK_CONST __constant__
-#endif
-#ifndef ZK_INLINE
-#ifdef __CUDACC__
-#define ZK_INLINE __device__ __forceinline__
-#else
-#define ZK_INLINE inline
-#endif
-#endif
+#include "fr_arith.cuh"     // the macros, and the Fr product
 
 namespace g1 {
 
@@ -107,18 +97,18 @@ constexpr int NP = 12;   // words of an Fp element
 constexpr int NR = 8;    // words of an Fr scalar
 constexpr int PW = 3 * NP;  // words of a point (X, Y, Z)
 
-// The Fp modulus and -p^-1 mod 2^32; the Fr modulus and its inverse
-// likewise (for taking a scalar out of Montgomery form and for fr_mul,
-// R = 2^256).
+// The Fp modulus and -p^-1 mod 2^32.
 ZK_CONST u32 FP_MOD[NP] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u,
     0x6730d2a0u, 0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u,
     0x397fe69au, 0x1a0111eau};
 constexpr u32 FP_INV = 0xfffcfffdu;
-ZK_CONST u32 FR_MOD[NR] = {0x00000001u, 0xffffffffu, 0xfffe5bfeu,
-                           0x53bda402u, 0x09a1d805u, 0x3339d808u,
-                           0x299d7d48u, 0x73eda753u};
-constexpr u32 FR_INV = 0xffffffffu;
+
+// Fr (R = 2^256): a scalar out of Montgomery form, and the product of the
+// inner-product opening's scalars; both are fr_arith.cuh's, the round
+// kernels' own.
+using fr::fr_from_mont;
+using fr::fr_mul;
 
 struct Pt {
   u32 x[NP], y[NP], z[NP];   // Z == 0: the point at infinity
@@ -399,78 +389,6 @@ ZK_DEV_NOINLINE void pt_add(Pt* r, const Pt* p, const Pt* q) {
   fp_mul<U>(t, rr, t);
   fp_mul<U>(S1, S1, HHH);
   fp_sub(r->y, t, S1);         // Y3 = r (V - X3) - S1 HHH
-}
-
-// k R^-1 mod the Fr modulus, in place: a scalar out of Montgomery form.
-ZK_DEV inline void fr_from_mont(u32* k) {
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const u32 m = k[0] * FR_INV;
-    u64 c = ((u64)m * FR_MOD[0] + k[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < NR; ++j) {
-      u64 s = (u64)m * FR_MOD[j] + k[j] + c;
-      k[j - 1] = (u32)s;
-      c = s >> 32;
-    }
-    k[NR - 1] = (u32)c;
-  }
-  u32 d[NR];                   // the value is at most p: make it canonical
-  u64 borrow = 0;
-#pragma unroll
-  for (int j = 0; j < NR; ++j) {
-    u64 s = (u64)k[j] - FR_MOD[j] - borrow;
-    d[j] = (u32)s;
-    borrow = (s >> 32) & 1;
-  }
-  if (!borrow)
-#pragma unroll
-    for (int j = 0; j < NR; ++j) k[j] = d[j];
-}
-
-// r = a b R^-1 mod the Fr modulus (R = 2^256) for canonical Montgomery
-// words a, b: a CIOS product on 64-bit intermediates, canonical out; r
-// may alias a or b.  The inner-product opening forms two of these a
-// generator a round, so the portable loop serves (no PTX).
-ZK_DEV inline void fr_mul(u32* r, const u32* a, const u32* b) {
-  u32 t[NR + 2];
-#pragma unroll
-  for (int j = 0; j < NR + 2; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    u64 c = 0, s;
-#pragma unroll
-    for (int j = 0; j < NR; ++j) {
-      s = (u64)a[j] * b[i] + t[j] + c;
-      t[j] = (u32)s;
-      c = s >> 32;
-    }
-    s = (u64)t[NR] + c;
-    t[NR] = (u32)s;
-    t[NR + 1] = (u32)(s >> 32);
-    const u32 m = t[0] * FR_INV;
-    c = ((u64)m * FR_MOD[0] + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < NR; ++j) {
-      s = (u64)m * FR_MOD[j] + t[j] + c;
-      t[j - 1] = (u32)s;
-      c = s >> 32;
-    }
-    s = (u64)t[NR] + c;
-    t[NR - 1] = (u32)s;
-    t[NR] = t[NR + 1] + (u32)(s >> 32);
-  }
-  u32 d[NR];                   // t < 2p: one conditional subtraction
-  u64 borrow = 0;
-#pragma unroll
-  for (int j = 0; j < NR; ++j) {
-    u64 s = (u64)t[j] - FR_MOD[j] - borrow;
-    d[j] = (u32)s;
-    borrow = (s >> 32) & 1;
-  }
-  const bool take = t[NR] != 0 || !borrow;
-#pragma unroll
-  for (int j = 0; j < NR; ++j) r[j] = take ? d[j] : t[j];
 }
 
 // Term i < L of round k of the inner-product opening on the original

@@ -95,6 +95,15 @@ def load(name: str) -> ctypes.CDLL:
         _declare(lib, "zk_fold_round", I, [P, P, P, P, P, P, P, L, P, N])
         _declare(lib, "zk_fold_cubic_round", I,
                  [P, P, P, P, P, P, P, P, P, L, L, P, N])
+        _declare(lib, "zk_phase_head_words", I, [])
+        _declare(lib, "zk_fold_round_phase_scratch", L, [N, I])
+        _declare(lib, "zk_fold_round_phase", I,
+                 [P, N, P, P, P, P, P, I, I, P, N])
+        _declare(lib, "zk_fold_cubic_round_phase_scratch", L, [L, L, I])
+        _declare(lib, "zk_fold_cubic_round_phase", I,
+                 [P, P, P, P, P, P, P, L, L, I, P, N])
+        _declare(lib, "zk_fs_tape_check", I,
+                 [P, P, I, P, P, P, P, P, P, L, P])
     else:
         _declare(lib, "zk_g1_error_string", ctypes.c_char_p, [I])
         _declare(lib, "zk_g1_add", I, [P, P, P, L, P])

@@ -10,13 +10,20 @@ power-of-two hypercube, and runs one of two ways:
     round kernels (field/round_kernels.py) on the device; the dots of all
     rounds and sides come back in one transfer, and the round messages
     are formed on the host.
-  * `round(prev_r)`, then `receive(r_last)`: under Fiat-Shamir the
-    challenge r_j is drawn only after round j's message, so round j
-    first folds at r_(j-1) (`prev_r`; None in round 1) and then forms
-    its message, one `fold_round` / `fold_cubic_round` launch a side and
-    one fetch a round; `receive` makes the last fold, at the last
-    challenge, for the finalize.  A loop of `round` and `receive` gives
-    what `run_all` gives.
+  * `run_fs(n, state, counter)`: under Fiat-Shamir the challenge r_j
+    is drawn only after round j's message, so round j first folds at
+    r_(j-1) and then forms its message.  The tape lives on the card for
+    the phase (`fold_round_phase` / `fold_cubic_round_phase`): the host
+    enqueues the phase's launches without waiting, each round's message
+    is absorbed and r_j drawn on the card, the phase ends with the fold
+    at the last challenge, and one fetch brings back the messages, the
+    challenges and the tape's state and counter after the phase.
+  * `round(prev_r)`, then `receive(r_last)`: the same rounds one at a
+    time, the JAX package's per-round API: round j folds at `prev_r`
+    (None in round 1) and forms its message, one `fold_round` /
+    `fold_cubic_round` launch a side and one fetch a round; `receive`
+    makes the last fold.  A loop of `round` and `receive` gives what
+    `run_all` and `run_fs` give.
 
 Exhaustion semantics mirror the reference exactly: a side with 2^k
 entries contributes pair-product quadratics for rounds 1..k; at round
@@ -36,7 +43,8 @@ import torch
 from ..field import FR
 from ..field.params import FR_P
 from ..field.round_kernels import fold, fold_round, fold_cubic_round, \
-    round_ladder, cubic_ladder
+    round_ladder, cubic_ladder, fold_round_phase, fold_cubic_round_phase, \
+    read_phase
 from ..mle.fold import quad_from_dots
 
 FETCHES = {"rounds": 0}
@@ -59,6 +67,13 @@ def _fetch_rows(parts) -> list:
     transfer for all of them."""
     FETCHES["rounds"] += 1
     return FR.unpack_mont_host(np.asarray(torch.cat(parts).cpu()))
+
+
+def _fetch_phase(buf, n: int, k: int):
+    """One transfer of a phase buffer -> (state, counter, add_term, rs,
+    messages) as host values."""
+    FETCHES["rounds"] += 1
+    return read_phase(buf.cpu().numpy(), n, k)
 
 
 def _fold_all(r: int, *xs):
@@ -107,6 +122,7 @@ class PhaseEngine:
         self._add_dev = None if isinstance(add_term, int) else add_term
         self.add_term = add_term % FR_P if self._add_dev is None else None
         self.include_add_term = include_add_term
+        self.received = False           # the last fold is made
 
     def _add_host(self) -> int:
         if self.add_term is None:
@@ -177,12 +193,36 @@ class PhaseEngine:
     def receive(self, r: int):
         """The last fold, at the last challenge r, of every side still
         active (one `fold` launch a side); decays add_term."""
+        self.received = True
         if self.include_add_term:
             self.add_term = self._add_host() * (1 - r) % FR_P
         for s in self.sides:
             if s is not None and s.active:
                 s.A, s.V = _fold_all(r, s.A, s.V)
                 s.folds += 1
+
+    def run_fs(self, n: int, state: bytes, counter: int):
+        """All n rounds under the Fiat-Shamir tape (state, counter) and the
+        last fold, one launch sequence and one fetch (`fold_round_phase`).
+        -> (round polys as host-int 3-tuples, the challenges drawn, the
+        tape's state and counter after them)."""
+        sides = [None if s is None or s.collapsed else (s.A, s.V)
+                 for s in self.sides]
+        assert all(s is None or s.folds == 0 for s in self.sides), \
+            "run_fs starts a phase"
+        add = self._add_dev if self.add_term is None else self.add_term
+        buf, fin, keep = fold_round_phase(sides, n, add,
+                                          self.include_add_term, state,
+                                          counter)
+        state, counter, self.add_term, rs, polys = _fetch_phase(buf, n, 3)
+        del keep                        # the launches are done
+        self._add_dev = None
+        for k, s in enumerate(self.sides):
+            if sides[k] is not None:
+                s.A, s.V = fin[k, :1], fin[k, 1:]
+                s.folds, s.collapsed = s.nb, s.nb < n
+        self.received = True
+        return polys, rs, state, counter
 
     def run_all(self, rs):
         """All rounds at the known challenges rs; returns the round
@@ -246,6 +286,7 @@ class DotProdPhase1:
         self.fft_bl = fft_bl
         self.nb1 = nb1
         self.folds = 0
+        self.received = False           # the last fold is made
 
     def round(self, prev_r: Optional[int]):
         """Round j's (c0, c1, c2, c3) as host ints: m (while it has more
@@ -263,12 +304,27 @@ class DotProdPhase1:
     def receive(self, r: int):
         """The last fold, at the last challenge r: m (while it has more
         than one row), V0 and V1 in one `fold` launch."""
+        self.received = True
         xs = ([self.m] if self.m.shape[0] > 1 else []) + [self.V0, self.V1]
         out = _fold_all(r, *xs)
         if self.m.shape[0] > 1:
             self.m = out.pop(0)
         self.V0, self.V1 = out
         self.folds += 1
+
+    def run_fs(self, n: int, state: bytes, counter: int):
+        """All n rounds under the Fiat-Shamir tape and the last fold, one
+        launch sequence and one fetch (`fold_cubic_round_phase`); returns
+        as PhaseEngine.run_fs, with 4-tuples."""
+        assert self.folds == 0, "run_fs starts a phase"
+        buf, fin, keep = fold_cubic_round_phase(self.m, self.V0, self.V1, n,
+                                                state, counter)
+        state, counter, _, rs, polys = _fetch_phase(buf, n, 4)
+        del keep                        # the launches are done
+        self.m, self.V0, self.V1 = fin[:1], fin[1:2], fin[2:]
+        self.folds = n
+        self.received = True
+        return polys, rs, state, counter
 
     def run_all(self, rs):
         """All rounds at the known challenges rs as host-int 4-tuples:

@@ -17,13 +17,16 @@ Stateful dataflow preserved from the reference:
 
 The prover runs on the device its witness tensors live on.
 
-Two ways to drive it, as in the JAX package: `run_rounds_*` and the
-`_dev` finalizes run a whole phase at challenges known beforehand (the
-seeded tape's three-pass verifier); `round_quadratic(prev_r)`,
-`round_cubic(prev_r)`, `liu_round(prev_r)` and the host-int finalizes
-`finalize1`, `dotprod_finalize1`, `finalize2`, `liu_finalize` run one
-round at a time for a verifier that draws each challenge only after the
-round's message (Fiat-Shamir), accumulating `prove_time` as they go.
+Three ways to drive it: `run_rounds_*` and the `_dev` finalizes run a
+whole phase at challenges known beforehand (the seeded tape's
+three-pass verifier); for a verifier that draws each challenge only
+after the round's message, `phase_quadratic`, `phase_cubic` and
+`liu_phase` run a whole phase under the Fiat-Shamir tape on the card
+(the engines' `run_fs`), and `round_quadratic(prev_r)`,
+`round_cubic(prev_r)` and `liu_round(prev_r)` one round at a time as
+the JAX package does (any other tape that is not precomputable); the
+host-int finalizes `finalize1`, `dotprod_finalize1`, `finalize2` and
+`liu_finalize` follow either, and all of them accumulate `prove_time`.
 """
 
 import time
@@ -316,12 +319,32 @@ class Prover:
         self.proof_size += F_BYTE_SIZE * (3 + (poly[3] != 0))
         return poly
 
+    @_timed
+    def phase_quadratic(self, n: int, state: bytes, counter: int):
+        """The current quadratic phase's n rounds under the Fiat-Shamir
+        tape (state, counter) on the card, and its last fold: -> (round
+        polys, the challenges drawn, the tape's state and counter after
+        them), one fetch."""
+        out = self.phase.run_fs(n, state, counter)
+        self.proof_size += F_BYTE_SIZE * 3 * n
+        return out
+
+    @_timed
+    def phase_cubic(self, n: int, state: bytes, counter: int):
+        """As phase_quadratic, 4-tuples; a top coefficient counts only
+        when it is nonzero (reference prover.cpp:137)."""
+        out = self.phase.run_fs(n, state, counter)
+        self.proof_size += F_BYTE_SIZE * sum(3 + (p[3] != 0)
+                                             for p in out[0])
+        return out
+
     # ------------------------------------------------------------------
     # finalizes
 
     def _last_fold(self, r_all: List[int]):
-        """The per-round path's fold at the phase's last challenge."""
-        if r_all:
+        """The per-round path's fold at the phase's last challenge, unless
+        the phase ran whole (run_fs) and made it."""
+        if r_all and not self.phase.received:
             self.phase.receive(r_all[-1])
 
     @_timed
@@ -463,6 +486,8 @@ class Prover:
         poly = self.phase.round(prev_r)
         self.proof_size += F_BYTE_SIZE * 3
         return poly
+
+    liu_phase = phase_quadratic
 
     @_timed
     def liu_finalize(self, r_all: List[int]) -> int:

@@ -23,12 +23,17 @@ protocol runs in three passes:
 
 Any other tape (`FiatShamirTape`, whose draws hash every absorbed
 message) takes the per-round path, `verify_inner_layers` then
-`verify_first_layer`: the verifier drives the prover one round at a
-time, absorbs each round message and, when the tape is `interleaved`,
-draws r_j only after absorbing round j's message (the reference's draw
-order otherwise); it builds each layer's predicates right after the
-layer.  There is no transcript digest on this path: the absorbed
-messages are the transcript.
+`verify_first_layer`: the verifier absorbs each round message and, when
+the tape is `interleaved`, draws r_j only after absorbing round j's
+message (the reference's draw order otherwise); it builds each layer's
+predicates right after the layer.  Under a `FiatShamirTape` the prover
+runs each sumcheck phase whole, the tape's absorbs and draws made on the
+card from the state and counter the verifier hands it (`phase_*`), and
+the verifier then absorbs, draws and checks every round itself and
+raises if a challenge, the final state or the counter differs from the
+card's.  Any other tape drives the prover one round at a time.  There
+is no transcript digest on this path: the absorbed messages are the
+transcript.
 
 With a polynomial commitment (`pcs`, a `pcs.HyraxPCS`) the verifier sets
 its generators up from the tape before anything else, the prover commits
@@ -54,7 +59,7 @@ from .engine import _fetch_ints
 from .kernels import pred_uni, pred_bin, zero_region_scale, \
     mul_outer_flat, gr_term
 from .prover import Prover
-from .tape import Tape
+from .tape import Tape, FiatShamirTape
 
 
 def _eval_poly(coeffs, x: int) -> int:
@@ -255,11 +260,15 @@ class Verifier:
         self.vt_slow = self.vt
         return ok
 
-    def _sumcheck(self, step, rs: List[int], n: int, previous_sum: int,
-                  what: str):
+    def _sumcheck(self, step, phase, rs: List[int], n: int,
+                  previous_sum: int, what: str):
         """n rounds of one phase, message by message: prove, absorb, draw
         r_j after the absorb when the tape is interleaved (else rs holds
-        the challenges already), check.  -> (ok, claim at the point)."""
+        the challenges already), check.  Under a FiatShamirTape the prover
+        runs the phase whole (`phase`), then every round is absorbed,
+        drawn and checked here.  -> (ok, claim at the point)."""
+        if isinstance(self.tape, FiatShamirTape):
+            return self._sumcheck_phase(phase, rs, n, previous_sum, what)
         prev_r = None
         for j in range(n):
             poly = step(prev_r)
@@ -272,6 +281,32 @@ class Verifier:
                 return False, previous_sum
             prev_r = rs[j]
             previous_sum = _eval_poly(poly, prev_r)
+        return True, previous_sum
+
+    def _sumcheck_phase(self, phase, rs: List[int], n: int,
+                        previous_sum: int, what: str):
+        """The rounds of a phase that the prover ran whole under the
+        tape's state and counter: each message absorbed, r_j drawn after
+        it and held against the card's draw, the round checked; at the
+        end the tape's state and counter held against the card's."""
+        if n == 0:
+            return True, previous_sum
+        polys, drawn, state, counter = phase(n, self.tape.state,
+                                             self.tape.counter)
+        for j, poly in enumerate(polys):
+            self.tape.absorb(*poly)
+            rs.append(self.tape.field())
+            if rs[j] != drawn[j]:
+                raise RuntimeError(f"{what} bit {j}: the prover's tape drew "
+                                   f"another challenge than the verifier's")
+            if (_eval_poly(poly, 0) + _eval_poly(poly, 1)) % FR_P \
+                    != previous_sum:
+                self.log(f"FAIL {what} bit {j}")
+                return False, previous_sum
+            previous_sum = _eval_poly(poly, rs[j])
+        if (state, counter) != (self.tape.state, self.tape.counter):
+            raise RuntimeError(f"{what}: the prover's tape ends in another "
+                               f"state than the verifier's")
         return True, previous_sum
 
     def verify_inner_layers(self) -> bool:
@@ -303,12 +338,12 @@ class Verifier:
 
             if cur.ty == LayerType.DOT_PROD:
                 p.sumcheck_dotprod_init_phase1()
-                step = p.round_cubic
+                step, phase = p.round_cubic, p.phase_cubic
             else:
                 p.sumcheck_init_phase1(relu_rou)
-                step = p.round_quadratic
+                step, phase = p.round_quadratic, p.phase_quadratic
             ok, previous_sum = self._sumcheck(
-                step, self.r_u[i], cur.max_bl_u, previous_sum,
+                step, phase, self.r_u[i], cur.max_bl_u, previous_sum,
                 f"phase1 layer {i}")
             if not ok:
                 return False
@@ -330,8 +365,8 @@ class Verifier:
                     else self.tape.fields(cur.max_bl_v)
                 p.sumcheck_init_phase2()
                 ok, previous_sum = self._sumcheck(
-                    p.round_quadratic, self.r_v[i], cur.max_bl_v,
-                    previous_sum, f"phase2 layer {i}")
+                    p.round_quadratic, p.phase_quadratic, self.r_v[i],
+                    cur.max_bl_v, previous_sum, f"phase2 layer {i}")
                 if not ok:
                     return False
                 self.final_claim_v0[i], final_claim_v1 = \
@@ -380,8 +415,9 @@ class Verifier:
         previous_sum %= FR_P
 
         p.sumcheck_liu_init(sig_u, sig_v)
-        ok, previous_sum = self._sumcheck(p.liu_round, self.r_u[0],
-                                          cur.bit_length, previous_sum, "liu")
+        ok, previous_sum = self._sumcheck(p.liu_round, p.liu_phase,
+                                          self.r_u[0], cur.bit_length,
+                                          previous_sum, "liu")
         if not ok:
             return False
 
