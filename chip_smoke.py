@@ -46,9 +46,12 @@ Phases; any failure raises and the script exits non-zero:
      shared scalar; (R, N) = (1, 1), (3, 5), (2, 512) and (3, 130) (a
      row of several blocks, the last one partly filled) with a repeated
      base for the MSM on its table (py_mul at full-size scalars, the
-     plain version at 32-bit ones); the inner-product opening's round
-     scalars (ipa_scalars) against their plain version, word for word, at
-     (L, n) from (2, 2) to (1024, 64), random and p - 1;
+     plain version at 32-bit ones); a round of the inner-product opening
+     (ipa_round: the fold of b and x, the two Q-column dots, the weights
+     and the rows) against its plain version, word for word, at (L, n)
+     from (2, 2) to (4096, 4096) (at (1024, 64) and L = 4096 a thread
+     of the one block folds several pairs and forms several terms), with
+     and without a fold, random and p - 1;
   4. the three tiny models proven and verified on the card with a real
      sqrt commitment and opening (HyraxPCS): transcript digest and proof
      size equal to their 1-device pins, a wrong evaluation rejected; one
@@ -71,15 +74,20 @@ Phases; any failure raises and the script exits non-zero:
      every ladder launched, and at most one fetch per side per phase.
      With the commitment (inner-product opening): the same WS and PS,
      POLY_PS 24.8750 KB, its own pinned digest, every ladder launched,
-     g1_msm_table, g1_msm and ipa_scalars launched (at most 5 tables, the
-     base point's built once as in a fresh process; one ipa_scalars a
+     g1_msm_table, g1_msm and ipa_round launched (at most 5 tables, the
+     base point's built once as in a fresh process; one ipa_round a
      round), no g1_scalar_mul and no g1_add (the opening
-     folds no point), and no curve operation through a plain or host
-     version.  Its opening's own b, x, Q and tape then go through
+     folds no point), no curve operation through a plain or host
+     version, and no call of the plain Fr ops FR_OPS inside ipa_prove
+     (counted by wrapping them while it runs); POLY_PT split into the
+     row commitments, ipa_prove and the rest of open (its eq table and
+     row fold timed apart).  Every
+     ipa_round call of the opening is held against its plain version
+     word for word; the opening's own b, x, Q and tape then go through
      ipa_prove_by_folds (whose curve launches and shapes are G1's and
      G2's run): every L_k, R_k, b0 and the tape after must equal the
      opening's, and both openings are timed, the new one split into Q's
-     table, the MSMs, the ipa_scalars launches (and their plain version)
+     table, the MSMs, the ipa_round launches (and their plain version)
      and the rest.  Then LeNet5 built as cli/runner.py builds it, under
      FiatShamirTape(b"zkcnn-demo-17") with the inner-product commitment,
      counts reset just before the proof: the same WS, PS and POLY_PS, the
@@ -90,7 +98,9 @@ Phases; any failure raises and the script exits non-zero:
      POLY_PT and POLY_VT printed, and verify()'s wall time span by span
      (the commitment's setup, its hash-to-curve apart from its table,
      the commit, the encode-and-absorb of the commitment, the per-round
-     proof and check, the opening).  Then the same proof with its rounds
+     proof and check, the opening), its opening held as the three-pass
+     run's is (ipa_round calls, no plain Fr op, ipa_prove_by_folds).
+     Then the same proof with its rounds
      in the one-round form (round(prev_r), the host tape, a fetch a
      round): the same fingerprint, and its round loops' seconds beside
      the phase calls';
@@ -110,7 +120,8 @@ Phases; any failure raises and the script exits non-zero:
   7. the seconds each phase took, one JSON line of the Fiat-Shamir
      path's measurements (round loops of the phase calls and of the
      one-round form, the device tape's microseconds, fetches, phases and
-     device launches, one side three ways), one JSON line of phase 3's lane
+     device launches, one side three ways, the three-pass POLY_PT's
+     split), one JSON line of phase 3's lane
      measurements (each Fp product form's dependent ns; the table's chain
      on lane groups and in one thread, digits and whole, in ms, by
      shape; the registers and spills of the table's and the product's
@@ -201,8 +212,10 @@ G1_REPLACES = {"g1_add": "zkcnn_tpu/pcs/curve.py:81",         # and pdouble :58
                "g1_scalar_mul": "zkcnn_tpu/pcs/curve.py:147",
                "g1_msm_table": "zkcnn_tpu/pcs/msm.py:100",   # from :269
                "g1_msm": "zkcnn_tpu/pcs/msm.py:271",  # ipa._msm_small :45
-               # the fold of G, whose work the weights take over
-               "ipa_scalars": "zkcnn_tpu/pcs/ipa.py:60"}
+               # the opening's round: folds of b and x (:52), the dots
+               # (:94) and the fold of G (:62), whose work the weights
+               # take over
+               "ipa_round": "zkcnn_tpu/pcs/ipa.py:86"}
 FR_P = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 FP_P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
 QUAD = "zkcnn_tpu/field/pallas_round2.py:237"       # and pallas_round.py:249
@@ -264,6 +277,12 @@ TABLE_EDGES = [(3, 64), (5, 2), (7, 1), (37, 63)]
 # FiatShamirTape (no base point: hash-to-curve generators and Q)
 TABLES_THREE_PASS = 5
 TABLES_FIAT_SHAMIR = 4
+# the plain Fr ops that a round of the opening ran before ipa_round; an
+# opening on the card must call none of them
+FR_OPS = ("dot_mont", "lincomb2_scalar", "mul")
+# ipa_round's edge shapes (L, n), each with and without a fold
+IPA_EDGE = [(2, 2), (4, 2), (8, 8), (8, 4), (128, 2), (512, 512), (512, 2),
+            (1024, 64), (4096, 4096), (4096, 2048)]
 
 
 def say(msg):
@@ -1047,45 +1066,60 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
         "with a zero scalar and a repeated base")
 
 
-def ipa_scalars_inputs(torch, ipa, shape, gen, rng, fill=rand_fe):
-    """Operands of kernel ipa_scalars at (L, n) on the card (b, the
-    weights and the Q column from `fill`), as round log2(L / n) of an
-    opening lays them out (a previous challenge, p - 1 with pm1_fe,
-    unless n = L): (the kernel call, the plain call)."""
-    L, n = shape
-    b, s, q = fill(torch, n, gen), fill(torch, L, gen), fill(torch, 2, gen)
-    prev = None
-    if n < L:
-        c = FR_P - 1 if fill is pm1_fe else rng.randrange(1, FR_P)
-        prev = (c, pow(c, -1, FR_P))
-    args = (b, s, prev, q[0], q[1])
-    return (lambda: ipa.ipa_scalars(*args)), \
-        (lambda: ipa.ipa_scalars_plain(*args))
-
-
-def ipa_scalars_compare(torch, ipa, shape, gen, rng, fill=rand_fe):
-    """ipa_scalars against its plain version at (L, n), word for word;
-    raises on a mismatch.  Returns (max_abs_err, kernel_fn, plain_fn)."""
-    kern, plain = ipa_scalars_inputs(torch, ipa, shape, gen, rng, fill)
+def ipa_round_check(torch, ipa, args, what):
+    """ipa_round against its plain version on the operands args (b, x,
+    s, prev), word for word (rows, weights, folded b and x); raises on a
+    mismatch.  Returns (max_abs_err, kernel_fn, plain_fn)."""
+    kern, plain = (lambda: ipa.ipa_round(*args)), \
+        (lambda: ipa.ipa_round_plain(*args))
     got, want = kern(), plain()
     torch.cuda.synchronize()
-    err = max(max_err(torch, g, w) for g, w in zip(got, want))
-    if err or any(g.shape != w.shape for g, w in zip(got, want)):
-        raise AssertionError(f"ipa_scalars at {shape}: kernel differs from "
+    err = max(max_err(torch, g, w) for g, w in zip(got, want)) \
+        if all(g.shape == w.shape for g, w in zip(got, want)) else -1
+    if err:
+        raise AssertionError(f"ipa_round at {what}: kernel differs from "
                              f"its plain version (max abs err {err})")
     return err, kern, plain
 
 
-def ipa_scalars_bound(shape):
-    """(bound_ms, bound_by) of ipa_scalars at (L, n): b, the weights and
-    the Q column read once, the weights and the rows written once,
-    against a Montgomery product a term (two past round 0: the weight
-    too) of 128 multiplies."""
+def ipa_round_compare(torch, ipa, shape, fold, gen, rng, fill=rand_fe):
+    """ipa_round at (L, n) on the card: b and x of n words (2n where
+    fold is set, with a previous challenge: p - 1 with pm1_fe), the
+    weights from `fill` too, against its plain version (ipa_round_check)."""
     L, n = shape
-    nbytes = (n + 2 * L + 2 * (L + 1) + 2) * ROW_BYTES
-    muls = L * (1 + (n < L)) * FULL_MULS
+    m = 2 * n if fold else n
+    b, x, s = fill(torch, m, gen), fill(torch, m, gen), fill(torch, L, gen)
+    prev = None
+    if fold:
+        c = FR_P - 1 if fill is pm1_fe else rng.randrange(1, FR_P)
+        prev = (c, pow(c, -1, FR_P))
+    return ipa_round_check(torch, ipa, (b, x, s, prev),
+                           f"{shape}, fold {fold}")
+
+
+def ipa_round_shape(args):
+    """(L, n) and whether it folds, of ipa_round's operands (b, x, s,
+    prev)."""
+    b, _, s, prev = args
+    n = b.shape[0] // 2 if prev is not None else b.shape[0]
+    return (s.shape[0], n), prev is not None
+
+
+def ipa_round_bound(shape, fold):
+    """(bound_ms, bound_by) of ipa_round at (L, n): b and x (2n words
+    each with a fold, else n) and the weights read once, the rows
+    written once and, with a fold, the folded b and x and the weights
+    written once, against its Fr
+    products at 128 multiplies each: the fold's four a term (with a
+    fold), the dots' n, the weights' L (with a fold) and the rows' L.
+    Without a fold b, x and the weights are not written: they stay."""
+    L, n = shape
+    m = 2 * n if fold else n
+    nbytes = (2 * m + L + 2 * (L + 1) + ((2 * n + L) if fold else 0)) \
+        * ROW_BYTES
+    products = (4 * n + L if fold else 0) + n + L
     by_bytes = nbytes / MEM_BYTES_S * 1e3
-    by_ops = muls / INT32_MULS_S * 1e3
+    by_ops = products * FULL_MULS / INT32_MULS_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -1110,20 +1144,92 @@ def table_shapes(torch, curve, msm_mod, shapes, gen):
         f"elements, at {shapes}")
 
 
-def capture_opening(hyrax):
+def capture_opening(torch, hyrax, ipa, FR):
     """Wraps hyrax.ipa_prove so that the openings that follow keep their
     inputs: returns the dict the last one fills (b, x, the generators'
-    FixedBaseMSM, Q, t and a clone of the tape as the rounds start) and a
-    function that undoes the wrap."""
-    seen, real = {}, hyrax.ipa_prove
+    FixedBaseMSM, Q, t and a clone of the tape as the rounds start; the
+    operands of its ipa_round calls; its calls of the plain Fr ops
+    FR_OPS, counted by wrapping them while it runs; its seconds, the
+    device finished) and a function that undoes the wrap."""
+    seen, real, real_round = {}, hyrax.ipa_prove, ipa.ipa_round
+
+    def counted(name):
+        fn = getattr(FR, name)
+
+        def call(*args, **kw):
+            seen["fr_calls"][name] += 1
+            return fn(*args, **kw)
+        return call
+
+    def keep_round(*args):
+        seen["rounds"].append(args)
+        return real_round(*args)
 
     def run(b, x, gen_msm, Q, t, tape):
         seen.update(b=b.clone(), x=x.clone(), gen_msm=gen_msm, Q=Q.clone(),
-                    t=t, tape=tape.clone())
-        return real(b, x, gen_msm, Q, t, tape)
+                    t=t, tape=tape.clone(), rounds=[],
+                    fr_calls={k: 0 for k in FR_OPS})
+        ipa.ipa_round = keep_round
+        for k in FR_OPS:
+            setattr(FR, k, counted(k))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return real(b, x, gen_msm, Q, t, tape)
+        finally:
+            torch.cuda.synchronize()
+            seen["ipa_s"] = time.perf_counter() - t0
+            ipa.ipa_round = real_round
+            for k in FR_OPS:
+                delattr(FR, k)
 
     hyrax.ipa_prove = run
     return seen, lambda: setattr(hyrax, "ipa_prove", real)
+
+
+def opening_fr_check(seen, run):
+    """The opening of `run` made no plain Fr op call and launched
+    ipa_round once a round; raises otherwise."""
+    rounds = seen["b"].shape[0].bit_length() - 1
+    if any(seen["fr_calls"].values()) or len(seen["rounds"]) != rounds:
+        raise AssertionError(f"{run}: the opening called {seen['fr_calls']} "
+                             f"and ipa_round {len(seen['rounds'])} times for "
+                             f"{rounds} rounds")
+    say(f"{run}: ipa_prove made no plain Fr op call ({seen['fr_calls']}) "
+        f"and {rounds} ipa_round calls in {seen['ipa_s']:.4f} s")
+
+
+def poly_pt_split(torch, hyrax, FR, opened, res, seen, smi):
+    """POLY_PT of a LeNet run with the commitment, in its parts: the row
+    commitments and ipa_prove, as the run timed them, and the rest of
+    open (POLY_PT less those two: its eq table of r_hi, its row fold,
+    `FR.dot_mont` over the matrix, and whatever else open does); the eq
+    table and the fold then timed alone on the run's own operands, and
+    eq_lo's table (outside POLY_PT) beside them."""
+    pcs, val0, r = (opened[k] for k in ("pcs", "val0", "r"))
+    dev = pcs.device
+    eq_hi = hyrax.beta_table(r[pcs.l_col:], 1, dev)
+    mat = pcs._matrix(val0)
+    part = {
+        "commit_s": res["poly_commit_s"], "ipa_prove_s": seen["ipa_s"],
+        "eq_hi_ms": time_ms(torch, lambda: hyrax.beta_table(
+            r[pcs.l_col:], 1, dev), 5),
+        "row_fold_ms": time_ms(torch, lambda: FR.dot_mont(
+            mat, eq_hi[:, None, :], axis=0), 5),
+        "eq_lo_ms": time_ms(torch, lambda: hyrax.beta_table(
+            r[:pcs.l_col], 1, dev), 5)}
+    part["open_rest_s"] = res["poly_pt"] - part["commit_s"] \
+        - part["ipa_prove_s"]
+    say(f"{LENET_PCS_RUN}: POLY_PT {res['poly_pt']:.4f} s = the row "
+        f"commitments {part['commit_s']:.4f} s + ipa_prove "
+        f"{part['ipa_prove_s']:.4f} s + the rest of open (not timed "
+        f"itself: POLY_PT less the two) {part['open_rest_s']:.4f} s; "
+        f"measured apart on the run's operands: eq table of r_hi "
+        f"{part['eq_hi_ms']:.4f} ms, row fold over {tuple(mat.shape[:2])} "
+        f"{part['row_fold_ms']:.4f} ms, "
+        f"eq table of r_lo (outside POLY_PT) {part['eq_lo_ms']:.4f} ms "
+        f"({smi})")
+    return part
 
 
 def wall_ms(torch, fn) -> float:
@@ -1139,14 +1245,21 @@ def wall_ms(torch, fn) -> float:
 
 def opening_checks(torch, ipa, curve, msm_mod, seen, smi, run):
     """The captured opening of the LeNet run `run` again, on its own b,
-    x, Q and tape:
-    ipa_prove_by_folds (its curve launches and shapes counted alone) held
-    against ipa_prove, every L_k and R_k as group elements and b0, and
-    the tapes after; both timed, a call each in turns, the new one split
-    into Q's table, the MSMs on [G; Q], the ipa_scalars launches and the
-    rest.  Returns the by-folds run's (launches, shapes)."""
+    x, Q and tape: every ipa_round call of the run against its plain
+    version, word for word; ipa_prove_by_folds (its curve launches and
+    shapes counted alone) held against ipa_prove, every L_k and R_k as
+    group elements and b0, and the tapes after; both timed, a call each
+    in turns, the new one split into Q's table, the MSMs on [G; Q], the
+    ipa_round launches and the rest.  Returns the by-folds run's
+    (launches, shapes) and the rounds' largest error."""
     b, x, gen_msm, Q, t = (seen[k] for k in ("b", "x", "gen_msm", "Q", "t"))
     G = gen_msm.points
+    err = 0
+    for k, args in enumerate(seen["rounds"]):
+        err = max(err, ipa_round_check(torch, ipa, args,
+                                       f"round {k} of {run}")[0])
+    say(f"{run}: its {len(seen['rounds'])} ipa_round calls equal the plain "
+        f"version word for word (rows, weights, folded b and x)")
     torch.cuda.synchronize()
     curve.reset_launches()
     ftape = seen["tape"].clone()
@@ -1169,25 +1282,20 @@ def opening_checks(torch, ipa, curve, msm_mod, seen, smi, run):
     say(f"{run}: the opening on the setup's table equals ipa_prove_by_folds "
         f"at L = {b.shape[0]}: {len(new.Ls)} L_k and R_k as group elements, "
         f"b0, the tape after")
-    # the MSMs and the ipa_scalars launches of one run, each timed again
+    # the MSMs of one run and the run's ipa_round calls, each timed again
     # on its own operands (host work included)
-    msms, scalars = [], []
-    real_msm, real_scalars = msm_mod.FixedBaseMSM.compute, ipa.ipa_scalars
+    msms, rounds = [], seen["rounds"]
+    real_msm = msm_mod.FixedBaseMSM.compute
 
     def keep_msm(self, rows):
         msms.append((self, rows))
         return real_msm(self, rows)
 
-    def keep_scalars(*args):
-        scalars.append(args)
-        return real_scalars(*args)
-
-    msm_mod.FixedBaseMSM.compute, ipa.ipa_scalars = keep_msm, keep_scalars
+    msm_mod.FixedBaseMSM.compute = keep_msm
     try:
         ipa.ipa_prove(b, x, gen_msm, Q, t, seen["tape"].clone())
     finally:
         msm_mod.FixedBaseMSM.compute = real_msm
-        ipa.ipa_scalars = real_scalars
     # the two openings in turns (new, folds, folds, new, ...), a call each
     calls = {"new": lambda: ipa.ipa_prove(b, x, gen_msm, Q, t,
                                           seen["tape"].clone()),
@@ -1203,25 +1311,24 @@ def opening_checks(torch, ipa, curve, msm_mod, seen, smi, run):
         "q_table": time_ms(torch, lambda: gen_msm.extend(Q[None]), 5),
         "msms": sum(time_ms(torch, lambda: real_msm(m, rows), 5)
                     for m, rows in msms),
-        "scalars": sum(time_ms(torch, lambda: real_scalars(*args), 5)
-                       for args in scalars),
-        "plain_scalars": sum(time_ms(
-            torch, lambda: ipa.ipa_scalars_plain(*args), 5)
-            for args in scalars)}
+        "rounds": sum(time_ms(torch, lambda: ipa.ipa_round(*args), 5)
+                      for args in rounds),
+        "plain_rounds": sum(time_ms(
+            torch, lambda: ipa.ipa_round_plain(*args), 5)
+            for args in rounds)}
     times["rest"] = times["new"] - times["q_table"] - times["msms"] \
-        - times["scalars"]
+        - times["rounds"]
     say(f"{run}: the opening at L = {b.shape[0]} (a call, the device "
         f"finished): on the setup's table {times['new']:.4f} ms = Q's table "
         f"and the join {times['q_table']:.4f} ms + {len(msms)} MSMs on [G; Q] "
-        f"{times['msms']:.4f} ms + the scalar prep: {len(scalars)} "
-        f"ipa_scalars {times['scalars']:.4f} ms (their plain version "
-        f"{times['plain_scalars']:.4f} ms) and the rest (the dots and folds "
-        f"of b and x on the plain Fr ops, the tape, b0's fetch) "
-        f"{times['rest']:.4f} ms; by folds {times['folds']:.4f} ms (medians "
-        f"of {OPENING_PAIRS} calls each in turns; on the table "
-        f"{[round(v, 4) for v in turns['new']]}, by folds "
-        f"{[round(v, 4) for v in turns['folds']]}) ({smi})")
-    return fold_run
+        f"{times['msms']:.4f} ms + {len(rounds)} ipa_round "
+        f"{times['rounds']:.4f} ms (their plain version "
+        f"{times['plain_rounds']:.4f} ms) + the rest (the tape and its "
+        f"draws, b0's fetch) {times['rest']:.4f} ms; by folds "
+        f"{times['folds']:.4f} ms (medians of {OPENING_PAIRS} calls each in "
+        f"turns; on the table {[round(v, 4) for v in turns['new']]}, by "
+        f"folds {[round(v, 4) for v in turns['folds']]}) ({smi})")
+    return fold_run, err
 
 
 def main():
@@ -1299,13 +1406,14 @@ def main():
     lap("Fp product")
     g1_checks(torch, curve, msm_mod, FR, gen, rng)
     sweep = table_sweep(torch, curve, gen, smi)
-    ipa_edge = [(2, 2), (4, 2), (8, 8), (8, 4), (128, 2), (512, 512),
-                (512, 256), (512, 2), (1024, 64)]
-    for shape in ipa_edge:
-        for fill in (rand_fe, pm1_fe):
-            ipa_scalars_compare(torch, ipa, shape, gen, rng, fill)
-    say(f"ipa_scalars exact (tolerance 0; random rows and rows of p - 1) "
-        f"at (L, n) = {ipa_edge}")
+    ipa_err = 0
+    for shape in IPA_EDGE:
+        for fold in (False, True):
+            for fill in (rand_fe, pm1_fe):
+                ipa_err = max(ipa_err, ipa_round_compare(
+                    torch, ipa, shape, fold, gen, rng, fill)[0])
+    say(f"ipa_round exact (tolerance 0; random rows and rows of p - 1, "
+        f"with and without a fold) at (L, n) = {IPA_EDGE}")
     lap("curve kernels' checks")
 
     from zkcnn_tpu_torch.nn import random_source, NeuralNetwork
@@ -1476,13 +1584,24 @@ def main():
     # LeNet again with the commitment (inner-product opening); the counts
     # of the curve kernels and of the ladders cover exactly this run, and
     # the opening keeps its inputs for the fold-based opening below
-    seen, uncapture = capture_opening(hyrax)
+    pcs_seen, uncapture = capture_opening(torch, hyrax, ipa, FR)
+    opened, real_open = {}, hyrax.HyraxPCS.open
+
+    def keep_open(self, val0, r, eval_in, tape):
+        opened.update(pcs=self, val0=val0, r=list(r))
+        return real_open(self, val0, r, eval_in, tape)
+
+    hyrax.HyraxPCS.open = keep_open
     curve.BASE_TABLES.clear()          # the base point's table as a fresh
     rk.reset_launches()                # process builds it
     curve.reset_launches()
-    res = demo_lenet.main(["--synthetic", "--seed", "17", "--pic-cnt", "1"])
-    torch.cuda.synchronize()
-    uncapture()
+    try:
+        res = demo_lenet.main(["--synthetic", "--seed", "17",
+                               "--pic-cnt", "1"])
+        torch.cuda.synchronize()
+    finally:
+        uncapture()
+        hyrax.HyraxPCS.open = real_open
     g1_launches = dict(curve.LAUNCHES)
     g1_shapes = {k: sorted(curve.SHAPES[k]) for k in curve.NAMES}
     g1_plain = dict(curve.PLAIN_CALLS)
@@ -1507,12 +1626,12 @@ def main():
     if res["digest"] != PINNED_LENET_PCS["digest"]:
         raise AssertionError(f"lenet digest {res['digest']} differs from "
                              f"the CPU pin {PINNED_LENET_PCS['digest']}")
-    # the opening runs on the setup's table: a round is one ipa_scalars
+    # the opening runs on the setup's table: a round is one ipa_round
     # and one g1_msm launch, no fold of G and no table of its own; the
     # tables are the setup's, the base point's (the tape's generators and
     # Q's in open and in verify draw on it), Q's opening table and the
     # verifier's two
-    rounds_ipa = len(seen["b"]).bit_length() - 1
+    rounds_ipa = len(pcs_seen["b"]).bit_length() - 1
     for name in curve.NAMES:
         if name not in FOLD_KERNELS and g1_launches[name] <= 0:
             raise AssertionError(f"lenet never launched kernel {name}")
@@ -1522,11 +1641,11 @@ def main():
                                  f"{g1_launches[name]} times: the opening "
                                  f"should fold no point")
     if g1_launches["g1_msm_table"] > TABLES_THREE_PASS or \
-            g1_launches["ipa_scalars"] != rounds_ipa:
+            g1_launches["ipa_round"] != rounds_ipa:
         raise AssertionError(f"lenet with the commitment: "
                              f"{g1_launches['g1_msm_table']} tables (at most "
                              f"{TABLES_THREE_PASS}), "
-                             f"{g1_launches['ipa_scalars']} ipa_scalars "
+                             f"{g1_launches['ipa_round']} ipa_round "
                              f"launches for {rounds_ipa} rounds")
     if any(g1_plain.values()):
         raise AssertionError(f"curve operations went past the kernels: "
@@ -1535,13 +1654,17 @@ def main():
         if rk.LAUNCHES[name] <= 0:
             raise AssertionError(f"lenet with the commitment never launched "
                                  f"kernel {name}")
+    opening_fr_check(pcs_seen, LENET_PCS_RUN)
+    poly_split = poly_pt_split(torch, hyrax, FR, opened, res, pcs_seen, smi)
+    del opened
 
     lap("lenet with the commitment")
 
     # the same opening by folds, on its own inputs: the proof must not
     # change; its curve launches and shapes are G1's and G2's run
-    fold_run = opening_checks(torch, ipa, curve, msm_mod, seen, smi,
-                              LENET_PCS_RUN)
+    fold_run, e = opening_checks(torch, ipa, curve, msm_mod, pcs_seen, smi,
+                                 LENET_PCS_RUN)
+    ipa_err = max(ipa_err, e)
     say(f"{FOLDS_RUN}, curve wrapper calls that launched: {fold_run[0]}")
     for name in FOLD_KERNELS:
         if fold_run[0][name] <= 0:
@@ -1596,7 +1719,7 @@ def main():
     for obj, name in ((pcs, "setup"), (pcs, "commit"),
                       (v, "_verify_per_round"), (v, "verify_input")):
         spanned(obj, name)
-    fs_seen, uncapture = capture_opening(hyrax)
+    fs_seen, uncapture = capture_opening(torch, hyrax, ipa, FR)
     torch.cuda.synchronize()
     rk.reset_launches()
     curve.reset_launches()
@@ -1668,7 +1791,9 @@ def main():
 
     # its opening against the fold-based one too: under FiatShamirTape a
     # round's absorb of L_k and R_k waits for the device
-    opening_checks(torch, ipa, curve, msm_mod, fs_seen, smi, LENET_FS_RUN)
+    opening_fr_check(fs_seen, LENET_FS_RUN)
+    ipa_err = max(ipa_err, opening_checks(torch, ipa, curve, msm_mod,
+                                          fs_seen, smi, LENET_FS_RUN)[1])
     del p, v
 
     # the same proof with its rounds in the one-round form (round(prev_r),
@@ -1786,34 +1911,41 @@ def main():
     # as group elements: against the plain version on 32-bit scalars (it
     # takes seconds a shape), and at the largest shape on full-size
     # scalars too (one call of the plain version: about a minute);
-    # ipa_scalars word for word
+    # ipa_round word for word
     for name in curve.NAMES:
         run, seen_shapes, launched = LENET_PCS_RUN, g1_shapes, g1_launches
         if name in FOLD_KERNELS:
             run, seen_shapes, launched = FOLDS_RUN, fold_run[1], fold_run[0]
         say(f"shapes of {name} in its run ({run}): {seen_shapes[name]}")
         shape = max(seen_shapes[name])
-        if name == "ipa_scalars":
-            err = 0
-            for sh in seen_shapes[name]:
-                e, kern, _ = ipa_scalars_compare(torch, ipa, sh, gen, rng)
-                err = max(err, e)
-                say(f"time {name} {sh}: kernel {time_ms(torch, kern, 20):.4f} "
-                    f"ms ({smi})")
-            e, kern, plain = ipa_scalars_compare(torch, ipa, shape, gen, rng)
-            err = max(err, e)
+        if name == "ipa_round":
+            # the rounds of the run's own opening, each timed on its own
+            # operands; reported at round 0, the largest (L, L)
+            per = []
+            for args in pcs_seen["rounds"]:
+                _, kern, _ = ipa_round_check(torch, ipa, args, run)
+                per.append((ipa_round_shape(args), time_ms(torch, kern, 20)))
+            for (sh, fold), ms in per:
+                say(f"time {name} {sh}, fold {fold}: kernel {ms:.4f} ms "
+                    f"({smi})")
+            _, kern, plain = ipa_round_check(torch, ipa,
+                                             pcs_seen["rounds"][0], run)
             ms, pms = time_ms(torch, kern, 20), time_ms(torch, plain, 5)
-            b_ms, b_by = ipa_scalars_bound(shape)
+            b_ms, b_by = ipa_round_bound(shape, False)
             kernels.append({"name": name, "route": "cuda",
                             "source": G1_SOURCE,
                             "replaces": G1_REPLACES[name],
-                            "launches": launched[name], "max_abs_err": err,
-                            "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                            "launches": launched[name],
+                            "max_abs_err": ipa_err, "ms": ms,
+                            "plain_ms": pms, "bound_ms": b_ms,
                             "bound_by": b_by, "library_ms": None,
-                            "shape": list(shape), "run": run})
+                            "shape": list(shape), "run": run,
+                            "ms_all_rounds": sum(t for _, t in per)})
             say(f"reported time of {name}: the largest shape of its run "
-                f"({run}) {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                f"bound {b_ms:.6f} ms by {b_by} ({smi})")
+                f"({run}) {shape}, round 0 (no fold): kernel {ms:.4f} ms, "
+                f"plain {pms:.4f} ms, bound {b_ms:.6f} ms by {b_by}; its "
+                f"{len(per)} rounds {sum(t for _, t in per):.4f} ms "
+                f"({smi})")
             continue
         if name == "g1_msm_table":
             table_shapes(torch, curve, msm_mod,
@@ -1863,7 +1995,7 @@ def main():
             f"({smi})")
         kernels.append(entry)
     say("curve kernels equal to their plain versions as group elements "
-        "(tolerance 0 after normalising Z; ipa_scalars word for word) at "
+        "(tolerance 0 after normalising Z; ipa_round word for word) at "
         "every shape of their run")
 
     lap("curve kernels at their run's shapes")
@@ -1904,6 +2036,7 @@ def main():
                     "fs_device_launches": fs_device,
                     "one_side_ms": {"per_round": per_ms, "ladder": lad_ms,
                                     "phase_call": fs_ms},
+                    "poly_pt_split": poly_split,
                     "device": smi}))
     say(json.dumps({"fp_product_ns": {str(k): v for k, v in fp_ns.items()},
                     "table_ms": {str(shape): t for shape, t in sweep.items()},

@@ -98,17 +98,19 @@ def test_opening_equals_the_folds_and_the_oracle():
 
 
 def test_round_rows_against_folded_generators_and_final_weights():
-    """logn = 3: at every round the two rows over the original generators
-    and Q (`ipa_scalars`, its plain version on the CPU) equal <b_lo,
-    G^(k)_hi> + cl Q and <b_hi, G^(k)_lo> + cr Q on generators folded in
-    Python integers, and the weights after the last round are
-    ipa_verify's weight vector."""
+    """logn = 3: at every round the folded b and x (`ipa_round`, its plain
+    version on the CPU) equal b and x folded in Python integers, and its
+    two rows over the original generators and Q equal <b_lo, G^(k)_hi> +
+    cl Q and <b_hi, G^(k)_lo> + cr Q on generators folded in Python
+    integers, with cl = <b_lo, x_hi> and cr = <b_hi, x_lo>; the weights
+    after the last round are ipa_verify's weight vector."""
     L = 8
-    gens, Q, b_int, x_int = _instance(7, L)
-    b, x = _mont(b_int), _mont(x_int)
+    gens, Q, bi, xi = _instance(7, L)
+    b, x = _mont(bi), _mont(xi)
     s = FR.const(1, "cpu").expand(L, FR.n)
     Gk, tape, chals, prev = list(gens), Tape(b"rows"), [], None
     bases = gens + [Q]
+    dot = lambda u, v: sum(p * q for p, q in zip(u, v)) % FR_P  # noqa
 
     def row_msm(row):
         acc = None
@@ -116,16 +118,14 @@ def test_round_rows_against_folded_generators_and_final_weights():
             acc = curve.py_add(acc, curve.py_mul(P, k))
         return acc
 
-    while b.shape[0] > 1:
-        n = b.shape[0]
-        h = n // 2
-        cl = FR.dot_mont(b[:h], x[h:])
-        cr = FR.dot_mont(b[h:], x[:h])
-        rows, s = ipa.ipa_scalars(b, s, prev, cl, cr)
+    for _ in range(3):
+        rows, s, b, x = ipa.ipa_round(b, x, s, prev)
         assert rows.shape == (2, L + 1, FR.n)
-        bi = FR.unpack_mont_host(b.numpy())
-        want = [curve.py_mul(Q, FR.from_mont_host(c.numpy()))
-                for c in (cl, cr)]
+        assert FR.unpack_mont_host(b.numpy()) == bi
+        assert FR.unpack_mont_host(x.numpy()) == xi
+        h = len(bi) // 2
+        want = [curve.py_mul(Q, dot(bi[:h], xi[h:])),
+                curve.py_mul(Q, dot(bi[h:], xi[:h]))]
         for i in range(h):
             want[0] = curve.py_add(want[0], curve.py_mul(Gk[h + i], bi[i]))
             want[1] = curve.py_add(want[1], curve.py_mul(Gk[i], bi[h + i]))
@@ -134,8 +134,8 @@ def test_round_rows_against_folded_generators_and_final_weights():
         cinv = pow(c, -1, FR_P)
         chals.append((c, cinv))
         prev = (c, cinv)
-        b = ipa._fold_scalars(b, c, cinv)
-        x = ipa._fold_scalars(x, cinv, c)
+        bi = [(c * lo + cinv * hi) % FR_P for lo, hi in zip(bi[:h], bi[h:])]
+        xi = [(cinv * lo + c * hi) % FR_P for lo, hi in zip(xi[:h], xi[h:])]
         Gk = [curve.py_add(curve.py_mul(lo, cinv), curve.py_mul(hi, c))
               for lo, hi in zip(Gk[:h], Gk[h:])]
     s = ipa._reweigh(s, 2, *prev)           # the last round's challenge

@@ -143,7 +143,8 @@ def test_cuda_arithmetic_built_for_the_host_matches_python_ints(tmp_path):
     the complete point addition (every alias of the result) and the
     double-and-add loop, as the kernels run them, against Python ints;
     the Fr product likewise, and the inner-product opening's round terms
-    (ipa_term) against ipa_scalars_plain, word for word."""
+    (ipa_term) against the rows and weights of ipa_round_plain, word for
+    word."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the CUDA arithmetic for the host")
@@ -191,8 +192,8 @@ def test_cuda_arithmetic_built_for_the_host_matches_python_ints(tmp_path):
             assert curve.to_affine_host(r) == \
                 [curve.py_mul(ps[7], k & ((1 << nbits) - 1))]
 
-    # the Fr product, and the inner-product opening's round terms against
-    # their plain version (the Q column, which the kernel copies, aside)
+    # the Fr product, and the inner-product opening's round terms on the
+    # folded b against the plain round (the Q column aside)
     frs = [0, 1, 2, FR_P - 1, FR_P - 2] + \
         [int.from_bytes(rng.bytes(32), "little") % FR_P for _ in range(30)]
     for x in frs:
@@ -204,12 +205,12 @@ def test_cuda_arithmetic_built_for_the_host_matches_python_ints(tmp_path):
             assert FR.from_mont_host(r) == x * y % FR_P
     for L, n, prev in ((2, 2, None), (8, 8, None), (8, 4, (frs[5], frs[6])),
                        (16, 2, (FR_P - 1, FR_P - 1))):
-        b = torch.from_numpy(FR.pack_mont_host(frs[:n]))
+        b_in = torch.from_numpy(FR.pack_mont_host(frs[:2 * n if prev else n]))
         s_in = torch.from_numpy(FR.pack_mont_host(frs[-L:]))
-        cl, cr = b[0], b[-1]
-        want_rows, want_s = ipa.ipa_scalars_plain(b, s_in, prev, cl, cr)
+        want_rows, want_s, b, _ = ipa.ipa_round_plain(b_in, b_in.flip(0),
+                                                      s_in, prev)
         rows = np.zeros((2, L + 1, 8), np.int32)
-        rows[:, L] = [cl.numpy(), cr.numpy()]
+        rows[:, L] = want_rows[:, L].numpy()
         s_out = np.zeros((L, 8), np.int32)
         chal = None if prev is None else ptr(FR.pack_mont_host(prev))
         lib.h_ipa_terms(ptr(b.numpy()), ptr(s_in.numpy()), ptr(s_out), chal,

@@ -43,9 +43,14 @@
 // doublings a base (the chain, whose doublings are the entries d = 1, 2,
 // 4, 8) and 11 additions a window (the other digits).
 //
-// The Fr product (fr_mul, fr_arith.cuh's, which the round kernels use
-// too) and the inner-product opening's round term (ipa_term) serve kernel
-// ipa_scalars.
+// The Fr product and sum (fr_mul, add_mod: fr_arith.cuh's, which the
+// round kernels use too) serve kernel ipa_round, a round of the
+// inner-product opening in one block: the fold of b and x and this
+// thread's share of the two Q-column dots (ipa_fold_dots), a tree of
+// modular sums over the block's threads (ipa_dot_step), then the round's
+// weights and rows (ipa_rows, a term each: ipa_term).  Each takes the
+// thread's index and the block's size, so a host compiler runs a block by
+// looping over its threads between the steps.
 
 #ifndef ZKCNN_G1_ARITH_CUH
 #define ZKCNN_G1_ARITH_CUH
@@ -107,6 +112,7 @@ constexpr u32 FP_INV = 0xfffcfffdu;
 // Fr (R = 2^256): a scalar out of Montgomery form, and the product of the
 // inner-product opening's scalars; both are fr_arith.cuh's, the round
 // kernels' own.
+using fr::add_mod;
 using fr::fr_from_mont;
 using fr::fr_mul;
 
@@ -391,14 +397,71 @@ ZK_DEV_NOINLINE void pt_add(Pt* r, const Pt* p, const Pt* q) {
   fp_sub(r->y, t, S1);         // Y3 = r (V - X3) - S1 HHH
 }
 
-// Term i < L of round k of the inner-product opening on the original
-// generators (zkcnn_tpu_torch/pcs/ipa.py): n = n_k (a power of two, 2 <=
-// n <= L) terms are left.  Its weight s_i takes the previous round's
+// Round k of the inner-product opening on the original generators
+// (zkcnn_tpu_torch/pcs/ipa.py), in one block of T threads; n = n_k (a
+// power of two, 2 <= n <= L) terms are left after the round's fold.
+//
+// Thread t of T, first step: where c (the previous round's challenge
+// c[0..7], its inverse c[8..15]) is given, b and x hold 2n words and fold
+// to b'_j = c b_j + c^-1 b_(n+j) and x'_j = c^-1 x_j + c x_(n+j) (the
+// roles swap for x), which the thread writes to b_out, x_out (n words
+// each) at the indices j and j + n/2 of its pairs j = t, t + T, ... < n/2;
+// in round 0 (c null) b' = b and x' = x, and nothing is written.  It sums
+// over its pairs cl = <b'_lo, x'_hi> and cr = <b'_hi, x'_lo> (sums of
+// Montgomery products, FR.dot_mont's value) into cl, cr [8].  All words
+// are canonical Montgomery residues.
+ZK_DEV inline void ipa_fold_dots(const u32* b, const u32* x, const u32* c,
+                                 u32* b_out, u32* x_out, long long n, int t,
+                                 int T, u32* cl, u32* cr) {
+  const long long h = n >> 1;
+  fr::set_zero(cl);
+  fr::set_zero(cr);
+  for (long long j = t; j < h; j += T) {
+    u32 bb[2][NR], xx[2][NR], u[NR], v[NR];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const long long i = j + e * h;
+      if (c) {
+        fr_mul(u, b + i * NR, c);
+        fr_mul(v, b + (n + i) * NR, c + NR);
+        add_mod(bb[e], u, v);
+        fr_mul(u, x + i * NR, c + NR);
+        fr_mul(v, x + (n + i) * NR, c);
+        add_mod(xx[e], u, v);
+        fr::copy(b_out + i * NR, bb[e]);
+        fr::copy(x_out + i * NR, xx[e]);
+      } else {
+        fr::copy(bb[e], b + i * NR);
+        fr::copy(xx[e], x + i * NR);
+      }
+    }
+    fr_mul(u, bb[0], xx[1]);
+    add_mod(cl, cl, u);
+    fr_mul(u, bb[1], xx[0]);
+    add_mod(cr, cr, u);
+  }
+}
+
+// One level of the block's tree of the two dots: thread t < step adds the
+// sums of thread t + step to its own.  sums: [2, T, 8], cl's partial sums
+// then cr's; after the levels step = T/2, ..., 1 (T a power of two) the
+// dots are sums[0] and sums[T].
+ZK_DEV inline void ipa_dot_step(u32* sums, int T, int t, int step) {
+  if (t >= step) return;
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    u32* a = sums + ((long long)d * T + t) * NR;
+    add_mod(a, a, a + (long long)step * NR);
+  }
+}
+
+// Term i < L of round k: its weight s_i takes the previous round's
 // challenge, c[0..7] where the bit n of i is set, else its inverse
-// c[8..15] (c null in round 0: s_out = s_in); then b at the partner index
-// (i mod n) XOR n/2, times s_i, goes to row 0 where the bit n/2 of i is
-// set, else to row 1, and a zero to the other row.  b: [n, 8]; s_in,
-// s_out: [L, 8]; rows: [2, L + 1, 8]; all Montgomery words.
+// c[8..15] (c null in round 0: s_i as given), and goes to s_out unless
+// s_out is null; then b' at the partner index (i mod n) XOR n/2, times
+// s_i, goes to row 0 where the bit n/2 of i is set, else to row 1, and a
+// zero to the other row.  b: b' [n, 8]; s_in, s_out: [L, 8]; rows:
+// [2, L + 1, 8]; all Montgomery words.
 ZK_DEV inline void ipa_term(const u32* b, const u32* s_in, u32* s_out,
                             const u32* c, u32* rows, long long i,
                             long long L, long long n) {
@@ -408,11 +471,9 @@ ZK_DEV inline void ipa_term(const u32* b, const u32* s_in, u32* s_out,
   if (c) fr_mul(s, s, c + ((i & n) ? 0 : NR));
   const long long h = n >> 1;
   const long long p = (i & (n - 1)) ^ h;
+  if (s_out) fr::copy(s_out + i * NR, s);
 #pragma unroll
-  for (int j = 0; j < NR; ++j) {
-    s_out[i * NR + j] = s[j];
-    x[j] = b[p * NR + j];
-  }
+  for (int j = 0; j < NR; ++j) x[j] = b[p * NR + j];
   fr_mul(x, x, s);
   const bool hi = (i & h) != 0;
   u32* on = rows + ((hi ? 0 : L + 1) + i) * NR;
@@ -421,6 +482,21 @@ ZK_DEV inline void ipa_term(const u32* b, const u32* s_in, u32* s_out,
   for (int j = 0; j < NR; ++j) {
     on[j] = x[j];
     off[j] = 0;
+  }
+}
+
+// Thread t of T, last step, once b' is written and the dots summed: the
+// terms i = t, t + T, ... < L (ipa_term; b is b', which is b itself in
+// round 0, and s_out null there), and thread 0 puts the dots (sums[0],
+// sums[T]) in the Q column of the rows.
+ZK_DEV inline void ipa_rows(const u32* b, const u32* s_in, u32* s_out,
+                            const u32* c, const u32* sums, u32* rows,
+                            long long L, long long n, int t, int T) {
+  for (long long i = t; i < L; i += T)
+    ipa_term(b, s_in, s_out, c, rows, i, L, n);
+  if (t == 0) {
+    fr::copy(rows + L * NR, sums);
+    fr::copy(rows + (2 * L + 1) * NR, sums + (long long)T * NR);
   }
 }
 

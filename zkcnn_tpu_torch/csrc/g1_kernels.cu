@@ -35,17 +35,25 @@
 //     The digits run a thread an addition, a launch a round.
 //     g1_table_thread_kernel (the one-thread chain this replaced) stays as
 //     the reference that chip_smoke.py holds the lane chain against;
-//   * ipa_scalars_kernel (zk_ipa_scalars): the scalars of a round of the
-//     inner-product opening on the original generators and Q
-//     (zkcnn_tpu_torch/pcs/ipa.py), where the JAX package folds G by a
-//     scalar multiplication every round (zkcnn_tpu/pcs/ipa.py:60): a
-//     thread a generator updates its weight by the last challenge and
-//     puts b at its partner index times the weight in its row, on the Fr
-//     product of g1_arith.cuh (a plain PyTorch round of it is hundreds of
-//     small launches).  Bound by its launch: at 512 generators it moves
-//     about 66 KB and does about 1,000 Fr products, tens of nanoseconds
-//     of the card's bytes or multiplies, against tens of microseconds of
-//     launch and wrapper;
+//   * ipa_round_kernel (zk_ipa_round): round k of the inner-product
+//     opening on the original generators and Q (zkcnn_tpu_torch/pcs/
+//     ipa.py), the JAX package's round zkcnn_tpu/pcs/ipa.py:86-108 without
+//     its curve work: the folds of b and x at the previous challenge
+//     (:52-59, its _fold_scalars), the two Q-column dots (:94-95) and, in
+//     place of its fold of G by a scalar multiplication (:62), the weights
+//     by that challenge and the two MSM rows (g1_arith.cuh: ipa_fold_dots,
+//     ipa_dot_step, ipa_rows).  In plain PyTorch a round is four Fr ops
+//     and the rows' gathers, about a thousand small launches; here it is
+//     one block: each thread folds a few pairs and sums its share of the
+//     dots, a tree of modular sums in shared memory joins the shares, and
+//     after a barrier (b' is read at partner indices that other threads
+//     wrote) each thread forms a few terms of the rows.  Bound by its
+//     launch: at 512 generators a round moves at most about 130 KB and
+//     does at most about 2,300 Fr products, tens of nanoseconds of the
+//     card's bytes or multiplies, against tens of microseconds of launch
+//     and wrapper; one block keeps every step in one launch with no
+//     ticket between blocks, and a round's work grows with L in that one
+//     block (at most IPA_MAX_L generators, zk_ipa_max_l);
 //   * g1_msm_kernel + g1_sum_rows_kernel (zk_g1_msm):
 //     msm.py::FixedBaseMSM.compute and ipa.py::_msm_small on that table,
 //     and curve.py::scalar_mul with one shared point (one base, a row a
@@ -95,7 +103,8 @@ constexpr int ROUND_THREADS = 64;  // a block of g1_table_round_kernel
 constexpr int MSM_SPLIT = 4;       // threads a term: NWIN / 4 windows each
 constexpr int MSM_THREADS = 64;    // the largest block of the MSM kernels
 constexpr int FP_THREADS = 128;    // a block of fp_mul_kernel
-constexpr int IPA_THREADS = 128;   // a block of ipa_scalars_kernel
+constexpr int IPA_THREADS = 256;   // the one block of ipa_round_kernel
+constexpr long long IPA_MAX_L = 1LL << 16;   // generators ipa_round takes
 
 // out[i] = p[i] + q[i], or 2 p[i] where q is null.
 __global__ void g1_add_kernel(const u32* __restrict__ p,
@@ -230,25 +239,24 @@ struct FrPair {
   u32 w[2 * NR];
 };
 
-// Thread i < L: term i of the opening's round (ipa_term); thread L: the Q
-// column, (cl, cr), of both rows.
-__global__ void ipa_scalars_kernel(const u32* __restrict__ b,
-                                   const u32* __restrict__ s_in,
-                                   u32* __restrict__ s_out, FrPair c,
-                                   int reweigh, const u32* __restrict__ cl,
-                                   const u32* __restrict__ cr,
-                                   u32* __restrict__ rows, long long L,
-                                   long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < L) {
-    ipa_term(b, s_in, s_out, reweigh ? c.w : nullptr, rows, i, L, n);
-  } else if (i == L) {
-#pragma unroll
-    for (int j = 0; j < NR; ++j) {
-      rows[L * NR + j] = cl[j];
-      rows[(2 * L + 1) * NR + j] = cr[j];
-    }
+// Round k of the opening in one block (g1_arith.cuh): the fold and the
+// thread's share of the dots, the tree of the dots, a barrier, the rows.
+__global__ void __launch_bounds__(IPA_THREADS)
+    ipa_round_kernel(const u32* b, const u32* x, const u32* s_in, u32* s_out,
+                     FrPair c, int fold, u32* b_out, u32* x_out, u32* rows,
+                     long long L, long long n) {
+  __shared__ u32 sums[2 * IPA_THREADS * NR];
+  const int t = threadIdx.x;
+  const u32* cp = fold ? c.w : nullptr;
+  ipa_fold_dots(b, x, cp, b_out, x_out, n, t, IPA_THREADS, sums + t * NR,
+                sums + (IPA_THREADS + t) * NR);
+  for (int step = IPA_THREADS / 2; step > 0; step >>= 1) {
+    __syncthreads();
+    ipa_dot_step(sums, IPA_THREADS, t, step);
   }
+  __syncthreads();   // the sums, and b' in device memory, for the block
+  ipa_rows(fold ? b_out : b, s_in, fold ? s_out : nullptr, cp, sums, rows,
+           L, n, t, IPA_THREADS);
 }
 
 // The Fp product alone, for checking it and its latency: out[i] =
@@ -447,25 +455,30 @@ int zk_g1_msm(const void* tab, const void* ks, void* out, void* parts,
   return 0;
 }
 
-// The scalars of round k of the inner-product opening on the original
-// generators and Q: rows [2, L + 1, 8] and the weights s_out [L, 8] from
-// b [n, 8] (n = n_k), the weights s_in [L, 8] of the round before and cl,
-// cr [8] (ipa_term); chal: host words of (c, c^-1) of the round before,
-// [2, 8], or null in round 0.  All Montgomery words; L and n powers of
-// two, 2 <= n <= L.  s_out may be s_in.
-int zk_ipa_scalars(const void* b, const void* s_in, void* s_out,
-                   const void* chal, const void* cl, const void* cr,
-                   void* rows, long long L, long long n, void* stream) {
-  if (n < 2 || n > L || (n & (n - 1)) || (L & (L - 1)))
+// Round k of the inner-product opening on the original generators and Q,
+// one launch: b, x [m, 8] (m = 2n where chal is given, else n) fold at the
+// previous round's (c, c^-1) (chal: host words [2, 8]) to b_out, x_out
+// [n, 8], and the weights s_in [L, 8] of the round before become s_out
+// [L, 8]; in round 0 (chal null: no fold) b, x and s_in are the round's
+// own and b_out, x_out and s_out are not written (they may be null).
+// rows [2, L + 1, 8] get the two MSM rows with the Q column
+// (<b'_lo, x'_hi>, <b'_hi, x'_lo>).  All Montgomery words; L and n powers
+// of two, 2 <= n <= L <= zk_ipa_max_l().  s_out may be s_in; b_out and
+// x_out must not overlap b or x.
+long long zk_ipa_max_l() { return IPA_MAX_L; }
+
+int zk_ipa_round(const void* b, const void* x, const void* s_in, void* s_out,
+                 const void* chal, void* b_out, void* x_out, void* rows,
+                 long long L, long long n, void* stream) {
+  if (n < 2 || n > L || L > IPA_MAX_L || (n & (n - 1)) || (L & (L - 1)))
     return cudaErrorInvalidValue;
   FrPair c = {};
   if (chal)
     for (int j = 0; j < 2 * NR; ++j) c.w[j] = static_cast<const u32*>(chal)[j];
-  ipa_scalars_kernel<<<(unsigned)((L + IPA_THREADS) / IPA_THREADS),
-                       IPA_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const u32*>(b), static_cast<const u32*>(s_in),
-      static_cast<u32*>(s_out), c, chal != nullptr,
-      static_cast<const u32*>(cl), static_cast<const u32*>(cr),
+  ipa_round_kernel<<<1, IPA_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u32*>(b), static_cast<const u32*>(x),
+      static_cast<const u32*>(s_in), static_cast<u32*>(s_out), c,
+      chal != nullptr, static_cast<u32*>(b_out), static_cast<u32*>(x_out),
       static_cast<u32*>(rows), L, n);
   return cudaGetLastError();
 }

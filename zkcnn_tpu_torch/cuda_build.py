@@ -116,5 +116,6 @@ def load(name: str) -> ctypes.CDLL:
         _declare(lib, "zk_g1_msm", I, [P, P, P, P, L, L, I, I, I, P, N])
         _declare(lib, "zk_fp_mul", I, [P, P, P, L, L, P])
         _declare(lib, "zk_fp_mul_lanes", I, [P, P, P, L, L, P])
-        _declare(lib, "zk_ipa_scalars", I, [P, P, P, P, P, P, P, L, L, P])
+        _declare(lib, "zk_ipa_max_l", L, [])
+        _declare(lib, "zk_ipa_round", I, [P, P, P, P, P, P, P, P, L, L, P])
     return lib

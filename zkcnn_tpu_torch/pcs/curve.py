@@ -38,8 +38,8 @@ kernel without a second operand and counts there), `KERNEL_LAUNCHES`
 the device kernels they launched, `SHAPES` the shapes they launched at
 (`g1_scalar_mul`: n, nbits and "scalar" where all threads shared one;
 `g1_msm_table`: bases and windows; `g1_msm`: rows and bases;
-`ipa_scalars`, the inner-product opening's round scalars of `ipa.py`
-on the same library: generators and terms left) and
+`ipa_round`, a round of the inner-product opening of `ipa.py` on the
+same library: generators and terms left after its fold) and
 `PLAIN_CALLS` the calls that did not go to a kernel (the plain and the
 host versions).
 
@@ -63,7 +63,7 @@ G1_Y = 0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC74
 G1_COFACTOR = 0x396C8C005555E1568C00AAAB0000AAAB
 
 NAMES = ("g1_add", "g1_scalar_mul", "g1_msm_table", "g1_msm",
-         "ipa_scalars")
+         "ipa_round")
 # the fixed-base table: 4-bit windows of a 256-bit scalar, 15 digit
 # multiples a window (csrc/g1_arith.cuh)
 WBITS = 4

@@ -36,16 +36,20 @@ and Q: row 0 holds b[(m mod n_k) - n_k/2] s_m on the bases m whose bit
 the Q column (<b_lo, x_hi>, <b_hi, x_lo>).  The generators' table is the
 setup's (`HyraxPCS.gen_msm`); the opening builds Q's table once and
 joins it (`FixedBaseMSM.extend`), so no round runs a chain of
-doublings.  The weight vector s stays on the device; a round's rows come
-from one launch of kernel `ipa_scalars` (csrc/g1_kernels.cu), which
-first multiplies s by c_(k-1) or c_(k-1)^-1 by index bit, and whose
-plain version `ipa_scalars_plain` (hundreds of small launches on the
-card) runs on the CPU.  `ipa_prove_by_folds` is the
+doublings.  The rest of a round is one launch of kernel `ipa_round`
+(csrc/g1_kernels.cu): it folds b and x at c_(k-1), forms the Q column
+<b_lo, x_hi>, <b_hi, x_lo> of the folded vectors, multiplies the weights
+s (which stay on the device) by c_(k-1) or c_(k-1)^-1 by index bit and
+writes the two rows.  Its plain version `ipa_round_plain` (`_fold_scalars`
+twice, `FR.dot_mont` twice and the rows' gathers: about a thousand small
+launches on the card) runs on the CPU.  The host draws c_k from the tape
+(under a Fiat-Shamir tape after absorbing L_k and R_k, which waits for
+the MSM); b0 is the fold of the last round's two words, made on the
+host after the opening's one fetch.  `ipa_prove_by_folds` is the
 fold-based prover (a round's table of [G_hi, Q, G_lo, Q], a fold of G by
 scalar multiplication), kept as the reference that the opening is held
 against.  The verifier's final check is one MSM on the generators' table
-(the setup's) and one over [L_k, R_k, Q, P].  The prover's rounds fetch
-nothing from the device.
+(the setup's) and one over [L_k, R_k, Q, P].
 """
 
 from typing import List
@@ -57,7 +61,6 @@ from ..field import FR
 from ..field.params import FR_P
 from . import curve
 from .msm import FixedBaseMSM, points_equal
-
 
 def _msm_small(points, scalars_mont):
     """<scalars, points> for Montgomery scalars [L, 8]."""
@@ -120,80 +123,94 @@ def _reweigh(s, n: int, c: int, cinv: int):
     return FR.mul(s, torch.where(hi, FR.const(c, dev), FR.const(cinv, dev)))
 
 
-def ipa_scalars_plain(b, s, prev, cl, cr):
-    """Round k's two MSM rows over [G; Q] (the original generators, then
-    Q) and the weights s^(k), in plain PyTorch: ([2, L + 1, 8], [L, 8])
-    Montgomery.  b: [n_k, 8]; s: [L, 8], the weights s^(k-1); prev: the
-    round before's (c, c^-1) as integers, None in round 0 (s is then
-    s^(0)); cl, cr: [8], the Q column.  Base m takes b at its partner
-    index (m mod n_k) XOR n_k/2, times s_m, in row 0 where its bit
-    (logn-1-k) (the bit n_k/2) is set, else in row 1."""
-    curve.PLAIN_CALLS["ipa_scalars"] += 1
-    n, L = b.shape[0], s.shape[0]
+def ipa_round_plain(b, x, s, prev):
+    """Round k of the opening in plain PyTorch: (rows, s, b, x), the two
+    MSM rows over [G; Q] (the original generators, then Q) [2, L + 1, 8],
+    the weights s^(k) [L, 8] and the folded b, x [n_k, 8], all
+    Montgomery.  prev: the round before's (c, c^-1) as integers, and then
+    b, x hold 2 n_k words that fold first and s is s^(k-1); None in round
+    0 (no fold; s is s^(0)).  Base m takes b at its partner index
+    (m mod n_k) XOR n_k/2, times s_m, in row 0 where its bit (logn-1-k)
+    (the bit n_k/2) is set, else in row 1; the Q column is
+    (<b_lo, x_hi>, <b_hi, x_lo>)."""
+    curve.PLAIN_CALLS["ipa_round"] += 1
     if prev is not None:
-        s = _reweigh(s, 2 * n, *prev)
+        c, cinv = prev
+        b = _fold_scalars(b, c, cinv)
+        x = _fold_scalars(x, cinv, c)     # x folds with inverse roles
+        s = _reweigh(s, 2 * b.shape[0], c, cinv)
+    n, L = b.shape[0], s.shape[0]
+    h = n // 2
+    cl = FR.dot_mont(b[:h], x[h:])
+    cr = FR.dot_mont(b[h:], x[:h])
     m = torch.arange(L, device=b.device)
-    hi = ((m & (n >> 1)) != 0)[:, None]
-    w = FR.mul(b[(m & (n - 1)) ^ (n >> 1)], s)
+    hi = ((m & h) != 0)[:, None]
+    w = FR.mul(b[(m & (n - 1)) ^ h], s)
     zero = torch.zeros_like(w)
     rows = torch.stack([
         torch.cat([torch.where(hi, w, zero), cl[None]]),
         torch.cat([torch.where(hi, zero, w), cr[None]])])
-    return rows, s
+    return rows, s, b, x
 
 
-def ipa_scalars(b, s, prev, cl, cr):
-    """`ipa_scalars_plain`'s function: on a CUDA device one launch of
-    kernel ipa_scalars (csrc/g1_kernels.cu), on the CPU the plain
-    version."""
-    n, L = b.shape[0], s.shape[0]
-    for t, shape in ((b, (n, FR.n)), (s, (L, FR.n)), (cl, (FR.n,)),
-                     (cr, (FR.n,))):
+def ipa_round(b, x, s, prev):
+    """`ipa_round_plain`'s function: on a CUDA device one launch of
+    kernel ipa_round (csrc/g1_kernels.cu), whose one block takes at most
+    `zk_ipa_max_l()` generators; on the CPU the plain version."""
+    m, L = b.shape[0], s.shape[0]
+    for t, shape in ((b, (m, FR.n)), (x, (m, FR.n)), (s, (L, FR.n))):
         if t.dtype != torch.int32 or t.shape != shape \
                 or t.device != b.device:
-            raise ValueError(f"ipa_scalars: expected int32 {shape} words "
+            raise ValueError(f"ipa_round: expected int32 {shape} words "
                              f"on {b.device}, got {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}")
-    if n < 2 or n > L or n & (n - 1) or L & (L - 1):
-        raise ValueError(f"ipa_scalars: {n} terms of {L} generators")
+    n = m // 2 if prev is not None else m
+    if n < 2 or n > L or m & (m - 1) or L & (L - 1):
+        raise ValueError(f"ipa_round: {m} terms of {L} generators "
+                         f"({'a fold' if prev else 'no fold'})")
     if b.device.type != "cuda":
-        return ipa_scalars_plain(b, s, prev, cl, cr)
+        return ipa_round_plain(b, x, s, prev)
+    lib = curve.g1_lib()
+    if L > lib.zk_ipa_max_l():
+        raise ValueError(f"ipa_round: {L} generators; the kernel takes at "
+                         f"most {lib.zk_ipa_max_l()}")
     rows = torch.empty((2, L + 1, FR.n), dtype=torch.int32, device=b.device)
-    s_out = torch.empty_like(s)
-    chal = None if prev is None else FR.pack_mont_host(prev)
-    s = s.contiguous()
-    curve.launch(curve.g1_lib().zk_ipa_scalars, b.contiguous().data_ptr(),
+    b, x, s = b.contiguous(), x.contiguous(), s.contiguous()
+    chal, (s_out, b_out, x_out) = None, (s, b, x)   # round 0: rows alone
+    if prev is not None:
+        chal = FR.pack_mont_host(prev)     # read by value at the launch
+        s_out, b_out, x_out = (torch.empty_like(s), torch.empty_like(b[:n]),
+                               torch.empty_like(x[:n]))
+    curve.launch(lib.zk_ipa_round, b.data_ptr(), x.data_ptr(),
                  s.data_ptr(), s_out.data_ptr(),
-                 None if chal is None else chal.ctypes.data,
-                 cl.contiguous().data_ptr(), cr.contiguous().data_ptr(),
-                 rows.data_ptr(), L, n, curve.stream_of(b.device))
-    curve.count_launch("ipa_scalars", (L, n))
-    return rows, s_out
+                 None if chal is None else chal.ctypes.data, b_out.data_ptr(),
+                 x_out.data_ptr(), rows.data_ptr(), L, n,
+                 curve.stream_of(b.device))
+    curve.count_launch("ipa_round", (L, n))
+    return rows, s_out, b_out, x_out
 
 
 def ipa_prove(b, x, gen_msm: FixedBaseMSM, Q, t: int, tape) -> IpaProof:
     """b, x: [L, 8] Montgomery; gen_msm: the setup's FixedBaseMSM over
-    the L generators; Q: [3, 12].  A round is one MSM on [G; Q]."""
+    the L generators; Q: [3, 12].  A round is one ipa_round and one MSM
+    on [G; Q]; the one fetch is the last round's b."""
     proof = IpaProof()
     L, prev = b.shape[0], None
-    if L > 1:
+    if L == 1:
+        proof.b0 = FR.from_mont_host(b[0].cpu().numpy())
+    else:
         msm = gen_msm.extend(Q[None])
         s = FR.const(1, b.device).expand(L, FR.n).contiguous()
-    while b.shape[0] > 1:
-        n = b.shape[0]
-        cl = FR.dot_mont(b[:n // 2], x[n // 2:])
-        cr = FR.dot_mont(b[n // 2:], x[:n // 2])
-        rows, s = ipa_scalars(b, s, prev, cl, cr)
-        Lk, Rk = msm.compute(rows)
-        proof.Ls.append(Lk)
-        proof.Rs.append(Rk)
-        _absorb_lr(tape, Lk, Rk)
-        c = tape.field()
-        cinv = pow(c, FR_P - 2, FR_P)
-        b = _fold_scalars(b, c, cinv)
-        x = _fold_scalars(x, cinv, c)     # x folds with inverse roles
-        prev = (c, cinv)
-    proof.b0 = FR.from_mont_host(b[0].cpu().numpy())
+        for _ in range(L.bit_length() - 1):
+            rows, s, b, x = ipa_round(b, x, s, prev)
+            Lk, Rk = msm.compute(rows)
+            proof.Ls.append(Lk)
+            proof.Rs.append(Rk)
+            _absorb_lr(tape, Lk, Rk)
+            c = tape.field()
+            prev = (c, pow(c, FR_P - 2, FR_P))
+        lo, hi = FR.unpack_mont_host(b.cpu().numpy())
+        proof.b0 = (prev[0] * lo + prev[1] * hi) % FR_P
     tape.absorb(proof.b0)
     return proof
 
