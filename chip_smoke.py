@@ -103,7 +103,22 @@ Phases; any failure raises and the script exits non-zero:
      Then the same proof with its rounds
      in the one-round form (round(prev_r), the host tape, a fetch a
      round): the same fingerprint, and its round loops' seconds beside
-     the phase calls';
+     the phase calls'.  Then LeNet --no-pcs again with every chunk of the
+     gate-chunk contract lowered to 2^12 rows (GATE_CHUNK, EVAL_CHUNK,
+     the segment sums' FINISH_BLOCK, the beta tables' BETA_BLOCK_BITS):
+     the same pinned digest, WS and PS, and eval_normal_layer at that
+     chunk equal to the witness on every normal layer of LeNet.  Then
+     vgg11 (CIFAR 32x32x3, pic_cnt=1) through the port's demo_vgg entry
+     (--synthetic --seed 17 --log, the inner-product commitment), counts
+     reset just before and read just after: Verification pass, WS
+     12975498(2^24), its PS, POLY_PS and digest pinned (PINNED_VGG11),
+     round_ladder (Liu's phase at (2^24, 24 rounds) among its shapes),
+     fold_ladder, g1_msm_table, g1_msm at (4096, 4096) and 12 ipa_round
+     launched, no per-round entry, no g1_add or g1_scalar_mul, no curve
+     operation past the kernels, no plain Fr op inside ipa_prove, peak
+     device memory under the card's 80 GB; its witness time, PT, VT, VT
+     slow, POLY_PT, POLY_VT, the setup's table, launches by kernel, peak
+     memory and the log's laps printed;
   6. each entry against its plain version at every shape its run
      launched it at (the round kernels exact; the curve kernels as group
      elements, on 32-bit scalars laid out as the run lays them out, and
@@ -113,11 +128,21 @@ Phases; any failure raises and the script exits non-zero:
      and without building its table), with the least time the card could
      take for the same work beside it;
      fold_round's and fold_cubic_round's phase calls at every phase
-     shape of the Fiat-Shamir LeNet run, timed a phase.  Then a LeNet
+     shape of the Fiat-Shamir LeNet run, timed a phase.  At vgg11's
+     shapes: round_ladder at Liu's (2^24, 24 rounds) on random rows
+     against its plain version, exact; on the vgg11 run's own operands,
+     the commit's g1_msm at (4096, 4096) against Python integers (every
+     row commitment is py_mul of its discrete log, the generators being
+     s_i G for the tape's draws), the setup's table of 4096 bases against
+     its plain version entry by entry, and every round of the opening
+     (ipa_round at L = 4096) against its plain version word for word;
+     each timed beside its bound.  Then a LeNet
      side's rounds one by one as the one-round form runs them
      (fold_round, a fetch a round) against one ladder and one phase
      call;
-  7. the seconds each phase took, one JSON line of the Fiat-Shamir
+  7. the seconds each phase took, one JSON line of the vgg11 run (its
+     times, sizes, peak memory, launches and digest), one JSON line of
+     the Fiat-Shamir
      path's measurements (round loops of the phase calls and of the
      one-round form, the device tape's microseconds, fetches, phases and
      device launches, one side three ways, the three-pass POLY_PT's
@@ -206,6 +231,18 @@ PINNED_FS_LENET = (
     "22808f60a53356f4b98f9857960b3c4bf38934bd9d5403597f97b4ea91ccf02b",
     548)
 
+# vgg11 CIFAR 32x32x3, pic_cnt=1, max pool, --synthetic --seed 17, with the
+# inner-product commitment, Tape(b"zkcnn-demo-17"): the port's own pin
+# (an H100 run; no run of the JAX package finished vgg11)
+PINNED_VGG11 = {
+    "WS": "12975498(2^24)", "PS": "110.0000", "POLY_PS": "193.1562",
+    "digest": "23242e8efa5404f2a8ef576a9433a91318683350776efe950a79f27187f5abdf",
+}
+# the card's memory
+DEVICE_BYTES = 80 * 10 ** 9
+# the chunk sizes of the LeNet proof run with its chunks lowered
+LOW_CHUNK_BITS = 12
+
 SOURCE = "zkcnn_tpu_torch/csrc/round_kernels.cu"
 G1_SOURCE = "zkcnn_tpu_torch/csrc/g1_kernels.cu"
 G1_REPLACES = {"g1_add": "zkcnn_tpu/pcs/curve.py:81",         # and pdouble :58
@@ -255,10 +292,13 @@ DOUBLE_PRODUCTS = 7
 ADD_PRODUCTS = 16
 MIXED_ADD_PRODUCTS = 11
 POINT_BYTES = 144
+# rows of an MSM's scalars whose digits g1_bound counts at a time
+MSM_BOUND_ROWS = 256
 # the runs that the `launches`, shapes and times of an entry come from
 LENET_RUN = "lenet --no-pcs"
 LENET_PCS_RUN = "lenet with the commitment"
 LENET_FS_RUN = "lenet under FiatShamirTape with the commitment"
+VGG_RUN = "vgg11 with the commitment"
 FOLDS_RUN = "ipa_prove_by_folds on the opening of lenet with the commitment"
 ENGINES_RUN = "the per-round engines at lenet's largest phases"
 # curve kernels that the LeNet opening no longer runs: their shapes and
@@ -764,33 +804,44 @@ def g1_bound(torch, curve, name, shape, scalars):
     then every nonzero digit is one addition of a table entry (11
     products), less one for each output, whose first entry is a copy.
     The row sums of an MSM are among those additions."""
-    if name == "g1_add":
-        n = shape[0]
-        products, nbytes = ADD_PRODUCTS * n, 3 * POINT_BYTES * n
-    else:
-        nbits = shape[1] if name == "g1_scalar_mul" else 255
-        bits = curve.scalar_bits(scalars, nbits)
+    def digit_counts(k, nbits):
+        """(bit lengths, nonzero 4-bit digits) of each plain scalar."""
+        bits = curve.scalar_bits(k, nbits)
         pos = torch.arange(1, nbits + 1, device=bits.device)
         top = (bits * pos).amax(-1)                   # bit lengths
         pad = torch.zeros(bits.shape[:-1] + (-nbits % 4,), dtype=bits.dtype,
                           device=bits.device)
         digits = torch.cat([bits, pad], -1).reshape(*bits.shape[:-1], -1, 4)
-        nonzero = (digits.sum(-1) > 0).sum(-1)        # digits a scalar
-        if name == "g1_msm":
-            R, N = shape
-            doublings = (top.amax(0) - 1).clamp(min=0).sum().item()
-            adds = (nonzero.sum(1) - 1).clamp(min=0).sum().item()
+        return top, (digits.sum(-1) > 0).sum(-1)
+
+    if name == "g1_add":
+        n = shape[0]
+        products, nbytes = ADD_PRODUCTS * n, 3 * POINT_BYTES * n
+    elif name == "g1_msm":
+        # by blocks of rows: the bits of a (4096, 4096) commit at once
+        # would take 34 GB
+        R, N = shape
+        longest, adds = None, 0
+        for s in range(0, R, MSM_BOUND_ROWS):
+            top, nonzero = digit_counts(scalars[s:s + MSM_BOUND_ROWS], 255)
+            top = top.amax(0)
+            longest = top if longest is None else torch.maximum(longest,
+                                                                top)
+            adds += (nonzero.sum(1) - 1).clamp(min=0).sum().item()
+        doublings = (longest - 1).clamp(min=0).sum().item()
+        products = DOUBLE_PRODUCTS * doublings + MIXED_ADD_PRODUCTS * adds
+        nbytes = N * POINT_BYTES + R * N * 32 + R * POINT_BYTES
+    else:
+        nbits = shape[1]
+        top, nonzero = digit_counts(scalars, nbits)
+        adds = (nonzero - 1).clamp(min=0).sum().item()
+        if shape[2] == "point":
+            doublings = max(top.amax().item() - 1, 0)
             add_products = MIXED_ADD_PRODUCTS
-            nbytes = N * POINT_BYTES + R * N * 32 + R * POINT_BYTES
         else:
-            adds = (nonzero - 1).clamp(min=0).sum().item()
-            if shape[2] == "point":
-                doublings = max(top.amax().item() - 1, 0)
-                add_products = MIXED_ADD_PRODUCTS
-            else:
-                doublings = (top - 1).clamp(min=0).sum().item()
-                add_products = ADD_PRODUCTS
-            nbytes = shape[0] * (2 * POINT_BYTES + 32)
+            doublings = (top - 1).clamp(min=0).sum().item()
+            add_products = ADD_PRODUCTS
+        nbytes = shape[0] * (2 * POINT_BYTES + 32)
         products = DOUBLE_PRODUCTS * doublings + add_products * adds
     by_bytes = nbytes / MEM_BYTES_S * 1e3
     by_ops = products * FP_MULS / INT32_MULS_S * 1e3
@@ -1241,6 +1292,40 @@ def wall_ms(torch, fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def memory_spans(torch, spans):
+    """Wraps each (class, method) of spans so that the card's peak memory
+    is read and reset as each call starts and ends: returns the dict of
+    peaks in bytes (a method's own under its name, the stretch before it
+    since the last read under "before <name>") and a function that undoes
+    the wraps."""
+    peaks, real = {}, []
+
+    def read(key):
+        torch.cuda.synchronize()
+        peaks[key] = max(peaks.get(key, 0), torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    def wrap(owner, name):
+        fn = getattr(owner, name)
+
+        def run(*args, **kw):
+            read("before " + name)
+            try:
+                return fn(*args, **kw)
+            finally:
+                read(name)
+        real.append((owner, name, fn))
+        setattr(owner, name, run)
+
+    for owner, name in spans:
+        wrap(owner, name)
+
+    def undo():
+        for owner, name, fn in reversed(real):
+            setattr(owner, name, fn)
+    return peaks, undo
 
 
 def opening_checks(torch, ipa, curve, msm_mod, seen, smi, run):
@@ -1839,6 +1924,162 @@ def main():
 
     lap("lenet under Fiat-Shamir")
 
+    # 5b. LeNet --no-pcs again with every chunk lowered to 2^12 rows (the
+    # inits', predicates' and Liu's gate chunks, the layer evaluation's,
+    # the segment sums' finish block, the beta tables' block): the same
+    # pinned digest; and the layer evaluation at that chunk equal to the
+    # witness on every normal layer of LeNet
+    from zkcnn_tpu_torch.gkr import kernels as gkr_kernels
+    from zkcnn_tpu_torch.circuit import eval as circuit_eval
+    from zkcnn_tpu_torch.circuit import LayerType
+    from zkcnn_tpu_torch.field import ops as field_ops
+    from zkcnn_tpu_torch.mle import beta as mle_beta
+    low = {(gkr_kernels, "GATE_CHUNK"): 1 << LOW_CHUNK_BITS,
+           (circuit_eval, "EVAL_CHUNK"): 1 << LOW_CHUNK_BITS,
+           (field_ops, "FINISH_BLOCK"): 1 << LOW_CHUNK_BITS,
+           (mle_beta, "BETA_BLOCK_BITS"): LOW_CHUNK_BITS}
+    saved = {k: getattr(*k) for k in low}
+    try:
+        for (mod, name), value in low.items():
+            setattr(mod, name, value)
+        C, vals = zoo.lenet(32, 32, 1, 1, P.PoolType.MAX).create(
+            random_source(17), only_compute=True)
+        evaluated = 0
+        for i in range(1, C.size):
+            ly = C.layers[i]
+            if ly.ty in (LayerType.FFT, LayerType.IFFT, LayerType.DOT_PROD):
+                continue
+            got = circuit_eval.eval_normal_layer(ly, vals[0], vals[i - 1]
+                                                 if i > 1 else None)
+            if not torch.equal(got, vals[i]):
+                raise AssertionError(f"lenet layer {i}: eval_normal_layer "
+                                     f"at EVAL_CHUNK 2^{LOW_CHUNK_BITS} "
+                                     f"differs from the witness")
+            evaluated += 1
+        del C, vals
+        rk.reset_launches()
+        res = demo_lenet.main(["--synthetic", "--seed", "17", "--no-pcs",
+                               "--pic-cnt", "1"])
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), value in saved.items():
+            setattr(mod, name, value)
+    row = res["row"]
+    say(f"lenet --no-pcs with every chunk lowered to 2^{LOW_CHUNK_BITS} "
+        f"rows: Verification pass, WS {row['WS']}, PS {row['PS']} KB, PT "
+        f"{row['PT']} s, digest {res['digest']}; eval_normal_layer equal "
+        f"to the witness on {evaluated} layers ({smi})")
+    if (row["WS"], row["PS"], res["digest"]) != (
+            PINNED_LENET["WS"], PINNED_LENET["PS"], PINNED_LENET["digest"]):
+        raise AssertionError(f"lenet with the chunks lowered: WS/PS/digest "
+                             f"{row['WS']}/{row['PS']}/{res['digest']} "
+                             f"differ from {PINNED_LENET}")
+
+    lap("lenet with the chunks lowered")
+
+    # 5c. vgg11 through the port's demo_vgg entry (--synthetic --seed 17,
+    # the inner-product commitment); the counts cover exactly this run,
+    # and the commit and the opening keep their operands for phase 6
+    from zkcnn_tpu_torch.cli import demo_vgg
+    committed, real_commit = {}, hyrax.HyraxPCS.commit
+
+    def keep_commit(self, val0):
+        committed.update(pcs=self, val0=val0)
+        return real_commit(self, val0)
+
+    hyrax.HyraxPCS.commit = keep_commit
+    vgg_seen, uncapture = capture_opening(torch, hyrax, ipa, FR)
+    peaks, unwrap = memory_spans(torch, [
+        (hyrax.HyraxPCS, "setup"), (hyrax.HyraxPCS, "commit"),
+        (Verifier, "_prover_pass"), (Verifier, "_predicate_pass"),
+        (Verifier, "_replay"), (hyrax.HyraxPCS, "open"),
+        (hyrax.HyraxPCS, "verify")])
+    curve.BASE_TABLES.clear()
+    rk.reset_launches()
+    curve.reset_launches()
+    engine.FETCHES["rounds"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        res = demo_vgg.main(["--synthetic", "--seed", "17", "--model",
+                             "vgg11", "--log"])     # no --cpu: the card
+        torch.cuda.synchronize()
+    finally:
+        unwrap()
+        uncapture()
+        hyrax.HyraxPCS.commit = real_commit
+    vgg_wall = time.time() - t0
+    peaks["after verify"] = torch.cuda.max_memory_allocated()
+    # the runner's own peak covers only the stretch since the last read
+    peak = max(peaks.values())
+    vgg_launches = {k: rk.LAUNCHES[k] for k in rk.NAMES}
+    vgg_launches.update(curve.LAUNCHES)
+    vgg_device = {k: rk.KERNEL_LAUNCHES[k] for k in rk.NAMES}
+    vgg_device.update(curve.KERNEL_LAUNCHES)
+    vgg_shapes = {k: sorted(rk.SHAPES[k]) for k in LADDERS}
+    vgg_shapes.update({k: sorted(curve.SHAPES[k]) for k in curve.NAMES})
+    vgg_plain = dict(curve.PLAIN_CALLS)
+    row = res["row"]
+    vgg = {"wall_s": vgg_wall, "witness_s": res["witness_s"],
+           "pt_s": res["pt"], "vt_s": res["vt"], "vt_slow_s": res["vt_slow"],
+           "poly_pt_s": res["poly_pt"], "poly_vt_s": res["poly_vt"],
+           "poly_commit_s": res["poly_commit_s"],
+           "table_s": res["poly_table_s"], "ps_kb": row["PS"],
+           "poly_ps_kb": row["POLY_PS"], "ws": row["WS"],
+           "peak_gib": peak / 2 ** 30,
+           "peak_gib_by_span": {k: v / 2 ** 30 for k, v in peaks.items()},
+           "round_fetches": engine.FETCHES["rounds"],
+           "launches": vgg_launches, "device_launches": vgg_device,
+           "digest": res["digest"], "device": smi}
+    say(f"vgg11: Verification pass, WS {row['WS']}, PS {row['PS']} KB, "
+        f"POLY_PS {row['POLY_PS']} KB, witness {res['witness_s']:.2f} s, PT "
+        f"{row['PT']} s, VT {row['VT']} s (slow {res['vt_slow']:.2f} s), "
+        f"POLY_PT {row['POLY_PT']} s (the row commitments "
+        f"{res['poly_commit_s']:.4f} s), POLY_VT {row['POLY_VT']} s, the "
+        f"setup's table {res['poly_table_s']:.4f} s, peak device memory "
+        f"{vgg['peak_gib']:.2f} GiB, {vgg_wall:.1f} s in all ({smi}); digest "
+        f"{res['digest']}")
+    say(f"vgg11 row: {res['line']}")
+    say(f"vgg11 wrapper calls that launched: {vgg_launches} (device kernels "
+        f"{vgg_device}); {vgg['round_fetches']} round fetches; not through a "
+        f"kernel: {vgg_plain}; shapes: {vgg_shapes}")
+    if (row["WS"], row["PS"], row["POLY_PS"], res["digest"]) != (
+            PINNED_VGG11["WS"], PINNED_VGG11["PS"], PINNED_VGG11["POLY_PS"],
+            PINNED_VGG11["digest"]):
+        raise AssertionError(f"vgg11: WS/PS/POLY_PS/digest {row['WS']}/"
+                             f"{row['PS']}/{row['POLY_PS']}/{res['digest']} "
+                             f"differ from {PINNED_VGG11}")
+    # the path: every round in ladders (no convolution of vgg11 is an FFT
+    # one, so no cubic phase), the commitment's table, MSM and opening
+    for name in ("round_ladder", "fold_ladder", "g1_msm_table", "g1_msm",
+                 "ipa_round"):
+        if vgg_launches[name] <= 0:
+            raise AssertionError(f"vgg11 never launched kernel {name}")
+    for name in PER_ROUND + FOLD_KERNELS:
+        if vgg_launches[name]:
+            raise AssertionError(f"vgg11 launched {name} "
+                                 f"{vgg_launches[name]} times")
+    if any(vgg_plain.values()):
+        raise AssertionError(f"vgg11: curve operations went past the "
+                             f"kernels: {vgg_plain}")
+    liu = (1 << 24, 24)
+    if liu not in vgg_shapes["round_ladder"] or \
+            (4096, 4096) not in vgg_shapes["g1_msm"] or \
+            vgg_launches["ipa_round"] != 12:
+        raise AssertionError(f"vgg11: no round ladder at {liu}, no g1_msm "
+                             f"at (4096, 4096) or not 12 ipa_round launches: "
+                             f"{vgg_shapes}")
+    say(f"vgg11 peak device memory by span (GiB; 'before X': from the "
+        f"end of the previous span to X's start, the witness before the "
+        f"setup): " + ", ".join(f"{k} {v / 2 ** 30:.2f}"
+                               for k, v in peaks.items()) + f" ({smi})")
+    if peak >= DEVICE_BYTES:
+        raise AssertionError(f"vgg11: peak device memory {peak} bytes")
+    opening_fr_check(vgg_seen, VGG_RUN)
+
+    lap("vgg11")
+
     # 6. every entry against its plain version at the shapes of its run,
     # timed; the reported time is at the largest of them.  The per-round
     # entries' one-round form: the per-round engines' shapes; fold_round's
@@ -2000,6 +2241,93 @@ def main():
 
     lap("curve kernels at their run's shapes")
 
+    # 6b. the kernels at vgg11's shapes: round_ladder at Liu's (2^24, 24
+    # rounds) on random rows against its plain version, exact; on the
+    # run's own operands, the commit's g1_msm at (4096, 4096) against
+    # Python integers (the generators are s_i G for the tape's first
+    # draws, so row r is (sum_i m[r, i] s_i) G; its plain version at this
+    # shape would run 2^24 double-and-add chains), the setup's table of
+    # 4096 bases against its plain version entry by entry, and every
+    # ipa_round of the opening (L = 4096) against its plain version, word
+    # for word; each timed beside its bound
+    by_name = {k["name"]: k for k in kernels}
+    for name, entry in by_name.items():
+        entry["vgg11"] = {"run": VGG_RUN, "launches": vgg_launches[name],
+                          "device_launches": vgg_device[name]}
+    e, kern, plain = compare(torch, rk, "round_ladder", liu, gen, rng)
+    ms = time_ms(torch, kern, 5)
+    pms, _ = time_once_ms(torch, plain)
+    b_ms, b_by = bound("round_ladder", liu)
+    by_name["round_ladder"]["vgg11"].update(
+        shape=list(liu), max_abs_err=e, ms=ms, plain_ms=pms, bound_ms=b_ms,
+        bound_by=b_by)
+    say(f"round_ladder at {liu} (Liu's phase of {VGG_RUN}), random rows: "
+        f"equal to its plain version; kernel {ms:.4f} ms, plain {pms:.4f} "
+        f"ms, bound {b_ms:.6f} ms by {b_by} ({smi})")
+    del kern, plain
+
+    pcs = committed["pcs"]
+    mat = pcs._matrix(committed["val0"])
+    got = pcs.gen_msm.compute(mat)
+    same_points(msm_mod, got, pcs.row_commits, f"g1_msm at (4096, 4096)")
+    draws = Tape(b"zkcnn-demo-17").fields(pcs.n_cols)
+    s_mont = torch.from_numpy(FR.pack_mont_host(draws)).cuda()
+    logs = FR.unpack_mont_host(FR.dot_mont(mat, s_mont[None], axis=-2)
+                               .cpu().numpy())
+    G = (curve.G1_X, curve.G1_Y)
+    if curve.to_affine_host(got) != [curve.py_mul(G, k) for k in logs]:
+        raise AssertionError(f"g1_msm at {tuple(mat.shape[:2])} in "
+                             f"{VGG_RUN} differs from py_mul")
+    ms = time_ms(torch, lambda: pcs.gen_msm.compute(mat), 3)
+    scalars = torch.cat([msm_mod.plain_scalars(mat[r:r + MSM_BOUND_ROWS])
+                         for r in range(0, mat.shape[0], MSM_BOUND_ROWS)])
+    b_ms, b_by = g1_bound(torch, curve, "g1_msm", tuple(mat.shape[:2]),
+                          scalars)
+    by_name["g1_msm"]["vgg11"].update(
+        shape=list(mat.shape[:2]), max_abs_err=0, ms=ms, plain_ms=None,
+        bound_ms=b_ms, bound_by=b_by)
+    say(f"g1_msm at {tuple(mat.shape[:2])} (the commit of {VGG_RUN}): its "
+        f"{mat.shape[0]} rows equal py_mul of their discrete logs; kernel "
+        f"{ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({smi})")
+    del got, scalars, logs
+
+    shape = (pcs.gens.shape[0], curve.NWIN)
+    pms, want = time_once_ms(torch,
+                             lambda: msm_mod.msm_table_plain(pcs.gens))
+    same_points(msm_mod, curve.table_kernel(pcs.gens), want,
+                f"g1_msm_table at {shape}")
+    del want
+    ms = time_ms(torch, lambda: curve.table_kernel(pcs.gens), 5)
+    b_ms, b_by = table_bound(shape)
+    by_name["g1_msm_table"]["vgg11"].update(
+        shape=list(shape), max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=b_ms,
+        bound_by=b_by)
+    say(f"g1_msm_table at {shape} (the setup's of {VGG_RUN}): equal to its "
+        f"plain version entry by entry; kernel {ms:.4f} ms, plain {pms:.4f} "
+        f"ms, bound {b_ms:.6f} ms by {b_by} ({smi})")
+    del pcs, mat, committed
+
+    per, err = [], 0
+    for args in vgg_seen["rounds"]:
+        e, kern, _ = ipa_round_check(torch, ipa, args, VGG_RUN)
+        err = max(err, e)
+        per.append((ipa_round_shape(args), time_ms(torch, kern, 20)))
+    _, kern, plain = ipa_round_check(torch, ipa, vgg_seen["rounds"][0],
+                                     VGG_RUN)
+    ms, pms = time_ms(torch, kern, 20), time_ms(torch, plain, 3)
+    shape = per[0][0][0]
+    b_ms, b_by = ipa_round_bound(shape, False)
+    by_name["ipa_round"]["vgg11"].update(
+        shape=list(shape), max_abs_err=err, ms=ms, plain_ms=pms,
+        bound_ms=b_ms, bound_by=b_by, ms_all_rounds=sum(t for _, t in per))
+    say(f"ipa_round at {shape}, round 0 of {VGG_RUN}'s opening: every one "
+        f"of its {len(per)} rounds equal to its plain version; kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.6f} ms by {b_by}; "
+        f"all rounds {sum(t for _, t in per):.4f} ms ({smi})")
+    del vgg_seen
+
+    lap("the kernels at vgg11's shapes")
+
     # what a ladder saves at LeNet's largest side: its rounds one by one
     # as the per-round path runs them (fold_round, each round's dots
     # fetched before the next), against one ladder and one fetch
@@ -2029,6 +2357,7 @@ def main():
     # 7. results: the lane forms' measurements of phase 3 and the
     # registers of their kernels again, where the end of the output keeps
     # them, then the kernels
+    say(json.dumps({"vgg11": vgg}))
     say(json.dumps({"round_loops_s": {"phase_calls": round_s[0],
                                       "one_round_form": one_s[0]},
                     "device_tape_us": tape_us,

@@ -3,7 +3,7 @@
 
 calcNormalLayer / calcDotProdLayer / calcFFTLayer (reference
 src/neuralNetwork.cpp:918-965) as gathers, batched field muls and one
-exact segment sum per layer; FFT layers use the batched NTT and the
+exact segment sum per layer (in gate chunks); FFT layers use the batched NTT and the
 DOT_PROD layer one batched field matmul.
 
 Index arrays here are PRE-subset (original ids), exactly like the
@@ -15,7 +15,7 @@ from functools import lru_cache
 import torch
 
 from ..field import FR
-from ..field.ops import segment_sum_field
+from ..field.ops import segment_cols, segment_add, segment_finish
 from ..ntt import ntt, intt
 from .ir import Layer, LayerType, UNI_G, UNI_U, UNI_LU, UNI_SC, \
     BIN_G, BIN_U, BIN_V, BIN_SC, BIN_L
@@ -32,11 +32,18 @@ def two_mul_table(device, q_bit_size: int = 220):
     return torch.from_numpy(_two_mul_host(q_bit_size)).to(device)
 
 
+EVAL_CHUNK = 1 << 19    # gate rows a step at a time (read at call time):
+                        # a vgg NCONV layer's 2^25 gates stream through one
+                        # column accumulator instead of one FR.mul each
+
+
 def eval_normal_layer(layer: Layer, val0, val_prev):
     """calcNormalLayer (reference src/neuralNetwork.cpp:918-935); output
     padded to 2^bit_length.  A gate reads layer 0 or the previous
     layer per its source code; table = [val0 ; val_prev] so each gate
-    class is one offset gather."""
+    class is one offset gather.  Gates go EVAL_CHUNK rows at a time into
+    one exact column accumulator with one modular finish (JAX
+    `_eval_uni_chunk`, `_eval_bin_chunk`)."""
     dev = val0.device
     out_pow2 = 1 << max(layer.bit_length, 0)
     tm = two_mul_table(dev)
@@ -44,20 +51,21 @@ def eval_normal_layer(layer: Layer, val0, val_prev):
         val_prev = val0[:1]
     n0 = val0.shape[0]
     table = torch.cat([val0, val_prev])
-    acc = FR.zeros(out_pow2, dev)
-    if layer.uni.shape[0]:
-        uni = torch.as_tensor(layer.uni, device=dev)
+    acc = segment_cols(out_pow2, dev)
+    step = EVAL_CHUNK
+    for s in range(0, layer.uni.shape[0], step):
+        uni = torch.as_tensor(layer.uni[s:s + step], device=dev)
         idx = uni[:, UNI_U] + torch.where(uni[:, UNI_LU] == 0, 0, n0)
         c = FR.mul(table[idx], tm[uni[:, UNI_SC]])
-        acc = FR.add(acc, segment_sum_field(c, uni[:, UNI_G], out_pow2))
-    if layer.bin.shape[0]:
-        b = torch.as_tensor(layer.bin, device=dev)
+        segment_add(acc, c, uni[:, UNI_G])
+    for s in range(0, layer.bin.shape[0], step):
+        b = torch.as_tensor(layer.bin[s:s + step], device=dev)
         a = table[b[:, BIN_U] + torch.where(b[:, BIN_L] == 0, 0, n0)]
         v = table[b[:, BIN_V]
                   + torch.where((b[:, BIN_L] & 1) == 0, 0, n0)]
         c = FR.mul(FR.mul(a, v), tm[b[:, BIN_SC]])
-        acc = FR.add(acc, segment_sum_field(c, b[:, BIN_G], out_pow2))
-    return FR.mul(acc, FR.const(layer.scale, dev))
+        segment_add(acc, c, b[:, BIN_G])
+    return FR.mul(segment_finish(acc), FR.const(layer.scale, dev))
 
 
 def _pad_rows(x, rows: int):

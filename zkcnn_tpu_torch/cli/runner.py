@@ -15,6 +15,7 @@ from ..circuit import ceil_pow2_bit_length
 from ..gkr import Prover, Verifier, Tape
 from ..nn import TensorSource, csv_source, random_source
 from ..nn import models as model_zoo
+from ..nn.debug import check_zero_regions
 from ..nn.params import PoolType
 from ..pcs import HyraxPCS
 
@@ -66,18 +67,33 @@ def make_source(args) -> TensorSource:
 
 def run(nn, args, mo_info: str, psize: int, ksize: int):
     """Build, prove and verify; prints the result row and returns a
-    dict with the row, the verifier's transcript digest, the proof
-    size in bytes, the timings and the commitment's POLY_PT, POLY_VT
-    (seconds; `poly_commit_s` is the share of POLY_PT spent in the row
+    dict with the row, the verifier's transcript digest, the proof size
+    in bytes, the timings, the commitment's POLY_PT, POLY_VT (seconds;
+    `poly_commit_s` is the share of POLY_PT spent in the row
     commitments, the rest is the opening; `poly_table_s` is the setup's
-    table of the generators, outside POLY_PT) and POLY_PS (KB)."""
+    table of the generators, outside POLY_PT) and POLY_PS (KB), and the
+    peak device memory in bytes (`peak_bytes`, 0 on the CPU).  Under
+    --log the witness's zero regions are checked (a violation raises)
+    and every log line carries the seconds since the start."""
     device = args.device
+    on_cuda = device.type == "cuda"
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    start = time.time()
+    log = (lambda *a: print(f"[{time.time() - start:9.2f}s]", *a,
+                            file=sys.stderr)) if args.log \
+        else (lambda *a: None)
 
     t0 = time.time()
     C, vals = nn.create(make_source(args), device=device)
-    if device.type == "cuda":
+    if on_cuda:
         torch.cuda.synchronize(device)
     witness_t = time.time() - t0
+    log(f"witness: {C.size} layers, input size {C.layers[0].size} "
+        f"(2^{ceil_pow2_bit_length(C.layers[0].size)}) in {witness_t:.2f}s")
+    if args.log:
+        check_zero_regions(C, vals)
+        log("zero regions hold")
 
     preds = nn.infer() if nn.full_conn else None
     if args.output_file and preds is not None:
@@ -87,8 +103,7 @@ def run(nn, args, mo_info: str, psize: int, ksize: int):
 
     p = Prover(C, vals, own_vals=True)   # one proof: free dead layers
     nn.vals = None
-    log = (lambda *a: print(*a, file=sys.stderr)) if args.log \
-        else (lambda *a: None)
+    del vals
     pcs = None if args.no_pcs else HyraxPCS()
     v = Verifier(p, C, Tape(b"zkcnn-demo-%d" % args.seed), pcs=pcs, log=log)
 
@@ -139,12 +154,16 @@ def run(nn, args, mo_info: str, psize: int, ksize: int):
           f"proof {ps_kb:.1f}KB, commitment prove {poly_pt:.2f}s verify "
           f"{poly_vt:.2f}s {poly_ps:.1f}KB (generator table "
           f"{pcs.table_s if pcs else 0.0:.4f}s) on {device}", file=sys.stderr)
+    peak = torch.cuda.max_memory_allocated(device) if on_cuda else 0
+    if on_cuda:
+        print(f"peak device memory {peak / 2**30:.2f} GiB", file=sys.stderr)
     return {"row": row, "line": line, "digest": v.transcript_digest,
             "proof_size": p.proof_size, "witness_s": witness_t,
             "pt": pt, "vt": vt, "vt_slow": vt_slow,
             "poly_pt": poly_pt, "poly_vt": poly_vt, "poly_ps": poly_ps,
             "poly_commit_s": pcs.commit_s if pcs else 0.0,
-            "poly_table_s": pcs.table_s if pcs else 0.0}
+            "poly_table_s": pcs.table_s if pcs else 0.0,
+            "peak_bytes": peak}
 
 
 def build_model(name: str, args):
@@ -153,6 +172,10 @@ def build_model(name: str, args):
         return model_zoo.lenet(32, 32, 1, args.pic_cnt, pool), 32, 5
     if name == "lenet-cifar":
         return model_zoo.lenetCifar(32, 32, 3, args.pic_cnt, pool), 32, 5
+    if name == "vgg11":
+        return model_zoo.vgg11(32, 32, 3, args.pic_cnt, pool), 32, 3
+    if name == "vgg16":
+        return model_zoo.vgg16(32, 32, 3, args.pic_cnt, pool), 32, 3
     if name == "ccnn":
         return model_zoo.ccnn(8, 8, args.pic_cnt, 1, pool), 8, 2
     raise ValueError(name)

@@ -54,16 +54,50 @@ def bits_to_mont(bits):
                        torch.zeros_like(one))
 
 
+# rows of the modular finish of a segment sum at a time: mont_sum_cols
+# pads its columns to [34, rows] int64 and makes [16, rows] temporaries
+# a limb, about 1 KB a row, so a finish over 2^24 segments at once would
+# hold tens of GB
+FINISH_BLOCK = 1 << 20
+
+
+def segment_cols(num_segments: int, device):
+    """An exact limb-column accumulator for `segment_add`: [16, S + 1]
+    int64 zeros, the last row the spare row of dropped ids."""
+    return torch.zeros((N_LIMBS, num_segments + 1), dtype=torch.int64,
+                       device=device)
+
+
+def segment_add(acc, vals, seg_ids):
+    """acc[:, s] += the 16-bit limbs of every vals[i] with seg_ids[i] ==
+    s, in place (exact: a column stays below count * 2^16).  Ids outside
+    [0, S) (the JAX package's pad sentinels) go to the spare row, so no
+    index is ever out of range."""
+    S = acc.shape[1] - 1
+    seg = seg_ids.to(torch.int64)
+    seg = torch.where((seg >= 0) & (seg < S), seg, torch.full_like(seg, S))
+    acc.index_add_(1, seg, limbs16(vals))
+    return acc
+
+
+def segment_finish(acc):
+    """The modular finish of a `segment_cols` accumulator -> [S, 8]
+    canonical Montgomery words, FINISH_BLOCK segments at a time (read at
+    call time); the spare row is cut off."""
+    S = acc.shape[1] - 1
+    block = FINISH_BLOCK
+    if S <= block:
+        return words(FR.mont_sum_cols(acc[:, :S]))
+    out = torch.empty((S, FR.n), dtype=torch.int32, device=acc.device)
+    for s in range(0, S, block):
+        e = min(S, s + block)
+        out[s:e] = words(FR.mont_sum_cols(acc[:, s:e]))
+    return out
+
+
 def segment_sum_field(vals, seg_ids, num_segments: int):
     """Exact modular scatter-add: out[s] = sum of vals[i] with
     seg_ids[i] == s.  vals [G, 8] Montgomery words, seg_ids [G] int64;
-    out [S, 8].  Ids outside [0, S) (the JAX package's pad sentinels)
-    are dropped: they land in one spare row that is cut off, so no
-    index is ever out of range."""
-    S = num_segments
-    seg = seg_ids.to(torch.int64)
-    seg = torch.where((seg >= 0) & (seg < S), seg, torch.full_like(seg, S))
-    acc = torch.zeros((N_LIMBS, S + 1), dtype=torch.int64,
-                      device=vals.device)
-    acc.index_add_(1, seg, limbs16(vals))
-    return words(FR.mont_sum_cols(acc[:, :S]))
+    out [S, 8].  Ids outside [0, S) are dropped (`segment_add`)."""
+    acc = segment_cols(num_segments, vals.device)
+    return segment_finish(segment_add(acc, vals, seg_ids))

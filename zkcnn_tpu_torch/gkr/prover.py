@@ -38,13 +38,14 @@ import torch
 
 from ..field import FR
 from ..field.params import FR_P
-from ..field.ops import segment_sum_field
-from ..circuit import Circuit, Layer, LayerType
+from ..field.ops import segment_cols, segment_add, segment_finish
+from ..circuit import Circuit, LayerType
 from ..circuit.eval import two_mul_table
 from ..circuit.ir import UNI_LU, UNI_SC, BIN_SC, BIN_L
 from ..mle import beta_table, beta_table_2pt, phi_table
 from ..mle.fold import mle_eval_dev
 from .engine import Side, PhaseEngine, DotProdPhase1, _host, _fetch_ints
+from . import kernels
 from .kernels import (p1_mult, p2_mult, p2_uni_add_term, gather_pad,
                       zero_region_scale, mul_outer_flat, contract_counts,
                       dotprod_p1_V0_gates, dotprod_p2_mult)
@@ -82,6 +83,7 @@ class Prover:
         self.V_u1 = 0
         self.tm = two_mul_table(self.device)
         self.sumcheck_id = C.size
+        self._gates_host = {}         # layer id -> host gate split
         self._gates = {}              # layer id -> device gate split
         self._ori = {}                # layer id -> device subset maps
 
@@ -114,17 +116,23 @@ class Prover:
     # ------------------------------------------------------------------
     # gate tensors
 
-    @staticmethod
-    def _gate_host(layer: Layer):
+    def _gate_host(self, lid: int):
         """Host-side gate split by source class, computed once per
-        layer: uni by input/previous source, bin by (u, v) source and,
-        for the verifier's predicates, by source-layer code l."""
+        layer and kept for the proof: uni by input/previous source, bin
+        by (u, v) source and, for the verifier's predicates, by
+        source-layer code l (a class of one l is the class's own array,
+        not a copy; JAX `_gate_host`).  "rows" counts the rows of the
+        split."""
+        if lid in self._gates_host:
+            return self._gates_host[lid]
+        layer = self.C.layers[lid]
         uni, bi = layer.uni, layer.bin
-        cache = {}
+        cache = {"rows": 0}
 
         def put(key, arr):
             cache[key] = np.ascontiguousarray(arr, np.int64)
             cache[key + "_n"] = arr.shape[0]
+            cache["rows"] += arr.shape[0]
 
         put("uni0", uni[uni[:, UNI_LU] == 0])
         put("uni1", uni[uni[:, UNI_LU] != 0])
@@ -134,15 +142,19 @@ class Prover:
             for vb in (0, 1):
                 m = (u_in if ub == 0 else ~u_in) & \
                     (v_in if vb == 0 else ~v_in)
-                sub = bi[m]
-                put(f"bin{ub}{vb}", sub)
-                cache[f"bin{ub}{vb}_sc0"] = bool((sub[:, BIN_SC] == 0).all())
-                for lv in np.unique(sub[:, BIN_L]):
-                    put(f"bin{ub}{vb}_l{int(lv)}", sub[sub[:, BIN_L] == lv])
-        cache["uni0_sc0"] = bool((uni[uni[:, UNI_LU] == 0][:, UNI_SC]
-                                  == 0).all())
-        cache["uni1_sc0"] = bool((uni[uni[:, UNI_LU] != 0][:, UNI_SC]
-                                  == 0).all())
+                key = f"bin{ub}{vb}"
+                put(key, bi[m])
+                sub = cache[key]
+                cache[key + "_sc0"] = bool((sub[:, BIN_SC] == 0).all())
+                lvs = np.unique(sub[:, BIN_L])
+                for lv in lvs:
+                    if len(lvs) == 1:
+                        cache[f"{key}_l{int(lv)}"] = sub
+                    else:
+                        put(f"{key}_l{int(lv)}", sub[sub[:, BIN_L] == lv])
+        cache["uni0_sc0"] = bool((cache["uni0"][:, UNI_SC] == 0).all())
+        cache["uni1_sc0"] = bool((cache["uni1"][:, UNI_SC] == 0).all())
+        self._gates_host[lid] = cache
         return cache
 
     def _ori_dev(self, lid: int):
@@ -158,12 +170,17 @@ class Prover:
         return self._ori[lid]
 
     def _gate_dev(self, lid: int):
-        """Device copies of the layer's gate split (built on demand)."""
+        """Device copies of the layer's gate split (built on demand; an
+        array the split holds under two keys is copied once)."""
         if lid not in self._gates:
-            cache = {}
-            for key, arr in self._gate_host(self.C.layers[lid]).items():
-                cache[key] = torch.as_tensor(arr, device=self.device) \
-                    if isinstance(arr, np.ndarray) else arr
+            cache, seen = {}, {}
+            for key, arr in self._gate_host(lid).items():
+                if isinstance(arr, np.ndarray):
+                    if id(arr) not in seen:
+                        seen[id(arr)] = torch.as_tensor(arr,
+                                                        device=self.device)
+                    arr = seen[id(arr)]
+                cache[key] = arr
             cache.update(self._ori_dev(lid))
             self._gates[lid] = cache
         return self._gates[lid]
@@ -176,8 +193,16 @@ class Prover:
 
     def release_gates(self, lid: int):
         """Drop a layer's device gate tensors once its prover and
-        predicate work is done (rebuilt on demand)."""
+        predicate work is done (rebuilt on demand from the host split)."""
         self._gates.pop(lid, None)
+
+    def evict_gates(self, lid: int):
+        """Drop a layer's device gate tensors after its sumcheck if they
+        hold more than GATE_CHUNK rows (JAX `EVICT_ROWS`): a vgg-scale
+        layer would otherwise keep GBs on the card until the predicate
+        pass, which copies them up again from the host split."""
+        if self._gate_host(lid)["rows"] > kernels.GATE_CHUNK:
+            self.release_gates(lid)
 
     # ------------------------------------------------------------------
     # phase 1 inits
@@ -454,8 +479,8 @@ class Prover:
     # Liu input-consolidation phase (reference prover.cpp:312-358)
 
     def _liu_parts(self, sig_u: List[int], sig_v: List[int]):
-        """(beta part, subset ids) per layer side: the beta table over
-        the side's 2^bl subset slots, cut to the slots that exist."""
+        """(beta part, subset ids) per layer side, lazily: the beta table
+        over the side's 2^bl subset slots, cut to the slots that exist."""
         for i in range(1, self.C.size):
             ly = self.C.layers[i]
             cache = self._ori_dev(i)
@@ -471,12 +496,23 @@ class Prover:
 
     @_timed
     def sumcheck_liu_init(self, sig_u: List[int], sig_v: List[int]):
+        """The Liu phase's mult: every side's beta part streamed, one part
+        and GATE_CHUNK rows at a time, into one column accumulator, then
+        one blockwise modular finish (JAX `liu_plane_acc`).  One part's
+        table lives at a time; PyTorch's allocator reuses a chunk's
+        memory in stream order, so no sync bounds the queue (the JAX
+        package's LIU_SYNC_EVERY)."""
         self.sumcheck_id = 0
         c0 = self.C.layers[0]
         total = 1 << c0.bit_length
-        pieces = list(self._liu_parts(sig_u, sig_v))
-        mult = segment_sum_field(torch.cat([p for p, _ in pieces]),
-                                 torch.cat([s for _, s in pieces]), total)
+        acc = segment_cols(total, self.device)
+        step = kernels.GATE_CHUNK
+        for part, ori in self._liu_parts(sig_u, sig_v):
+            for s in range(0, ori.shape[0], step):
+                segment_add(acc, part[s:s + step], ori[s:s + step])
+            del part
+        mult = segment_finish(acc)
+        del acc
         V = self.val[0][:total]
         self.phase = PhaseEngine([None, Side(mult, V, c0.bit_length)],
                                  include_add_term=False)

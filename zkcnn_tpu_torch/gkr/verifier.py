@@ -507,6 +507,7 @@ class Verifier:
                     if cur.bit_length_v[1] >= 0 else 0
                 rec["next_alpha"], rec["next_beta"] = alpha, beta
             recs["layers"].append(rec)
+            p.evict_gates(i)
             p.release_val(i)
             self.log(f"prove layer {i:3d} {cur.ty.name:9s} "
                      f"bl={cur.bit_length}")

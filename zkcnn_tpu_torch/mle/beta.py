@@ -22,11 +22,29 @@ from ..field import FR, root_of_unity
 from ..field.params import FR_P
 
 
+# the largest table built by the doubling loop alone (bits); above it the
+# table is built in blocks of 2^BETA_BLOCK_BITS rows (read at call time):
+# the doubling's last step at 2^23 -> 2^24 rows would hold about 8 GB of
+# FR.mul temporaries at once (JAX `_BETA_JIT_MAX`)
+BETA_BLOCK_BITS = 20
+
+
 def beta_table(r, init, device):
-    """beta[i] = init * prod_k (r_k if bit_k(i) else 1-r_k), i < 2^l."""
+    """beta[i] = init * prod_k (r_k if bit_k(i) else 1-r_k), i < 2^l.
+    Above BETA_BLOCK_BITS challenges, out[j 2^m + i] = lo[i] * hi[j] with
+    lo the table of the low m challenges (and init) and hi that of the
+    rest: a canonical residue, so the same words as the doubling."""
     ell = len(r)
     if init % FR_P == 0:
         return FR.zeros(1 << ell, device)
+    m = BETA_BLOCK_BITS
+    if ell > m:
+        lo = beta_table(r[:m], init, device)
+        hi = beta_table(r[m:], 1, device)
+        out = torch.empty((1 << ell, FR.n), dtype=torch.int32, device=device)
+        for j in range(hi.shape[0]):
+            out[j << m:(j + 1) << m] = FR.mul(lo, hi[j])
+        return out
     B = FR.const(init, device)[None]
     for rk in r:
         top = FR.mul_scalar(B, FR.const(rk, device))
