@@ -118,7 +118,15 @@ Phases; any failure raises and the script exits non-zero:
      operation past the kernels, no plain Fr op inside ipa_prove, peak
      device memory under the card's 80 GB; its witness time, PT, VT, VT
      slow, POLY_PT, POLY_VT, the setup's table, launches by kernel, peak
-     memory and the log's laps printed;
+     memory and the log's laps printed.  Then vgg16 the same way
+     (PINNED_VGG16: WS 20843338(2^25); Liu's phase at (2^25, 25 rounds),
+     g1_msm at (4096, 8192), 13 ipa_round, no cubic_ladder; peak memory
+     by span).  Then LeNet5 pic_cnt=16 and lenetCifar through demo_lenet,
+     --no-pcs and with the commitment (PINNED_ZOO: the --no-pcs digests
+     the CPU's, pinned in tests/test_torch_zoo.py; cubic_ladder launched;
+     with the commitment the setup's table of 2048 / 512 bases, g1_msm at
+     (2048, 2048) / (512, 512), 11 / 9 ipa_round, no g1_add or
+     g1_scalar_mul, no plain Fr op inside ipa_prove);
   6. each entry against its plain version at every shape its run
      launched it at (the round kernels exact; the curve kernels as group
      elements, on 32-bit scalars laid out as the run lays them out, and
@@ -126,23 +134,37 @@ Phases; any failure raises and the script exits non-zero:
      entry, also at edge shapes that leave groups of a warp and of a block
      empty and at 1 and 2 windows), timed with CUDA events (g1_msm with
      and without building its table), with the least time the card could
-     take for the same work beside it;
+     take for the same work beside it (g1_scalar_mul and g1_msm at the
+     largest shape on full-size scalars against py_mul of the points'
+     discrete logs: no plain_ms there, and the kernel's and the plain
+     version's times on the same 32-bit scalars under ms_32bit and
+     plain_ms_32bit);
      fold_round's and fold_cubic_round's phase calls at every phase
-     shape of the Fiat-Shamir LeNet run, timed a phase.  At vgg11's
-     shapes: round_ladder at Liu's (2^24, 24 rounds) on random rows
-     against its plain version, exact; on the vgg11 run's own operands,
-     the commit's g1_msm at (4096, 4096) against Python integers (every
-     row commitment is py_mul of its discrete log, the generators being
-     s_i G for the tape's draws), the setup's table of 4096 bases against
-     its plain version entry by entry, and every round of the opening
-     (ipa_round at L = 4096) against its plain version word for word;
-     each timed beside its bound.  Then a LeNet
+     shape of the Fiat-Shamir LeNet run, timed a phase.  At the shapes of
+     the vgg and zoo runs: round_ladder at Liu's (2^24, 24 rounds) and
+     (2^25, 25 rounds) on random rows against its plain version, exact;
+     cubic_ladder at every shape of the LeNet5 pic_cnt=16 and lenetCifar
+     runs, exact; on the runs' own operands, the commits' g1_msm at
+     (4096, 4096), (4096, 8192) and (2048, 2048) against Python integers
+     (every row commitment is py_mul of its discrete log, the generators
+     being s_i G for the tape's draws), the setup tables of 4096, 8192,
+     2048 and 512 bases against one call of the plain version on vgg16's
+     8192 generators (every other run's are their first n_cols) entry by
+     entry, and every round of the vgg11, vgg16, LeNet5 pic_cnt=16 and
+     lenetCifar openings (ipa_round at L = 4096, 8192, 2048, 512) against
+     its plain version word for word; each timed beside its bound; and
+     every other shape those runs launched round_ladder, fold_ladder,
+     g1_msm and g1_msm_table at (the ladders exact on random rows,
+     g1_msm with one base against its plain version on 32-bit scalars and
+     with more against py_mul of the discrete logs, the tables on random
+     bases in the tables' one plain call).  Then a LeNet
      side's rounds one by one as the one-round form runs them
      (fold_round, a fetch a round) against one ladder and one phase
      call;
-  7. the seconds each phase took, one JSON line of the vgg11 run (its
-     times, sizes, peak memory, launches and digest), one JSON line of
-     the Fiat-Shamir
+  7. the seconds each phase took, one JSON line each of the vgg11,
+     vgg16, LeNet5 pic_cnt=16 and lenetCifar runs (their times, sizes,
+     peak memory, launches and digests), one JSON line of the
+     Fiat-Shamir
      path's measurements (round loops of the phase calls and of the
      one-round form, the device tape's microseconds, fetches, phases and
      device launches, one side three ways, the three-pass POLY_PT's
@@ -156,7 +178,8 @@ Phases; any failure raises and the script exits non-zero:
      FiatShamirTape, the curve kernels' to LeNet
      with the commitment, but g1_add's and g1_scalar_mul's to the
      fold-based opening, with their launches on the main path, 0, beside
-     them), the nvidia-smi name/power line, and the final JSON status
+     them; a key for each vgg and zoo run with its launches and, at its
+     new shapes, its times and bounds), the nvidia-smi name/power line, and the final JSON status
      line.
 """
 
@@ -238,6 +261,30 @@ PINNED_VGG11 = {
     "WS": "12975498(2^24)", "PS": "110.0000", "POLY_PS": "193.1562",
     "digest": "23242e8efa5404f2a8ef576a9433a91318683350776efe950a79f27187f5abdf",
 }
+# vgg16 CIFAR 32x32x3, pic_cnt=1, max pool, --synthetic --seed 17, with the
+# inner-product commitment, Tape(b"zkcnn-demo-17"): the port's own pin
+# (an H100 run; no run of the JAX package finished vgg16)
+PINNED_VGG16 = {
+    "WS": "20843338(2^25)", "PS": "147.0625", "POLY_PS": "193.2500",
+    "digest": "86e1e15008e77957c127175875a569bb956cbc68d5b003c2e4f30512b5e135bb",
+}
+# LeNet5 pic_cnt=16 and lenetCifar pic_cnt=1 (--synthetic --seed 17, max
+# pool, Tape(b"zkcnn-demo-17")): --no-pcs, the port's digests on the CPU,
+# pinned in tests/test_torch_zoo.py; with the inner-product commitment, the
+# port's own pins from an H100 run
+PINNED_ZOO = {
+    "lenet16": {
+        "argv": ["--pic-cnt", "16"], "WS": "2302154(2^22)", "PS": "56.0312",
+        "digest": "520847a982619b1813c7aa7f82f9f66cd62680f1510aaf2b75c3dc12356d588b",
+        "POLY_PS": "97.0625",
+        "pcs_digest": "bbe472360aed031164aa72933e0b734e57cfd5450146356997ebaf8d48d19153"},
+    "lenet-cifar": {
+        "argv": ["--model", "lenet-cifar"], "WS": "209998(2^18)",
+        "PS": "50.0625",
+        "digest": "6e44a2527c1a5ed294b45d6dc49394fd4e749cbc8197a789cf30f40a049f094e",
+        "POLY_PS": "24.8750",
+        "pcs_digest": "c7aa2df59d07bf373e59c4e510b70b85286e1b0324409ab0a51478cbc0ab8a23"},
+}
 # the card's memory
 DEVICE_BYTES = 80 * 10 ** 9
 # the chunk sizes of the LeNet proof run with its chunks lowered
@@ -298,7 +345,6 @@ MSM_BOUND_ROWS = 256
 LENET_RUN = "lenet --no-pcs"
 LENET_PCS_RUN = "lenet with the commitment"
 LENET_FS_RUN = "lenet under FiatShamirTape with the commitment"
-VGG_RUN = "vgg11 with the commitment"
 FOLDS_RUN = "ipa_prove_by_folds on the opening of lenet with the commitment"
 ENGINES_RUN = "the per-round engines at lenet's largest phases"
 # curve kernels that the LeNet opening no longer runs: their shapes and
@@ -322,7 +368,8 @@ TABLES_FIAT_SHAMIR = 4
 FR_OPS = ("dot_mont", "lincomb2_scalar", "mul")
 # ipa_round's edge shapes (L, n), each with and without a fold
 IPA_EDGE = [(2, 2), (4, 2), (8, 8), (8, 4), (128, 2), (512, 512), (512, 2),
-            (1024, 64), (4096, 4096), (4096, 2048)]
+            (1024, 64), (2048, 2048), (4096, 4096), (4096, 2048),
+            (8192, 8192), (8192, 4096)]
 
 
 def say(msg):
@@ -704,8 +751,8 @@ def tape_checks(torch, rk, FR, gen, rng, smi):
 
 
 def time_once_ms(torch, fn):
-    """One timed call with no warm-up, for a plain version that takes
-    seconds; returns (ms, result)."""
+    """One timed call with no warm-up, for a call that takes a second or
+    more (a plain version, a vgg commit); returns (ms, result)."""
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
@@ -1117,6 +1164,51 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
         "with a zero scalar and a repeated base")
 
 
+def g1_log_check(torch, curve, msm_mod, FR, name, shape, gen):
+    """g1_msm or g1_scalar_mul at `shape` on full-size scalars, laid out
+    as g1_inputs lays them out, against Python integers: the points are
+    s_i G for random s_i, so every output is one py_mul of G by its
+    discrete log (for the MSM, row r's sum_i k[r, i] s_i, formed on the
+    card with FR.dot_mont).  Raises on a mismatch; returns (the plain
+    scalars, the kernel call) for the timing and the bound."""
+    base = curve.base_point("cuda")
+    host = lambda t: [FR.int_host(w) for w in t.reshape(-1, 8)  # noqa: E731
+                      .cpu().numpy()]
+    if name == "g1_scalar_mul":
+        n, nbits, shared = shape
+        logs = rand_fe(torch, 1 if shared == "point" else n, gen)
+        pts = curve.scalar_mul(base, logs)
+        k = rand_scalars(torch, 1 if shared == "scalar" else n, gen, 255)
+        kern = lambda: curve.scalar_mul(  # noqa: E731
+            pts[0] if shared == "point" else pts,
+            k[0] if shared == "scalar" else k, nbits)
+        s, ks = host(logs), host(k)
+        want = [(ks[i % len(ks)] % (1 << nbits)) * s[i % len(s)] % FR_P
+                for i in range(n)]
+        scalars = k.expand(n, 8)
+    else:
+        R, N = shape
+        logs = rand_fe(torch, N, gen)
+        pts = curve.scalar_mul(base, logs)
+        k = rand_scalars(torch, R * N, gen, 255).reshape(R, N, 8)
+        if R == 2:
+            k[0, N // 2:] = 0
+            k[1, :N // 2] = 0
+        r_mont = FR.const(FR.R, "cuda")
+        mont = FR.mul_scalar(k, r_mont)                  # k R
+        fixed = msm_mod.FixedBaseMSM(pts)
+        kern = lambda: fixed.compute(mont)               # noqa: E731
+        kern.with_table = lambda: msm_mod.FixedBaseMSM(pts).compute(mont)
+        want = FR.unpack_mont_host(FR.dot_mont(
+            mont, FR.mul_scalar(logs, r_mont)[None], axis=-2).cpu().numpy())
+        scalars = k
+    G = (curve.G1_X, curve.G1_Y)
+    if curve.to_affine_host(kern()) != [curve.py_mul(G, e) for e in want]:
+        raise AssertionError(f"{name} at {shape} on full-size scalars "
+                             f"differs from py_mul of the discrete logs")
+    return scalars, kern
+
+
 def ipa_round_check(torch, ipa, args, what):
     """ipa_round against its plain version on the operands args (b, x,
     s, prev), word for word (rows, weights, folded b and x); raises on a
@@ -1179,12 +1271,13 @@ def table_shapes(torch, curve, msm_mod, shapes, gen):
     """g1_msm_table at each of its shapes (N, nwin) against one call of
     the plain version on all their bases at once (its time is a chain of
     doublings, whatever N), entries compared as group elements; raises on
-    a mismatch."""
+    a mismatch.  Returns that call's ms."""
     nwin = max(w for _, w in shapes)
     base = curve.base_point("cuda")
     pts = curve.scalar_mul(base, rand_fe(torch, sum(n for n, _ in shapes),
                                          gen))
-    want = msm_mod.msm_table_plain(pts, nwin)
+    pms, want = time_once_ms(torch,
+                             lambda: msm_mod.msm_table_plain(pts, nwin))
     at = 0
     for N, w in shapes:
         got = curve.table_kernel(pts[at:at + N], w)
@@ -1192,7 +1285,9 @@ def table_shapes(torch, curve, msm_mod, shapes, gen):
                     f"g1_msm_table at {(N, w)}")
         at += N
     say(f"g1_msm_table equals its plain version, entry by entry as group "
-        f"elements, at {shapes}")
+        f"elements, at {shapes} (the plain version in one call on all "
+        f"{len(pts)} bases: {pms:.4f} ms)")
+    return pms
 
 
 def capture_opening(torch, hyrax, ipa, FR):
@@ -1416,6 +1511,261 @@ def opening_checks(torch, ipa, curve, msm_mod, seen, smi, run):
     return fold_run, err
 
 
+def run_entry(torch, main_fn, argv, run, smi, spans=()):
+    """One run of a demo's main (no --cpu: the card), the base point's
+    table cleared first as in a fresh process and every count reset just
+    before and read just after; the commit's operands and the opening's
+    inputs kept (capture_opening), the card's peak memory read by span of
+    `spans` (memory_spans).  Prints the result and the launches; returns
+    the demo's result, the launches (wrapper calls that launched, device
+    kernels), shapes, curve operations past the kernels, a summary for
+    the JSON lines, the opening (seen) and the commit (committed)."""
+    from zkcnn_tpu_torch.field import FR, round_kernels as rk
+    from zkcnn_tpu_torch.gkr import engine
+    from zkcnn_tpu_torch.pcs import curve, hyrax, ipa
+    committed, real_commit = {}, hyrax.HyraxPCS.commit
+
+    def keep_commit(self, val0):
+        committed.update(pcs=self, val0=val0)
+        return real_commit(self, val0)
+
+    hyrax.HyraxPCS.commit = keep_commit
+    seen, uncapture = capture_opening(torch, hyrax, ipa, FR)
+    peaks, unwrap = memory_spans(torch, spans)
+    curve.BASE_TABLES.clear()
+    rk.reset_launches()
+    curve.reset_launches()
+    engine.FETCHES["rounds"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        res = main_fn(argv)
+        torch.cuda.synchronize()
+    finally:
+        unwrap()
+        uncapture()
+        hyrax.HyraxPCS.commit = real_commit
+    wall = time.time() - t0
+    if spans:
+        peaks["after verify"] = torch.cuda.max_memory_allocated()
+    # with spans, the runner's own peak covers only the stretch since the
+    # last read
+    peak = max([res["peak_bytes"]] + list(peaks.values()))
+    launches = {k: rk.LAUNCHES[k] for k in rk.NAMES}
+    launches.update(curve.LAUNCHES)
+    device = {k: rk.KERNEL_LAUNCHES[k] for k in rk.NAMES}
+    device.update(curve.KERNEL_LAUNCHES)
+    shapes = {k: sorted(rk.SHAPES[k]) for k in LADDERS}
+    shapes.update({k: sorted(curve.SHAPES[k]) for k in curve.NAMES})
+    plain = dict(curve.PLAIN_CALLS)
+    fetches = engine.FETCHES["rounds"]
+    row = res["row"]
+    summary = {"wall_s": wall, "witness_s": res["witness_s"],
+               "pt_s": res["pt"], "vt_s": res["vt"],
+               "vt_slow_s": res["vt_slow"], "poly_pt_s": res["poly_pt"],
+               "poly_vt_s": res["poly_vt"],
+               "poly_commit_s": res["poly_commit_s"],
+               "table_s": res["poly_table_s"], "ps_kb": row["PS"],
+               "poly_ps_kb": row["POLY_PS"], "ws": row["WS"],
+               "peak_gib": peak / 2 ** 30, "round_fetches": fetches,
+               "launches": launches, "device_launches": device,
+               "digest": res["digest"], "device": smi}
+    if spans:
+        summary["peak_gib_by_span"] = {k: v / 2 ** 30
+                                       for k, v in peaks.items()}
+    say(f"{run}: Verification pass, WS {row['WS']}, PS {row['PS']} KB, "
+        f"POLY_PS {row['POLY_PS']} KB, witness {res['witness_s']:.2f} s, PT "
+        f"{row['PT']} s, VT {row['VT']} s (slow {res['vt_slow']:.2f} s), "
+        f"POLY_PT {row['POLY_PT']} s (the row commitments "
+        f"{res['poly_commit_s']:.4f} s), POLY_VT {row['POLY_VT']} s, the "
+        f"setup's table {res['poly_table_s']:.4f} s, peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB, {wall:.1f} s in all ({smi}); digest "
+        f"{res['digest']}")
+    say(f"{run} row: {res['line']}")
+    say(f"{run} wrapper calls that launched: {launches} (device kernels "
+        f"{device}); {fetches} round fetches; not through a kernel: "
+        f"{plain}; shapes: {shapes}")
+    if spans:
+        say(f"{run} peak device memory by span (GiB; 'before X': from the "
+            f"end of the previous span to X's start, the witness before the "
+            f"setup): " + ", ".join(f"{k} {v / 2 ** 30:.2f}"
+                                   for k, v in peaks.items()) + f" ({smi})")
+    return {"run": run, "res": res, "launches": launches, "device": device,
+            "shapes": shapes, "plain": plain, "fetches": fetches,
+            "peak": peak, "summary": summary, "seen": seen,
+            "committed": committed}
+
+
+def check_run(r, want, must=(), never=()):
+    """Raises unless run r's (WS, PS, POLY_PS, digest) equal `want`, every
+    wrapper of `must` launched and none of `never`, no curve operation
+    went past the kernels, its peak stayed under the card's memory and
+    its opening, if it opened, made no plain Fr op call."""
+    run, row, launches = r["run"], r["res"]["row"], r["launches"]
+    got = (row["WS"], row["PS"], row["POLY_PS"], r["res"]["digest"])
+    if got != tuple(want):
+        raise AssertionError(f"{run}: WS/PS/POLY_PS/digest {got} differ "
+                             f"from {tuple(want)}")
+    for k in must:
+        if launches[k] <= 0:
+            raise AssertionError(f"{run} never launched kernel {k}")
+    for k in never:
+        if launches[k]:
+            raise AssertionError(f"{run} launched {k} {launches[k]} times")
+    if any(r["plain"].values()):
+        raise AssertionError(f"{run}: curve operations went past the "
+                             f"kernels: {r['plain']}")
+    if r["peak"] >= DEVICE_BYTES:
+        raise AssertionError(f"{run}: peak device memory {r['peak']} bytes")
+    if "b" in r["seen"]:
+        opening_fr_check(r["seen"], run)
+
+
+def vgg_run(torch, model, pin, smi):
+    """vgg11 or vgg16 (CIFAR 32x32x3, pic_cnt=1) through the port's
+    demo_vgg entry (--synthetic --seed 17 --log, the inner-product
+    commitment), the peak device memory read by span of verify().  It
+    must verify with WS, PS, POLY_PS and digest equal to `pin`, launch
+    round_ladder (Liu's phase at (2^bl, bl) among its shapes),
+    fold_ladder, g1_msm_table, g1_msm at the commitment's (rows, cols)
+    and one ipa_round a round of the opening, no per-round entry, no
+    cubic_ladder (no convolution of a vgg is an FFT one), no g1_add or
+    g1_scalar_mul (check_run).  Returns the run, its commit's operands
+    moved to the host."""
+    from zkcnn_tpu_torch.cli import demo_vgg
+    from zkcnn_tpu_torch.gkr import Verifier
+    from zkcnn_tpu_torch.pcs import hyrax
+    r = run_entry(torch, demo_vgg.main, [
+        "--synthetic", "--seed", "17", "--model", model, "--log"],
+        f"{model} with the commitment", smi, spans=[
+            (hyrax.HyraxPCS, "setup"), (hyrax.HyraxPCS, "commit"),
+            (Verifier, "_prover_pass"), (Verifier, "_predicate_pass"),
+            (Verifier, "_replay"), (hyrax.HyraxPCS, "open"),
+            (hyrax.HyraxPCS, "verify")])
+    check_run(r, (pin["WS"], pin["PS"], pin["POLY_PS"], pin["digest"]),
+              must=("round_ladder", "fold_ladder", "g1_msm_table", "g1_msm",
+                    "ipa_round"),
+              never=PER_ROUND + FOLD_KERNELS + ("cubic_ladder",))
+    pcs, shapes = r["committed"]["pcs"], r["shapes"]
+    liu, commit = (1 << pcs.logn, pcs.logn), (pcs.n_rows, pcs.n_cols)
+    if liu not in shapes["round_ladder"] or \
+            commit not in shapes["g1_msm"] or \
+            r["launches"]["ipa_round"] != pcs.l_col:
+        raise AssertionError(f"{model}: no round ladder at {liu}, no g1_msm "
+                             f"at {commit} or not {pcs.l_col} ipa_round "
+                             f"launches: {shapes}")
+    r.update(liu=liu, committed=keep_commit_operands(r["committed"],
+                                                     r["seen"]))
+    return r
+
+
+def zoo_lenet_runs(torch, name, pin, smi):
+    """LeNet5 pic_cnt=16 or lenetCifar through the port's demo_lenet entry
+    (--synthetic --seed 17), --no-pcs and then with the inner-product
+    commitment: each must verify with its WS and PS, launch every ladder
+    (the cubic ones: the FFT convolutions' DOT_PROD phases) and no
+    per-round entry; the digest --no-pcs equal to the CPU's pin, with the
+    commitment POLY_PS and digest equal to the card's pin, the setup's
+    table of n_cols bases, g1_msm at (n_rows, n_cols), one ipa_round a
+    round, at most 5 tables and no g1_add or g1_scalar_mul.  Returns the
+    two runs, the second's commit operands moved to the host."""
+    from zkcnn_tpu_torch.cli import demo_lenet
+    from zkcnn_tpu_torch.pcs import curve
+    out = {}
+    for pcs_on in (False, True):
+        run = f"{name} {'with the commitment' if pcs_on else '--no-pcs'}"
+        r = run_entry(torch, demo_lenet.main, ["--synthetic", "--seed", "17"]
+                      + pin["argv"] + ([] if pcs_on else ["--no-pcs"]),
+                      run, smi)
+        want = (pin["WS"], pin["PS"], pin["POLY_PS"] if pcs_on else "0.0000",
+                pin["pcs_digest"] if pcs_on else pin["digest"])
+        check_run(r, want, must=LADDERS,
+                  never=PER_ROUND + (FOLD_KERNELS if pcs_on else ()))
+        out["pcs" if pcs_on else "no_pcs"] = r
+        if not pcs_on:
+            continue
+        pcs, shapes, launches = r["committed"]["pcs"], r["shapes"], \
+            r["launches"]
+        table, commit = (pcs.n_cols, curve.NWIN), (pcs.n_rows, pcs.n_cols)
+        if table not in shapes["g1_msm_table"] or \
+                commit not in shapes["g1_msm"] or \
+                launches["ipa_round"] != pcs.l_col or \
+                launches["g1_msm_table"] > TABLES_THREE_PASS:
+            raise AssertionError(f"{run}: no table at {table}, no g1_msm at "
+                                 f"{commit}, not {pcs.l_col} ipa_round "
+                                 f"launches or more than {TABLES_THREE_PASS} "
+                                 f"tables: {launches}, {shapes}")
+        r["committed"] = keep_commit_operands(r["committed"], r["seen"])
+    return out
+
+
+def keep_commit_operands(committed, seen):
+    """What phase 6 needs of a run's commit (the committed layer, on the
+    host; the generators; the row commitments; the matrix's shape),
+    without the setup's table, which the opening's capture drops too: a
+    later run's peak memory must not count this run's tensors."""
+    pcs = committed.pop("pcs")
+    seen.pop("gen_msm")
+    return {"val0": committed.pop("val0").cpu(), "gens": pcs.gens,
+            "row_commits": pcs.row_commits,
+            "shape": (pcs.n_rows, pcs.n_cols)}
+
+
+def commit_check(torch, curve, msm_mod, FR, Tape, committed, run, smi):
+    """The commit's g1_msm on the run's own operands (the input as an
+    n_rows x n_cols matrix over the setup's generators, whose table is
+    built again): every row equals py_mul of its discrete log (the
+    generators are s_i G for the tape's first draws, so row r is
+    (sum_i m[r, i] s_i) G; the plain version at this shape would run
+    n_rows x n_cols double-and-add chains), timed in one call beside its
+    bound.  Returns the measurements."""
+    shape = committed["shape"]
+    mat = committed["val0"][:shape[0] * shape[1]].cuda().reshape(
+        *shape, FR.n)
+    fixed = msm_mod.FixedBaseMSM(committed["gens"])
+    ms, got = time_once_ms(torch, lambda: fixed.compute(mat))
+    same_points(msm_mod, got, committed["row_commits"], f"g1_msm at {shape}")
+    draws = Tape(b"zkcnn-demo-17").fields(shape[1])
+    s_mont = torch.from_numpy(FR.pack_mont_host(draws)).cuda()
+    logs = FR.unpack_mont_host(FR.dot_mont(mat, s_mont[None], axis=-2)
+                               .cpu().numpy())
+    G = (curve.G1_X, curve.G1_Y)
+    if curve.to_affine_host(got) != [curve.py_mul(G, k) for k in logs]:
+        raise AssertionError(f"g1_msm at {shape} in {run} differs from "
+                             f"py_mul")
+    scalars = torch.cat([msm_mod.plain_scalars(mat[r:r + MSM_BOUND_ROWS])
+                         for r in range(0, shape[0], MSM_BOUND_ROWS)])
+    b_ms, b_by = g1_bound(torch, curve, "g1_msm", shape, scalars)
+    say(f"g1_msm at {shape} (the commit of {run}): its {shape[0]} rows "
+        f"equal py_mul of their discrete logs; kernel {ms:.4f} ms (one "
+        f"call), bound {b_ms:.6f} ms by {b_by} ({smi})")
+    return {"shape": list(shape), "max_abs_err": 0, "ms": ms,
+            "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def opening_rounds_check(torch, ipa, seen, run, smi):
+    """Every ipa_round of the run's opening against its plain version,
+    word for word, each timed; round 0 (L, L), the largest, timed with
+    its plain version beside its bound.  Returns the measurements."""
+    per, err = [], 0
+    for args in seen["rounds"]:
+        e, kern, _ = ipa_round_check(torch, ipa, args, run)
+        err = max(err, e)
+        per.append((ipa_round_shape(args), time_ms(torch, kern, 20)))
+    _, kern, plain = ipa_round_check(torch, ipa, seen["rounds"][0], run)
+    ms, pms = time_ms(torch, kern, 20), time_once_ms(torch, plain)[0]
+    shape = per[0][0][0]
+    b_ms, b_by = ipa_round_bound(shape, False)
+    say(f"ipa_round at {shape}, round 0 of {run}'s opening: every one of "
+        f"its {len(per)} rounds equal to its plain version; kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.6f} ms by {b_by}; "
+        f"all rounds {sum(t for _, t in per):.4f} ms ({smi})")
+    return {"shape": list(shape), "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
+            "ms_all_rounds": sum(t for _, t in per)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1490,7 +1840,9 @@ def main():
     fp_ns = fp_checks(torch, curve, FP, rng, smi)
     lap("Fp product")
     g1_checks(torch, curve, msm_mod, FR, gen, rng)
+    lap("curve kernels' checks")
     sweep = table_sweep(torch, curve, gen, smi)
+    lap("the table's stages")
     ipa_err = 0
     for shape in IPA_EDGE:
         for fold in (False, True):
@@ -1499,7 +1851,7 @@ def main():
                     torch, ipa, shape, fold, gen, rng, fill)[0])
     say(f"ipa_round exact (tolerance 0; random rows and rows of p - 1, "
         f"with and without a fold) at (L, n) = {IPA_EDGE}")
-    lap("curve kernels' checks")
+    lap("ipa_round at edge shapes")
 
     from zkcnn_tpu_torch.nn import random_source, NeuralNetwork
     from zkcnn_tpu_torch.nn import models as zoo
@@ -1626,39 +1978,17 @@ def main():
 
     # 5. LeNet through the demo entry; counts cover exactly this run
     from zkcnn_tpu_torch.cli import demo_lenet
-    rk.reset_launches()
-    engine.FETCHES["rounds"] = 0
-    res = demo_lenet.main(["--synthetic", "--seed", "17", "--no-pcs",
-                           "--pic-cnt", "1"])      # no --cpu: the card
-    torch.cuda.synchronize()
-    lenet = {k: rk.LAUNCHES[k] for k in rk.NAMES}
+    r = run_entry(torch, demo_lenet.main, ["--synthetic", "--seed", "17",
+                                           "--no-pcs", "--pic-cnt", "1"],
+                  LENET_RUN, smi)
+    check_run(r, (PINNED_LENET["WS"], PINNED_LENET["PS"], "0.0000",
+                  PINNED_LENET["digest"]), must=LADDERS, never=PER_ROUND)
+    lenet, fetches = r["launches"], r["fetches"]
     launches = {k: lenet[k] for k in LADDERS}
-    shapes = {k: sorted(rk.SHAPES[k]) for k in LADDERS}
-    device_launches = sum(rk.KERNEL_LAUNCHES.values())
-    fetches = engine.FETCHES["rounds"]
-    row = res["row"]
-    say(f"lenet: Verification pass, WS {row['WS']}, PS {row['PS']} KB, "
-        f"PT {row['PT']} s, VT {row['VT']} s, witness "
-        f"{res['witness_s']:.2f} s, digest {res['digest']}")
-    say(f"lenet row: {res['line']}")
-    say(f"lenet wrapper calls that launched: {lenet}")
-    say(f"lenet round loops: {device_launches} device launches "
-        f"({dict(rk.KERNEL_LAUNCHES)}), {fetches} host fetches, for "
-        f"{lenet['round_ladder']} quadratic sides and "
-        f"{lenet['cubic_ladder']} cubic phases")
-    if row["WS"] != PINNED_LENET["WS"] or row["PS"] != PINNED_LENET["PS"]:
-        raise AssertionError(f"lenet WS/PS {row['WS']}/{row['PS']} differ "
-                             f"from {PINNED_LENET}")
-    if res["digest"] != PINNED_LENET["digest"]:
-        raise AssertionError(f"lenet digest {res['digest']} differs from "
-                             f"the CPU pin {PINNED_LENET['digest']}")
-    for name in LADDERS:
-        if lenet[name] <= 0:
-            raise AssertionError(f"lenet never launched kernel {name}")
-    for name in PER_ROUND:
-        if lenet[name]:
-            raise AssertionError(f"lenet ran {name} {lenet[name]} times: "
-                                 f"its rounds should all run in ladders")
+    shapes = {k: r["shapes"][k] for k in LADDERS}
+    say(f"lenet round loops: {sum(r['device'][k] for k in rk.NAMES)} device "
+        f"launches, {fetches} host fetches, for {lenet['round_ladder']} "
+        f"quadratic sides and {lenet['cubic_ladder']} cubic phases")
     # a phase fetches once for all its sides
     if fetches > lenet["round_ladder"] + lenet["cubic_ladder"]:
         raise AssertionError(f"{fetches} fetches for "
@@ -1668,8 +1998,11 @@ def main():
 
     # LeNet again with the commitment (inner-product opening); the counts
     # of the curve kernels and of the ladders cover exactly this run, and
-    # the opening keeps its inputs for the fold-based opening below
-    pcs_seen, uncapture = capture_opening(torch, hyrax, ipa, FR)
+    # the opening keeps its inputs for the fold-based opening below.  The
+    # opening runs on the setup's table: a round is one ipa_round and one
+    # g1_msm launch, no fold of G and no table of its own; the tables are
+    # the setup's, the base point's (the tape's generators and Q's in open
+    # and in verify draw on it), Q's opening table and the verifier's two
     opened, real_open = {}, hyrax.HyraxPCS.open
 
     def keep_open(self, val0, r, eval_in, tape):
@@ -1677,54 +2010,25 @@ def main():
         return real_open(self, val0, r, eval_in, tape)
 
     hyrax.HyraxPCS.open = keep_open
-    curve.BASE_TABLES.clear()          # the base point's table as a fresh
-    rk.reset_launches()                # process builds it
-    curve.reset_launches()
     try:
-        res = demo_lenet.main(["--synthetic", "--seed", "17",
-                               "--pic-cnt", "1"])
-        torch.cuda.synchronize()
+        r = run_entry(torch, demo_lenet.main, ["--synthetic", "--seed", "17",
+                                               "--pic-cnt", "1"],
+                      LENET_PCS_RUN, smi)
     finally:
-        uncapture()
         hyrax.HyraxPCS.open = real_open
-    g1_launches = dict(curve.LAUNCHES)
-    g1_shapes = {k: sorted(curve.SHAPES[k]) for k in curve.NAMES}
-    g1_plain = dict(curve.PLAIN_CALLS)
-    row = res["row"]
-    say(f"lenet with the commitment: Verification pass, WS {row['WS']}, PS "
-        f"{row['PS']} KB, POLY_PS {row['POLY_PS']} KB, PT {row['PT']} s, "
-        f"POLY_PT {row['POLY_PT']} s (the row commitments "
-        f"{res['poly_commit_s']:.4f} s, the opening "
-        f"{res['poly_pt'] - res['poly_commit_s']:.4f} s; the setup's table "
-        f"of the generators, outside POLY_PT, {res['poly_table_s']:.4f} s), "
-        f"POLY_VT {row['POLY_VT']} s ({smi}), digest {res['digest']}")
-    say(f"lenet row: {res['line']}")
-    say(f"lenet with the commitment, curve wrapper calls that launched: "
-        f"{g1_launches} (device kernels {dict(curve.KERNEL_LAUNCHES)}), "
-        f"not through a kernel: {g1_plain}; ladders: "
-        f"{ {k: rk.LAUNCHES[k] for k in LADDERS} }")
-    if (row["WS"], row["PS"], row["POLY_PS"]) != (
-            PINNED_LENET["WS"], PINNED_LENET["PS"],
-            PINNED_LENET_PCS["POLY_PS"]):
-        raise AssertionError(f"lenet with the commitment: WS/PS/POLY_PS "
-                             f"{row['WS']}/{row['PS']}/{row['POLY_PS']}")
-    if res["digest"] != PINNED_LENET_PCS["digest"]:
-        raise AssertionError(f"lenet digest {res['digest']} differs from "
-                             f"the CPU pin {PINNED_LENET_PCS['digest']}")
-    # the opening runs on the setup's table: a round is one ipa_round
-    # and one g1_msm launch, no fold of G and no table of its own; the
-    # tables are the setup's, the base point's (the tape's generators and
-    # Q's in open and in verify draw on it), Q's opening table and the
-    # verifier's two
+    res, pcs_seen = r["res"], r["seen"]
+    g1_launches = {k: r["launches"][k] for k in curve.NAMES}
+    g1_shapes = {k: r["shapes"][k] for k in curve.NAMES}
+    say(f"lenet with the commitment: the opening "
+        f"{res['poly_pt'] - res['poly_commit_s']:.4f} s of POLY_PT; the "
+        f"setup's table of the generators is outside POLY_PT")
+    check_run(r, (PINNED_LENET["WS"], PINNED_LENET["PS"],
+                  PINNED_LENET_PCS["POLY_PS"], PINNED_LENET_PCS["digest"]),
+              must=LADDERS + tuple(k for k in curve.NAMES
+                                   if k not in FOLD_KERNELS),
+              never=FOLD_KERNELS)
+    del r           # the setup's table: no later run's peak counts it
     rounds_ipa = len(pcs_seen["b"]).bit_length() - 1
-    for name in curve.NAMES:
-        if name not in FOLD_KERNELS and g1_launches[name] <= 0:
-            raise AssertionError(f"lenet never launched kernel {name}")
-    for name in FOLD_KERNELS:
-        if g1_launches[name]:
-            raise AssertionError(f"lenet launched {name} "
-                                 f"{g1_launches[name]} times: the opening "
-                                 f"should fold no point")
     if g1_launches["g1_msm_table"] > TABLES_THREE_PASS or \
             g1_launches["ipa_round"] != rounds_ipa:
         raise AssertionError(f"lenet with the commitment: "
@@ -1732,14 +2036,6 @@ def main():
                              f"{TABLES_THREE_PASS}), "
                              f"{g1_launches['ipa_round']} ipa_round "
                              f"launches for {rounds_ipa} rounds")
-    if any(g1_plain.values()):
-        raise AssertionError(f"curve operations went past the kernels: "
-                             f"{g1_plain}")
-    for name in LADDERS:
-        if rk.LAUNCHES[name] <= 0:
-            raise AssertionError(f"lenet with the commitment never launched "
-                                 f"kernel {name}")
-    opening_fr_check(pcs_seen, LENET_PCS_RUN)
     poly_split = poly_pt_split(torch, hyrax, FR, opened, res, pcs_seen, smi)
     del opened
 
@@ -1977,108 +2273,23 @@ def main():
 
     lap("lenet with the chunks lowered")
 
-    # 5c. vgg11 through the port's demo_vgg entry (--synthetic --seed 17,
-    # the inner-product commitment); the counts cover exactly this run,
-    # and the commit and the opening keep their operands for phase 6
-    from zkcnn_tpu_torch.cli import demo_vgg
-    committed, real_commit = {}, hyrax.HyraxPCS.commit
-
-    def keep_commit(self, val0):
-        committed.update(pcs=self, val0=val0)
-        return real_commit(self, val0)
-
-    hyrax.HyraxPCS.commit = keep_commit
-    vgg_seen, uncapture = capture_opening(torch, hyrax, ipa, FR)
-    peaks, unwrap = memory_spans(torch, [
-        (hyrax.HyraxPCS, "setup"), (hyrax.HyraxPCS, "commit"),
-        (Verifier, "_prover_pass"), (Verifier, "_predicate_pass"),
-        (Verifier, "_replay"), (hyrax.HyraxPCS, "open"),
-        (hyrax.HyraxPCS, "verify")])
-    curve.BASE_TABLES.clear()
-    rk.reset_launches()
-    curve.reset_launches()
-    engine.FETCHES["rounds"] = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    try:
-        res = demo_vgg.main(["--synthetic", "--seed", "17", "--model",
-                             "vgg11", "--log"])     # no --cpu: the card
-        torch.cuda.synchronize()
-    finally:
-        unwrap()
-        uncapture()
-        hyrax.HyraxPCS.commit = real_commit
-    vgg_wall = time.time() - t0
-    peaks["after verify"] = torch.cuda.max_memory_allocated()
-    # the runner's own peak covers only the stretch since the last read
-    peak = max(peaks.values())
-    vgg_launches = {k: rk.LAUNCHES[k] for k in rk.NAMES}
-    vgg_launches.update(curve.LAUNCHES)
-    vgg_device = {k: rk.KERNEL_LAUNCHES[k] for k in rk.NAMES}
-    vgg_device.update(curve.KERNEL_LAUNCHES)
-    vgg_shapes = {k: sorted(rk.SHAPES[k]) for k in LADDERS}
-    vgg_shapes.update({k: sorted(curve.SHAPES[k]) for k in curve.NAMES})
-    vgg_plain = dict(curve.PLAIN_CALLS)
-    row = res["row"]
-    vgg = {"wall_s": vgg_wall, "witness_s": res["witness_s"],
-           "pt_s": res["pt"], "vt_s": res["vt"], "vt_slow_s": res["vt_slow"],
-           "poly_pt_s": res["poly_pt"], "poly_vt_s": res["poly_vt"],
-           "poly_commit_s": res["poly_commit_s"],
-           "table_s": res["poly_table_s"], "ps_kb": row["PS"],
-           "poly_ps_kb": row["POLY_PS"], "ws": row["WS"],
-           "peak_gib": peak / 2 ** 30,
-           "peak_gib_by_span": {k: v / 2 ** 30 for k, v in peaks.items()},
-           "round_fetches": engine.FETCHES["rounds"],
-           "launches": vgg_launches, "device_launches": vgg_device,
-           "digest": res["digest"], "device": smi}
-    say(f"vgg11: Verification pass, WS {row['WS']}, PS {row['PS']} KB, "
-        f"POLY_PS {row['POLY_PS']} KB, witness {res['witness_s']:.2f} s, PT "
-        f"{row['PT']} s, VT {row['VT']} s (slow {res['vt_slow']:.2f} s), "
-        f"POLY_PT {row['POLY_PT']} s (the row commitments "
-        f"{res['poly_commit_s']:.4f} s), POLY_VT {row['POLY_VT']} s, the "
-        f"setup's table {res['poly_table_s']:.4f} s, peak device memory "
-        f"{vgg['peak_gib']:.2f} GiB, {vgg_wall:.1f} s in all ({smi}); digest "
-        f"{res['digest']}")
-    say(f"vgg11 row: {res['line']}")
-    say(f"vgg11 wrapper calls that launched: {vgg_launches} (device kernels "
-        f"{vgg_device}); {vgg['round_fetches']} round fetches; not through a "
-        f"kernel: {vgg_plain}; shapes: {vgg_shapes}")
-    if (row["WS"], row["PS"], row["POLY_PS"], res["digest"]) != (
-            PINNED_VGG11["WS"], PINNED_VGG11["PS"], PINNED_VGG11["POLY_PS"],
-            PINNED_VGG11["digest"]):
-        raise AssertionError(f"vgg11: WS/PS/POLY_PS/digest {row['WS']}/"
-                             f"{row['PS']}/{row['POLY_PS']}/{res['digest']} "
-                             f"differ from {PINNED_VGG11}")
-    # the path: every round in ladders (no convolution of vgg11 is an FFT
-    # one, so no cubic phase), the commitment's table, MSM and opening
-    for name in ("round_ladder", "fold_ladder", "g1_msm_table", "g1_msm",
-                 "ipa_round"):
-        if vgg_launches[name] <= 0:
-            raise AssertionError(f"vgg11 never launched kernel {name}")
-    for name in PER_ROUND + FOLD_KERNELS:
-        if vgg_launches[name]:
-            raise AssertionError(f"vgg11 launched {name} "
-                                 f"{vgg_launches[name]} times")
-    if any(vgg_plain.values()):
-        raise AssertionError(f"vgg11: curve operations went past the "
-                             f"kernels: {vgg_plain}")
-    liu = (1 << 24, 24)
-    if liu not in vgg_shapes["round_ladder"] or \
-            (4096, 4096) not in vgg_shapes["g1_msm"] or \
-            vgg_launches["ipa_round"] != 12:
-        raise AssertionError(f"vgg11: no round ladder at {liu}, no g1_msm "
-                             f"at (4096, 4096) or not 12 ipa_round launches: "
-                             f"{vgg_shapes}")
-    say(f"vgg11 peak device memory by span (GiB; 'before X': from the "
-        f"end of the previous span to X's start, the witness before the "
-        f"setup): " + ", ".join(f"{k} {v / 2 ** 30:.2f}"
-                               for k, v in peaks.items()) + f" ({smi})")
-    if peak >= DEVICE_BYTES:
-        raise AssertionError(f"vgg11: peak device memory {peak} bytes")
-    opening_fr_check(vgg_seen, VGG_RUN)
-
+    # 5c. vgg11 and vgg16 through the port's demo_vgg entry (--synthetic
+    # --seed 17, the inner-product commitment); the counts cover exactly
+    # each run, and the commit and the opening keep their operands for
+    # phase 6
+    vgg11 = vgg_run(torch, "vgg11", PINNED_VGG11, smi)
     lap("vgg11")
+    vgg16 = vgg_run(torch, "vgg16", PINNED_VGG16, smi)
+    lap("vgg16")
+
+    # 5d. LeNet5 pic_cnt=16 and lenetCifar through the port's demo_lenet
+    # entry, --no-pcs and with the commitment
+    zoo_runs = {}
+    for name, pin in PINNED_ZOO.items():
+        zoo_runs[name] = zoo_lenet_runs(torch, name, pin, smi)
+        lap(name)
+    zoo_summaries = {name: {k: zr[k]["summary"] for k in ("no_pcs", "pcs")}
+                     for name, zr in zoo_runs.items()}
 
     # 6. every entry against its plain version at the shapes of its run,
     # timed; the reported time is at the largest of them.  The per-round
@@ -2098,7 +2309,7 @@ def main():
             say(f"time {name} {shape}: kernel {ms:.4f} ms ({smi})")
         shape = max(seen)
         e, kern, plain = compare(torch, rk, name, shape, gen, rng)
-        ms, pms = time_ms(torch, kern, 20), time_ms(torch, plain, 3)
+        ms, pms = time_ms(torch, kern, 20), time_once_ms(torch, plain)[0]
         b_ms, b_by = bound(name, shape)
         say(f"reported time of {name}: the largest shape of its run "
             f"({run}) {shape}: "
@@ -2130,7 +2341,7 @@ def main():
                 sum(1 << nb for nb in sh[:2] if nb >= 0), sh)
                 if name == "fold_round" else sh)
             e, kern, plain = phase_compare(torch, rk, name, big, gen, rng)
-            ms, pms = time_ms(torch, kern, 10), time_ms(torch, plain, 1)
+            ms, pms = time_ms(torch, kern, 10), time_once_ms(torch, plain)[0]
             b_ms, b_by = phase_bound(name, big)
             say(f"reported time of {name}: its largest phase in "
                 f"{LENET_FS_RUN} {big}: kernels {ms:.4f} ms a phase "
@@ -2143,6 +2354,22 @@ def main():
                          bound_ms=b_ms, bound_by=b_by, shape=list(big),
                          run=LENET_FS_RUN, one_round_form=one_round)
         kernels.append(entry)
+    # cubic_ladder at every shape of the LeNet5 pic_cnt=16 and lenetCifar
+    # runs, each against its plain version, timed beside its bound
+    zoo_cubic = {}
+    for name, zr in zoo_runs.items():
+        for shape in sorted(set(zr["no_pcs"]["shapes"]["cubic_ladder"])
+                            | set(zr["pcs"]["shapes"]["cubic_ladder"])):
+            e, kern, plain = compare(torch, rk, "cubic_ladder", shape, gen,
+                                     rng)
+            ms, pms = time_ms(torch, kern, 20), time_once_ms(torch, plain)[0]
+            b_ms, b_by = bound("cubic_ladder", shape)
+            zoo_cubic.setdefault(name, []).append({
+                "shape": list(shape), "max_abs_err": e, "ms": ms,
+                "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by})
+            say(f"cubic_ladder at {shape} ({name}): equal to its plain "
+                f"version; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+                f"{b_ms:.6f} ms by {b_by} ({smi})")
     say("kernels exact (tolerance 0) at every shape of their runs")
 
     lap("round kernels at their runs' shapes")
@@ -2150,9 +2377,12 @@ def main():
     # the curve kernels at every shape of their run (the LeNet run with
     # the commitment; G1 and G2: the fold-based opening of its opening),
     # as group elements: against the plain version on 32-bit scalars (it
-    # takes seconds a shape), and at the largest shape on full-size
-    # scalars too (one call of the plain version: about a minute);
-    # ipa_round word for word
+    # takes seconds a shape; the tables in one call on all their bases),
+    # and at the largest shape on full-size scalars too (g1_add against
+    # its plain version; g1_scalar_mul and g1_msm against py_mul of the
+    # discrete logs, where a plain run takes about a minute: their entries
+    # carry no plain_ms, and the kernel's and the plain version's times on
+    # the same 32-bit scalars apart); ipa_round word for word
     for name in curve.NAMES:
         run, seen_shapes, launched = LENET_PCS_RUN, g1_shapes, g1_launches
         if name in FOLD_KERNELS:
@@ -2189,14 +2419,18 @@ def main():
                 f"({smi})")
             continue
         if name == "g1_msm_table":
-            table_shapes(torch, curve, msm_mod,
-                         sorted(seen_shapes[name]) + TABLE_EDGES, gen)
+            table_pms = table_shapes(torch, curve, msm_mod,
+                                     sorted(seen_shapes[name]) + TABLE_EDGES,
+                                     gen)
+        plain32, ms32 = {}, {}
         for sh in seen_shapes[name]:
             if name != "g1_msm_table":
                 _, kern, plain = g1_inputs(torch, curve, msm_mod, FR, name,
                                            sh, gen, 32)
-                same_points(msm_mod, kern(), plain(),
+                plain32[sh], want = time_once_ms(torch, plain)
+                same_points(msm_mod, kern(), want,
                             f"{name} at {sh}, 32-bit scalars")
+                ms32[sh] = time_ms(torch, kern, 3)
             _, kern, _ = g1_inputs(torch, curve, msm_mod, FR, name, sh, gen)
             with_table = ""
             if name == "g1_msm":
@@ -2204,10 +2438,20 @@ def main():
                               f"{time_ms(torch, kern.with_table, 3):.4f} ms")
             say(f"time {name} {sh}: kernel "
                 f"{time_ms(torch, kern, 3):.4f} ms{with_table} ({smi})")
-        scalars, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
-                                         name, shape, gen)
-        pms, want = time_once_ms(torch, plain)
-        err = same_points(msm_mod, kern(), want, f"{name} at {shape}")
+        err, on32 = 0, {}
+        if name in ("g1_scalar_mul", "g1_msm"):
+            scalars, kern = g1_log_check(torch, curve, msm_mod, FR, name,
+                                         shape, gen)
+            pms, on32 = None, {"ms_32bit": ms32[shape],
+                               "plain_ms_32bit": plain32[shape]}
+        else:
+            scalars, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
+                                             name, shape, gen)
+            if name == "g1_msm_table":
+                pms = table_pms
+            else:
+                pms, want = time_once_ms(torch, plain)
+                err = same_points(msm_mod, kern(), want, f"{name} at {shape}")
         ms = time_ms(torch, kern, 5)
         if name == "g1_msm_table":
             b_ms, b_by = table_bound(shape)
@@ -2219,6 +2463,7 @@ def main():
                  "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": None,
                  "shape": list(shape), "run": run}
+        entry.update(on32)
         if name in FOLD_KERNELS:
             entry["launches_on_the_main_path"] = g1_launches[name]
         if name == "g1_msm_table" and shape in sweep:
@@ -2230,103 +2475,123 @@ def main():
             entry["ms_with_table"] = time_ms(torch, kern.with_table, 5)
             with_table = (f" (with building its table "
                           f"{entry['ms_with_table']:.4f} ms)")
+        plain_txt = (f"plain {pms:.4f} ms (one call)" if not on32 else
+                     f"no plain run on these scalars; on 32-bit scalars "
+                     f"kernel {on32['ms_32bit']:.4f} ms, plain "
+                     f"{on32['plain_ms_32bit']:.4f} ms (one call)")
         say(f"reported time of {name}: the largest shape of its run "
-            f"({run}) {shape}: kernel {ms:.4f} ms{with_table}, "
-            f"plain {pms:.4f} ms (one call), bound {b_ms:.6f} ms by {b_by} "
-            f"({smi})")
+            f"({run}) {shape}: kernel {ms:.4f} ms{with_table}, {plain_txt}, "
+            f"bound {b_ms:.6f} ms by {b_by} ({smi})")
         kernels.append(entry)
+        lap(f"{name} at its run's shapes")
     say("curve kernels equal to their plain versions as group elements "
         "(tolerance 0 after normalising Z; ipa_round word for word) at "
         "every shape of their run")
 
-    lap("curve kernels at their run's shapes")
-
-    # 6b. the kernels at vgg11's shapes: round_ladder at Liu's (2^24, 24
-    # rounds) on random rows against its plain version, exact; on the
-    # run's own operands, the commit's g1_msm at (4096, 4096) against
-    # Python integers (the generators are s_i G for the tape's first
-    # draws, so row r is (sum_i m[r, i] s_i) G; its plain version at this
-    # shape would run 2^24 double-and-add chains), the setup's table of
-    # 4096 bases against its plain version entry by entry, and every
-    # ipa_round of the opening (L = 4096) against its plain version, word
-    # for word; each timed beside its bound
+    # 6b. the kernels at the vgg and zoo runs' shapes: round_ladder at
+    # each vgg's Liu phase (2^24 and 2^25 rows, as many rounds) on random
+    # rows against its plain version, exact; on the runs' own operands,
+    # the commits' g1_msm (vgg11, vgg16, LeNet5 pic_cnt=16) against Python
+    # integers (commit_check), every setup table against one call of its
+    # plain version on vgg16's 8192 generators (the tape's draws are
+    # counter-based, so every other run's generators are its first
+    # n_cols), and every round of each opening (ipa_round) against its
+    # plain version, word for word; each timed beside its bound
     by_name = {k["name"]: k for k in kernels}
-    for name, entry in by_name.items():
-        entry["vgg11"] = {"run": VGG_RUN, "launches": vgg_launches[name],
-                          "device_launches": vgg_device[name]}
-    e, kern, plain = compare(torch, rk, "round_ladder", liu, gen, rng)
-    ms = time_ms(torch, kern, 5)
-    pms, _ = time_once_ms(torch, plain)
-    b_ms, b_by = bound("round_ladder", liu)
-    by_name["round_ladder"]["vgg11"].update(
-        shape=list(liu), max_abs_err=e, ms=ms, plain_ms=pms, bound_ms=b_ms,
-        bound_by=b_by)
-    say(f"round_ladder at {liu} (Liu's phase of {VGG_RUN}), random rows: "
-        f"equal to its plain version; kernel {ms:.4f} ms, plain {pms:.4f} "
-        f"ms, bound {b_ms:.6f} ms by {b_by} ({smi})")
-    del kern, plain
+    runs = {"vgg11": vgg11, "vgg16": vgg16}
+    for name, zr in zoo_runs.items():
+        runs[name] = zr["pcs"]
+        runs[name + " --no-pcs"] = zr["no_pcs"]
+    for key, r in runs.items():
+        for name, entry in by_name.items():
+            entry[key] = {"run": r["run"], "launches": r["launches"][name],
+                          "device_launches": r["device"][name]}
+    for name, measured in zoo_cubic.items():
+        by_name["cubic_ladder"][name]["shapes"] = measured
+    for key in ("vgg11", "vgg16"):
+        liu = runs[key]["liu"]
+        e, kern, plain = compare(torch, rk, "round_ladder", liu, gen, rng)
+        ms = time_ms(torch, kern, 5)
+        pms, _ = time_once_ms(torch, plain)
+        b_ms, b_by = bound("round_ladder", liu)
+        by_name["round_ladder"][key].update(
+            shape=list(liu), max_abs_err=e, ms=ms, plain_ms=pms,
+            bound_ms=b_ms, bound_by=b_by)
+        say(f"round_ladder at {liu} (Liu's phase of {runs[key]['run']}), "
+            f"random rows: equal to its plain version; kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({smi})")
+        del kern, plain
+    for key in ("vgg11", "vgg16", "lenet16"):
+        by_name["g1_msm"][key].update(commit_check(
+            torch, curve, msm_mod, FR, Tape, runs[key]["committed"],
+            runs[key]["run"], smi))
+    # every other shape of those runs that no check above covers: the
+    # ladders exact on random rows; g1_msm with one base against its plain
+    # version on 32-bit scalars, with more against py_mul of the discrete
+    # logs; the tables below, on random bases in the tables' plain call
+    setups = ("vgg11", "vgg16", "lenet16", "lenet-cifar")
+    covered = {k: set(shapes[k]) | set(edge[k])
+               for k in ("round_ladder", "fold_ladder")}
+    covered["round_ladder"] |= {runs[k]["liu"] for k in ("vgg11", "vgg16")}
+    covered["g1_msm"] = set(g1_shapes["g1_msm"]) | {
+        (1, 1), (3, 5), (2, 512), (3, 130)} | {
+        runs[k]["committed"]["shape"] for k in ("vgg11", "vgg16", "lenet16")}
+    covered["g1_msm_table"] = set(g1_shapes["g1_msm_table"]) | set(
+        TABLE_EDGES) | {(runs[k]["committed"]["gens"].shape[0], curve.NWIN)
+                        for k in setups}
+    other = {k: sorted(set().union(*(r["shapes"][k] for r in runs.values()))
+                       - v) for k, v in covered.items()}
+    for name in ("round_ladder", "fold_ladder"):
+        for shape in other[name]:
+            compare(torch, rk, name, shape, gen, rng)
+    for shape in other["g1_msm"]:
+        if shape[1] == 1:
+            _, kern, plain = g1_inputs(torch, curve, msm_mod, FR, "g1_msm",
+                                       shape, gen, 32)
+            same_points(msm_mod, kern(), plain(),
+                        f"g1_msm at {shape}, 32-bit scalars")
+        else:
+            g1_log_check(torch, curve, msm_mod, FR, "g1_msm", shape, gen)
+    gens = vgg16["committed"]["gens"]
+    base = curve.base_point("cuda")
+    extra = [curve.scalar_mul(base, rand_fe(torch, n, gen))
+             for n, _ in other["g1_msm_table"]]
+    bases = torch.cat([gens] + extra)
+    pms, want = time_once_ms(torch, lambda: msm_mod.msm_table_plain(bases))
+    at = gens.shape[0]
+    for (n, w), pts in zip(other["g1_msm_table"], extra):
+        same_points(msm_mod, curve.table_kernel(pts, w), want[at:at + n, :w],
+                    f"g1_msm_table at {(n, w)}")
+        at += n
+    say(f"the other shapes of the vgg and zoo runs equal their plain "
+        f"versions (the ladders exact on random rows; g1_msm as group "
+        f"elements, with one base on 32-bit scalars, else against py_mul; "
+        f"the tables entry by entry): {other}")
+    for key in setups:
+        mine = runs[key]["committed"]["gens"]
+        n = mine.shape[0]
+        if not bool(msm_mod.points_equal(mine, gens[:n]).all()):
+            raise AssertionError(f"the generators of {runs[key]['run']} are "
+                                 f"not the first {n} of vgg16's")
+        shape = (n, curve.NWIN)
+        same_points(msm_mod, curve.table_kernel(mine), want[:n],
+                    f"g1_msm_table at {shape} ({runs[key]['run']})")
+        ms = time_ms(torch, lambda: curve.table_kernel(mine), 5)
+        b_ms, b_by = table_bound(shape)
+        by_name["g1_msm_table"][key].update(
+            shape=list(shape), max_abs_err=0, ms=ms, plain_ms=pms,
+            plain_bases=bases.shape[0], bound_ms=b_ms, bound_by=b_by)
+        say(f"g1_msm_table at {shape} (the setup's of {runs[key]['run']}): "
+            f"equal to its plain version entry by entry; kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms (one call on all {bases.shape[0]} bases), "
+            f"bound {b_ms:.6f} ms by {b_by} ({smi})")
+    del want, bases, extra
+    for key in setups:
+        by_name["ipa_round"][key].update(opening_rounds_check(
+            torch, ipa, runs[key]["seen"], runs[key]["run"], smi))
+    del runs, vgg11["committed"], vgg16["committed"], zoo_runs
 
-    pcs = committed["pcs"]
-    mat = pcs._matrix(committed["val0"])
-    got = pcs.gen_msm.compute(mat)
-    same_points(msm_mod, got, pcs.row_commits, f"g1_msm at (4096, 4096)")
-    draws = Tape(b"zkcnn-demo-17").fields(pcs.n_cols)
-    s_mont = torch.from_numpy(FR.pack_mont_host(draws)).cuda()
-    logs = FR.unpack_mont_host(FR.dot_mont(mat, s_mont[None], axis=-2)
-                               .cpu().numpy())
-    G = (curve.G1_X, curve.G1_Y)
-    if curve.to_affine_host(got) != [curve.py_mul(G, k) for k in logs]:
-        raise AssertionError(f"g1_msm at {tuple(mat.shape[:2])} in "
-                             f"{VGG_RUN} differs from py_mul")
-    ms = time_ms(torch, lambda: pcs.gen_msm.compute(mat), 3)
-    scalars = torch.cat([msm_mod.plain_scalars(mat[r:r + MSM_BOUND_ROWS])
-                         for r in range(0, mat.shape[0], MSM_BOUND_ROWS)])
-    b_ms, b_by = g1_bound(torch, curve, "g1_msm", tuple(mat.shape[:2]),
-                          scalars)
-    by_name["g1_msm"]["vgg11"].update(
-        shape=list(mat.shape[:2]), max_abs_err=0, ms=ms, plain_ms=None,
-        bound_ms=b_ms, bound_by=b_by)
-    say(f"g1_msm at {tuple(mat.shape[:2])} (the commit of {VGG_RUN}): its "
-        f"{mat.shape[0]} rows equal py_mul of their discrete logs; kernel "
-        f"{ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({smi})")
-    del got, scalars, logs
-
-    shape = (pcs.gens.shape[0], curve.NWIN)
-    pms, want = time_once_ms(torch,
-                             lambda: msm_mod.msm_table_plain(pcs.gens))
-    same_points(msm_mod, curve.table_kernel(pcs.gens), want,
-                f"g1_msm_table at {shape}")
-    del want
-    ms = time_ms(torch, lambda: curve.table_kernel(pcs.gens), 5)
-    b_ms, b_by = table_bound(shape)
-    by_name["g1_msm_table"]["vgg11"].update(
-        shape=list(shape), max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=b_ms,
-        bound_by=b_by)
-    say(f"g1_msm_table at {shape} (the setup's of {VGG_RUN}): equal to its "
-        f"plain version entry by entry; kernel {ms:.4f} ms, plain {pms:.4f} "
-        f"ms, bound {b_ms:.6f} ms by {b_by} ({smi})")
-    del pcs, mat, committed
-
-    per, err = [], 0
-    for args in vgg_seen["rounds"]:
-        e, kern, _ = ipa_round_check(torch, ipa, args, VGG_RUN)
-        err = max(err, e)
-        per.append((ipa_round_shape(args), time_ms(torch, kern, 20)))
-    _, kern, plain = ipa_round_check(torch, ipa, vgg_seen["rounds"][0],
-                                     VGG_RUN)
-    ms, pms = time_ms(torch, kern, 20), time_ms(torch, plain, 3)
-    shape = per[0][0][0]
-    b_ms, b_by = ipa_round_bound(shape, False)
-    by_name["ipa_round"]["vgg11"].update(
-        shape=list(shape), max_abs_err=err, ms=ms, plain_ms=pms,
-        bound_ms=b_ms, bound_by=b_by, ms_all_rounds=sum(t for _, t in per))
-    say(f"ipa_round at {shape}, round 0 of {VGG_RUN}'s opening: every one "
-        f"of its {len(per)} rounds equal to its plain version; kernel "
-        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.6f} ms by {b_by}; "
-        f"all rounds {sum(t for _, t in per):.4f} ms ({smi})")
-    del vgg_seen
-
-    lap("the kernels at vgg11's shapes")
+    lap("the kernels at the vgg and zoo runs' shapes")
 
     # what a ladder saves at LeNet's largest side: its rounds one by one
     # as the per-round path runs them (fold_round, each round's dots
@@ -2357,7 +2622,10 @@ def main():
     # 7. results: the lane forms' measurements of phase 3 and the
     # registers of their kernels again, where the end of the output keeps
     # them, then the kernels
-    say(json.dumps({"vgg11": vgg}))
+    say(json.dumps({"vgg11": vgg11["summary"]}))
+    say(json.dumps({"vgg16": vgg16["summary"]}))
+    for name, zr in zoo_summaries.items():
+        say(json.dumps({name: zr}))
     say(json.dumps({"round_loops_s": {"phase_calls": round_s[0],
                                       "one_round_form": one_s[0]},
                     "device_tape_us": tape_us,

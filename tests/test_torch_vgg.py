@@ -14,10 +14,10 @@ without a commitment (tolerance 0 throughout):
     value changed is rejected;
   * nn.debug's check_zero_regions and layer_summary equal the JAX
     package's on that model, and a planted nonzero value in a zero
-    region is caught at the same (layer, gate);
-  * (slow) vgg11 (CIFAR 32x32x3, pic_cnt=1, input 12975498 values, 2^24)
-    built by both packages: the same layers, layer_summary and gate
-    arrays, and the same witness through interop.
+    region is caught at the same (layer, gate).
+
+vgg11 and vgg16 at full size are built by both packages in
+tests/test_torch_zoo.py (slow).
 
 `JAX_PLATFORMS=cpu python -m tests.test_torch_vgg`, from the repository
 root, remakes TINY_VGG_PIN with the JAX package (about 20 minutes on one
@@ -140,38 +140,6 @@ def test_debug_matches_jax_and_catches_a_planted_value():
         j_check(Cj, vj, raise_on_fail=False) == [(i, g)]
     with pytest.raises(AssertionError, match=f"\\({i}, {g}\\)"):
         check_zero_regions(C, vals)
-
-
-@pytest.mark.slow
-def test_vgg11_circuits_of_both_packages_agree():
-    """vgg11, pic_cnt=1, random_source(17): the JAX package's circuit and
-    witness, carried across by interop, equal the port's layer by layer
-    (input 12975498 values, 2^24).  Builds both at full size on the
-    host: tens of GB."""
-    from zkcnn_tpu.nn import models as j_models
-    from zkcnn_tpu.nn import random_source as j_random_source
-    from zkcnn_tpu.nn.params import PoolType as JPoolType
-    from zkcnn_tpu.nn.debug import layer_summary as j_summary
-    from zkcnn_tpu_torch.interop import limbs16_to_words
-    from zkcnn_tpu_torch.nn import models
-    from zkcnn_tpu_torch.nn.params import PoolType
-    Cj, vj = j_models.vgg11(32, 32, 3, 1, JPoolType.MAX).create(
-        j_random_source(17))
-    C, vals = models.vgg11(32, 32, 3, 1, PoolType.MAX).create(
-        random_source(17), device="cpu")
-    assert C.layers[0].size == 12975498 and C.layers[0].bit_length == 24
-    assert layer_summary(C) == j_summary(Cj)
-    for lj, lt in zip(Cj.layers, C.layers):
-        np.testing.assert_array_equal(lj.uni, lt.uni)
-        np.testing.assert_array_equal(lj.bin, lt.bin)
-        for f in ("ori_id_u", "ori_id_v"):
-            a, b = getattr(lj, f), getattr(lt, f)
-            assert (a is None) == (b is None)
-            if a is not None:
-                np.testing.assert_array_equal(a, b)
-    for a, b in zip(vj, vals):
-        np.testing.assert_array_equal(limbs16_to_words(np.asarray(a)),
-                                      b.numpy())
 
 
 if __name__ == "__main__":

@@ -47,9 +47,25 @@ from ..field.ops import SIGNED_FR
 from ..circuit import Circuit, Layer, LayerType, ceil_pow2_bit_length
 from ..circuit.ir import UNI_G, UNI_U, UNI_LU, UNI_SC, \
     BIN_G, BIN_U, BIN_V, BIN_SC, BIN_L
+from ..circuit import eval as circuit_eval
 from ..circuit.eval import eval_dot_prod_layer, eval_fft_layer
 from .params import ConvType, PoolType, ConvKernel, FconKernel, PoolKernel
 from .source import TensorSource
+
+
+def padded_from_int64(ival: np.ndarray, bl: int, device):
+    """Signed int64 values -> [2^bl, 8] Montgomery words on `device`, zero
+    past the values: `FR.from_int64` of EVAL_CHUNK rows at a time (read
+    at call time) into one preallocated tensor, so that a 2^25-value
+    input layer never holds its conversion's [16-33, rows] temporaries
+    whole.  The words are FR.from_int64's."""
+    ival = np.asarray(ival, np.int64).reshape(-1)
+    out = FR.zeros(1 << max(bl, 0), device)
+    step = circuit_eval.EVAL_CHUNK
+    for s in range(0, ival.size, step):
+        chunk = ival[s:s + step]
+        out[s:s + chunk.size] = FR.from_int64(chunk, device)
+    return out
 
 
 def _tes(w, x, y, z, n, m, l):
@@ -377,9 +393,7 @@ class NeuralNetwork:
             arr = np.zeros(n, object)
             arr[: ival.size] = ival
             return FR.from_bigint(arr, device)
-        arr = np.zeros(n, np.int64)
-        arr[: ival.size] = ival
-        return FR.from_int64(arr, device)
+        return padded_from_int64(ival, bl, device)
 
     @staticmethod
     def _ints_from_dev(dev, count: int) -> np.ndarray:
@@ -393,14 +407,8 @@ class NeuralNetwork:
 
     def _padded_val0(self, C: Circuit):
         """val[0] padded to its hypercube."""
-        v0 = self.val0()
-        pad = (1 << C.layers[0].bit_length) - v0.shape[0]
-        if pad:
-            v0 = torch.cat([v0, FR.zeros(pad, self.device)])
-        return v0
-
-    def val0(self):
-        return FR.from_int64(self.ival0_arr[: self.val0_len], self.device)
+        return padded_from_int64(self.ival0_arr[: self.val0_len],
+                                 C.layers[0].bit_length, self.device)
 
     # ------------------------------------------------------------------
     # reads (reference neuralNetwork.cpp:805-897)
