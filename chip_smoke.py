@@ -126,7 +126,28 @@ Phases; any failure raises and the script exits non-zero:
      the CPU's, pinned in tests/test_torch_zoo.py; cubic_ladder launched;
      with the commitment the setup's table of 2048 / 512 bases, g1_msm at
      (2048, 2048) / (512, 512), 11 / 9 ipa_round, no g1_add or
-     g1_scalar_mul, no plain Fr op inside ipa_prove);
+     g1_scalar_mul, no plain Fr op inside ipa_prove).  Then the mesh
+     (zkcnn_tpu_torch/parallel/): MESH_SHARDS = 4 shards, shard i on
+     card i % count (a JSON line gives the mapping).  Every function of
+     parallel/sharding.py on card tensors against its unsplit
+     counterpart on the same tensors, word for word, at 2^12 and 2^18
+     rows over 2 and 4 shards (sharded_msm at (8, 512), its rows split,
+     also as group elements); then LeNet5 --no-pcs, with the commitment
+     and under FiatShamirTape with it, and LeNet5 pic_cnt=16 with the
+     commitment, each proven over the mesh through the same entry as its
+     one-device run above, counts reset just before and read just after: its
+     one-device pin (digest, or the tape's final state and counter),
+     every split operand gathered once, round_ladder at the shards'
+     shapes ((2^16, 16) for the 2^18 side, (2^20, 20) for LeNet16's
+     2^22 one) and the gathered tail (4, 2), never at the whole side's,
+     cubic_ladder at a quarter of each cubic phase's rows, three more
+     g1_msm than one device (one a shard for the commit), under
+     Fiat-Shamir a phase with a split operand on the host tape with
+     fold_round at a shard's rows, a phase call only for a phase whose
+     operands stayed whole; PT, VT, POLY_PT, the witness, the
+     wall time, the gathers and the bytes copied printed beside the
+     one-device run's.  With two cards or more, LeNet --no-pcs over two
+     cards too, which must copy between them;
   6. each entry against its plain version at every shape its run
      launched it at (the round kernels exact; the curve kernels as group
      elements, on 32-bit scalars laid out as the run lays them out, and
@@ -153,15 +174,20 @@ Phases; any failure raises and the script exits non-zero:
      entry, and every round of the vgg11, vgg16, LeNet5 pic_cnt=16 and
      lenetCifar openings (ipa_round at L = 4096, 8192, 2048, 512) against
      its plain version word for word; each timed beside its bound; and
-     every other shape those runs launched round_ladder, fold_ladder,
-     g1_msm and g1_msm_table at (the ladders exact on random rows,
+     every other shape those runs and the mesh's launched round_ladder,
+     fold_ladder, g1_msm and g1_msm_table at (the ladders exact on random rows,
      g1_msm with one base against its plain version on 32-bit scalars and
      with more against py_mul of the discrete logs, the tables on random
-     bases in the tables' one plain call).  Then a LeNet
+     bases in the tables' one plain call); every shape at which the mesh
+     runs launched cubic_ladder and the per-round entries, exact, and
+     each mesh run's largest round_ladder and cubic_ladder shape timed
+     beside its plain version and bound.  Then a LeNet
      side's rounds one by one as the one-round form runs them
      (fold_round, a fetch a round) against one ladder and one phase
      call;
-  7. the seconds each phase took, one JSON line each of the vgg11,
+  7. the seconds each phase took, one JSON line of the mesh phase (the
+     split functions checked, each mesh run's times, counts and launches
+     beside its one-device run's), one JSON line each of the vgg11,
      vgg16, LeNet5 pic_cnt=16 and lenetCifar runs (their times, sizes,
      peak memory, launches and digests), one JSON line of the
      Fiat-Shamir
@@ -345,6 +371,7 @@ MSM_BOUND_ROWS = 256
 LENET_RUN = "lenet --no-pcs"
 LENET_PCS_RUN = "lenet with the commitment"
 LENET_FS_RUN = "lenet under FiatShamirTape with the commitment"
+LENET16_PCS_RUN = "lenet16 with the commitment"
 FOLDS_RUN = "ipa_prove_by_folds on the opening of lenet with the commitment"
 ENGINES_RUN = "the per-round engines at lenet's largest phases"
 # curve kernels that the LeNet opening no longer runs: their shapes and
@@ -965,7 +992,7 @@ def fp_checks(torch, curve, FP, rng, smi):
         out = torch.empty_like(a[:n])
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), n, chain)
         fn = lib.zk_fp_mul if lanes == 1 else lib.zk_fp_mul_lanes
-        curve.launch(fn, *args, curve.stream_of(a.device))
+        curve.launch(a.device, fn, *args, curve.stream_of(a.device))
         return out
 
     A, B = pack(xs), pack(ys)
@@ -1023,8 +1050,8 @@ def table_sweep(torch, curve, gen, smi):
             tab = torch.zeros((N, nwin, curve.WTAB, 3, 12), dtype=torch.int32,
                               device="cuda")
             run = lambda: curve.launch(  # noqa: E731
-                lib.zk_g1_table_chain, pts.data_ptr(), tab.data_ptr(), N,
-                nwin, one_thread, stream)
+                pts.device, lib.zk_g1_table_chain, pts.data_ptr(),
+                tab.data_ptr(), N, nwin, one_thread, stream)
             run()
             tabs[one_thread] = tab
             times[one_thread] = time_ms(torch, run, 5)
@@ -1035,7 +1062,8 @@ def table_sweep(torch, curve, gen, smi):
         whole = curve.table_kernel(pts, nwin)
         tab = tabs[0]
         run = lambda: curve.launch(  # noqa: E731
-            lib.zk_g1_table_digits, tab.data_ptr(), N, nwin, stream)
+            tab.device, lib.zk_g1_table_digits, tab.data_ptr(), N, nwin,
+            stream)
         run()
         if not torch.equal(tab, whole):
             raise AssertionError(f"chain and digits apart differ from "
@@ -1556,7 +1584,7 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
     launches.update(curve.LAUNCHES)
     device = {k: rk.KERNEL_LAUNCHES[k] for k in rk.NAMES}
     device.update(curve.KERNEL_LAUNCHES)
-    shapes = {k: sorted(rk.SHAPES[k]) for k in LADDERS}
+    shapes = {k: sorted(rk.SHAPES[k]) for k in rk.NAMES}
     shapes.update({k: sorted(curve.SHAPES[k]) for k in curve.NAMES})
     plain = dict(curve.PLAIN_CALLS)
     fetches = engine.FETCHES["rounds"]
@@ -1764,6 +1792,212 @@ def opening_rounds_check(torch, ipa, seen, run, smi):
     return {"shape": list(shape), "max_abs_err": err, "ms": ms,
             "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by,
             "ms_all_rounds": sum(t for _, t in per)}
+
+
+# the mesh phase: shards of the proof's mesh, the split functions' row
+# counts and shard counts, the split MSM's (rows, bases)
+MESH_SHARDS = 4
+MESH_ROWS = (1 << 12, 1 << 18)
+MESH_SIZES = (2, 4)
+MESH_MSM = (8, 512)
+MESH_SEGMENTS = 1 << 10
+
+
+def fs_lenet_main(argv=None):
+    """LeNet5 pic_cnt=1 (random_source(17)) built as cli/runner.py builds
+    it and proven on the card under FiatShamirTape(b"zkcnn-demo-17") with
+    the inner-product commitment, as a demo's result for run_entry: the
+    row's sizes and times, the witness and the proof's times, the peak
+    memory, and as its digest the tape's final state and counter."""
+    import torch
+    from zkcnn_tpu_torch.gkr import Prover, Verifier, FiatShamirTape
+    from zkcnn_tpu_torch.nn import models as zoo, random_source
+    from zkcnn_tpu_torch.nn.params import PoolType
+    from zkcnn_tpu_torch.pcs import HyraxPCS
+    t0 = time.time()
+    C, vals = zoo.lenet(32, 32, 1, 1, PoolType.MAX).create(random_source(17))
+    torch.cuda.synchronize()
+    witness_s = time.time() - t0
+    p = Prover(C, vals, own_vals=True)
+    pcs, tape = HyraxPCS(mode="ipa"), FiatShamirTape(b"zkcnn-demo-17")
+    v = Verifier(p, C, tape, pcs=pcs)
+    if not v.verify():
+        raise AssertionError("lenet under FiatShamirTape: verification "
+                             "failed on cuda")
+    torch.cuda.synchronize()
+    size = C.layers[0].size
+    row = {"WS": f"{size}(2^{(size - 1).bit_length()})",
+           "PS": f"{p.proof_size / 1024:.4f}",
+           "POLY_PS": f"{pcs.ps / 1024:.4f}", "PT": f"{p.prove_time:.4f}",
+           "VT": f"{v.vt:.4f}", "POLY_PT": f"{pcs.pt:.4f}",
+           "POLY_VT": f"{pcs.vt:.4f}"}
+    return {"row": row, "witness_s": witness_s, "pt": p.prove_time,
+            "vt": v.vt, "vt_slow": v.vt_slow, "poly_pt": pcs.pt,
+            "poly_vt": pcs.vt, "poly_commit_s": pcs.commit_s,
+            "poly_table_s": pcs.table_s,
+            "digest": f"{tape.state.hex()}/{tape.counter}",
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "line": " ".join(f"{k} {v}" for k, v in row.items())}
+
+
+def mesh_on_cards(torch, D):
+    """A mesh of D shards over the machine's cards, shard i on card
+    i % count."""
+    from zkcnn_tpu_torch.parallel import make_mesh
+    n = torch.cuda.device_count()
+    return make_mesh(D, devices=[f"cuda:{i % n}" for i in range(D)])
+
+
+def mesh_functions(torch, gen, rng, smi):
+    """Each function of parallel/sharding.py on card tensors against its
+    unsplit counterpart on the same tensors, word for word, at MESH_ROWS
+    rows and MESH_SIZES shards (the NTTs over as many points; the MSM at
+    MESH_MSM, its rows split, also as group elements).  Returns the
+    checks made."""
+    from zkcnn_tpu_torch.field import FR, round_kernels as rk
+    from zkcnn_tpu_torch.field.ops import segment_sum_field
+    from zkcnn_tpu_torch.ntt import ntt, intt
+    from zkcnn_tpu_torch.parallel import sharding
+    from zkcnn_tpu_torch.pcs import curve, msm as msm_mod
+    done = []
+    for D in MESH_SIZES:
+        mesh = mesh_on_cards(torch, D)
+        for rows in MESH_ROWS:
+            A, V = rand_fe(torch, rows, gen), rand_fe(torch, rows, gen)
+            r = rng.getrandbits(254)
+            dots, A1, V1 = rk.round_ladder(A, V, [r])
+            got = sharding.sharded_fold_coeffs(mesh, A, V, r)
+            segs = torch.randint(0, MESH_SEGMENTS, (rows,), device="cuda",
+                                 generator=gen)
+            logn = rows.bit_length() - 1
+            logx = logn - D.bit_length()          # 2D transforms
+            x = A.reshape(2 * D, 1 << logx, FR.n)
+            one = A.reshape(1, rows, FR.n)
+            pairs = [
+                ("sharded_fold_coeffs", got, (dots[0], A1, V1)),
+                ("sharded_dot", [sharding.sharded_dot(mesh, A, V)],
+                 [FR.dot_mont(A, V)]),
+                ("sharded_segment_sum", [sharding.sharded_segment_sum(
+                    mesh, A, segs, MESH_SEGMENTS)],
+                 [segment_sum_field(A, segs, MESH_SEGMENTS)]),
+                ("sharded_ntt", [sharding.sharded_ntt(mesh, x, logx),
+                                 sharding.sharded_ntt(mesh, x, logx, True)],
+                 [ntt(x, logx), intt(x, logx)]),
+                ("stage_sharded_ntt", [sharding.stage_sharded_ntt(
+                    mesh, one, logn), sharding.stage_sharded_ntt(
+                    mesh, one, logn, True)], [ntt(one, logn),
+                                              intt(one, logn)])]
+            for name, a, b in pairs:
+                for u, w in zip(a, b):
+                    if not torch.equal(u.to(w.device), w):
+                        raise AssertionError(f"{name} at {rows} rows over "
+                                             f"{D} shards differs from its "
+                                             f"unsplit counterpart")
+                done.append(f"{name} ({rows}, D={D})")
+        R, N = MESH_MSM
+        pts = curve.scalar_mul(curve.base_point("cuda"),
+                               rand_scalars(torch, N, gen, 32))
+        ks = rand_fe(torch, R * N, gen).reshape(R, N, FR.n)
+        got = sharding.sharded_msm(mesh, pts, ks)
+        want = msm_mod.FixedBaseMSM(pts).compute(ks)
+        same_points(msm_mod, got, want,
+                    f"sharded_msm at {(R, N)} over {D} shards")
+        if not torch.equal(got, want):
+            raise AssertionError(f"sharded_msm at {(R, N)} over {D} shards "
+                                 f"differs from the unsplit MSM's words")
+        done.append(f"sharded_msm ({R}, {N}, D={D})")
+    say(f"parallel/sharding.py on the card, each equal to its unsplit "
+        f"counterpart word for word (the MSM also as group elements): "
+        f"{', '.join(done)} ({smi})")
+    return done
+
+
+def mesh_check(r, one, D, split, cubic=(), commits=0, fiat_shamir=False):
+    """Raises unless mesh run r ran as a split run must: every split
+    operand gathered once, its split sides' ladders at the shards' rows
+    (for each quadratic side of 2^k rows in `split`, (2^k / D, k - log2 D)
+    and not (2^k, k), and the gathered tail (D, log2 D)), the cubic
+    phases in `cubic` ((K, M, R) of one device) at (K / D, M, R), and
+    `commits` more g1_msm launches than the one-device run `one` (one a
+    shard for the commit); under Fiat-Shamir phases on the host tape,
+    round 1 of each side of `split` as fold_round on the shards' rows
+    (2^k / D, no fold), not on 2^k, and phase calls (counted in
+    "device_tape_phases") only at shapes whose operands do not split: a
+    quadratic side of at most D rows, a cubic phase whose V would give a
+    block fewer than max(M, 2) rows."""
+    run, counts, shapes = r["run"], r["mesh"], r["shapes"]
+    logD = D.bit_length() - 1
+    if not counts["splits"] or counts["gathers"] != counts["splits"]:
+        raise AssertionError(f"{run}: {counts['splits']} operands split, "
+                             f"{counts['gathers']} gathered")
+    if fiat_shamir:
+        rounds, calls = shapes["fold_round"], r["phase_shapes"]
+        whole = all(nb <= logD for shape in calls.get("fold_round", ())
+                    for nb in shape[:2]) and all(
+            K % D or K // D < max(M, 2)
+            for K, M, _ in calls.get("fold_cubic_round", ()))
+        if not whole or not counts["host_tape_phases"] or \
+                bool(calls) != bool(counts["device_tape_phases"]) or any(
+                (1 << k - logD, 0) not in rounds or (1 << k, 0) in rounds
+                for k in split):
+            raise AssertionError(f"{run}: phase calls {calls} "
+                                 f"({counts['device_tape_phases']} phases), "
+                                 f"{counts['host_tape_phases']} phases on the "
+                                 f"host tape, fold_round shapes {rounds}")
+        return
+    quad = shapes["round_ladder"]
+    for k in split:
+        if ((1 << k - logD), k - logD) not in quad or (1 << k, k) in quad:
+            raise AssertionError(f"{run}: the side of 2^{k} rows did not run "
+                                 f"split: round_ladder shapes {quad}")
+    if (D, logD) not in quad:
+        raise AssertionError(f"{run}: no gathered tail ({D}, {logD}): {quad}")
+    for K, M, R in cubic:
+        if (K // D, M, R) not in shapes["cubic_ladder"] or \
+                (K, M, R) in shapes["cubic_ladder"]:
+            raise AssertionError(f"{run}: the cubic phase {(K, M, R)} did "
+                                 f"not run split: {shapes['cubic_ladder']}")
+    if r["launches"]["g1_msm"] != one["launches"]["g1_msm"] + commits:
+        raise AssertionError(f"{run}: {r['launches']['g1_msm']} g1_msm "
+                             f"launches, the one-device run's "
+                             f"{one['launches']['g1_msm']} + {commits}")
+
+
+def mesh_entry(torch, main_fn, argv, run, smi, mesh):
+    """run_entry of a demo under `mesh`, the mesh's counts reset just
+    before; adds them (r["mesh"]) and the phase calls' shapes."""
+    from zkcnn_tpu_torch.field import round_kernels as rk
+    from zkcnn_tpu_torch.parallel import COUNTS, reset_counts, use_mesh
+    reset_counts()
+    with use_mesh(mesh):
+        r = run_entry(torch, main_fn, argv, run, smi)
+    r["mesh"] = dict(COUNTS)
+    r["phase_shapes"] = {k: sorted(v) for k, v in rk.PHASE_SHAPES.items()
+                         if v}
+    return r
+
+
+def mesh_line(run, r, one, smi):
+    """One run's mesh numbers beside the one-device run's."""
+    s, o = r["summary"], one
+
+    def was(key, digits):
+        return "not timed" if o[key] is None else f"{o[key]:.{digits}f}"
+
+    say(f"{run}: PT {s['pt_s']:.4f} s (one device {o['pt_s']:.4f}), VT "
+        f"{s['vt_s']:.4f} s ({o['vt_s']:.4f}), POLY_PT {s['poly_pt_s']:.4f} "
+        f"s ({o['poly_pt_s']:.4f}), witness {s['witness_s']:.2f} s "
+        f"({was('witness_s', 2)}), wall {s['wall_s']:.1f} s "
+        f"({was('wall_s', 1)}); {r['mesh']['gathers']} gathers of "
+        f"{r['mesh']['splits']} split operands, {r['mesh']['partials']} "
+        f"collections of partials, {r['mesh']['transposes']} NTT transposes, "
+        f"{r['mesh']['bytes']} bytes copied ({r['mesh']['peer_bytes']} "
+        f"between cards) ({smi})")
+    keys = ("pt_s", "vt_s", "poly_pt_s", "witness_s", "wall_s")
+    return {**{k: s[k] for k in keys},
+            "one_device": {k: o[k] for k in keys},
+            "counts": r["mesh"], "launches": r["launches"],
+            "digest": s["digest"]}
 
 
 def main():
@@ -1984,6 +2218,7 @@ def main():
     check_run(r, (PINNED_LENET["WS"], PINNED_LENET["PS"], "0.0000",
                   PINNED_LENET["digest"]), must=LADDERS, never=PER_ROUND)
     lenet, fetches = r["launches"], r["fetches"]
+    one_device = {LENET_RUN: r}         # beside the mesh's runs
     launches = {k: lenet[k] for k in LADDERS}
     shapes = {k: r["shapes"][k] for k in LADDERS}
     say(f"lenet round loops: {sum(r['device'][k] for k in rk.NAMES)} device "
@@ -2027,6 +2262,8 @@ def main():
               must=LADDERS + tuple(k for k in curve.NAMES
                                    if k not in FOLD_KERNELS),
               never=FOLD_KERNELS)
+    one_device[LENET_PCS_RUN] = {"summary": r["summary"],
+                                 "launches": r["launches"]}
     del r           # the setup's table: no later run's peak counts it
     rounds_ipa = len(pcs_seen["b"]).bit_length() - 1
     if g1_launches["g1_msm_table"] > TABLES_THREE_PASS or \
@@ -2145,6 +2382,11 @@ def main():
     if not ok:
         raise AssertionError("lenet under FiatShamirTape: verification "
                              "failed on cuda")
+    one_device[LENET_FS_RUN] = {
+        "summary": {"pt_s": p.prove_time, "vt_s": v.vt,
+                    "poly_pt_s": pcs.pt, "witness_s": None,
+                    "wall_s": None},
+        "launches": dict(fs, **curve.LAUNCHES)}
     if (ws, ps, poly_ps) != (PINNED_LENET["WS"], PINNED_LENET["PS"],
                              PINNED_LENET_PCS["POLY_PS"]):
         raise AssertionError(f"lenet under FiatShamirTape: WS/PS/POLY_PS "
@@ -2290,6 +2532,82 @@ def main():
         lap(name)
     zoo_summaries = {name: {k: zr[k]["summary"] for k in ("no_pcs", "pcs")}
                      for name, zr in zoo_runs.items()}
+    one_device[LENET16_PCS_RUN] = zoo_runs["lenet16"]["pcs"]
+
+    # 5e. the mesh (parallel/): MESH_SHARDS shards, shard i on card
+    # i % count.  The split functions against their unsplit counterparts;
+    # then LeNet5 pic_cnt=1 (--no-pcs, with the commitment, under
+    # FiatShamirTape) and LeNet5 pic_cnt=16 with the commitment proven over
+    # the mesh through the same entries, each to its one-device pin, with
+    # its ladders at the shards' shapes and the gathered tails, one g1_msm
+    # a shard for the commit, every split operand gathered once, under
+    # Fiat-Shamir a phase call only for a phase whose operands stayed
+    # whole; with two cards or more, LeNet --no-pcs
+    # over two cards too (peer copies, the launch device)
+    mesh = mesh_on_cards(torch, MESH_SHARDS)
+    say(json.dumps({"mesh": {"shards": MESH_SHARDS,
+                             "cards": torch.cuda.device_count(),
+                             "devices": [str(d) for d in mesh.devices]}}))
+    mesh_fns = mesh_functions(torch, gen, rng, smi)
+    lap("mesh: the split functions")
+    lenet_argv = ["--synthetic", "--seed", "17", "--pic-cnt", "1"]
+    lenet16 = PINNED_ZOO["lenet16"]
+    mesh_plan = [
+        (LENET_RUN, demo_lenet.main, lenet_argv + ["--no-pcs"],
+         (PINNED_LENET["WS"], PINNED_LENET["PS"], "0.0000",
+          PINNED_LENET["digest"]), LADDERS, PER_ROUND,
+         dict(split=(18,), cubic=((1 << 16, 1 << 9, 9),))),
+        (LENET_PCS_RUN, demo_lenet.main, lenet_argv,
+         (PINNED_LENET["WS"], PINNED_LENET["PS"],
+          PINNED_LENET_PCS["POLY_PS"], PINNED_LENET_PCS["digest"]),
+         LADDERS + ("g1_msm_table", "g1_msm", "ipa_round"),
+         PER_ROUND + FOLD_KERNELS,
+         dict(split=(18,), cubic=((1 << 16, 1 << 9, 9),),
+              commits=MESH_SHARDS - 1)),
+        (LENET_FS_RUN, fs_lenet_main, [],
+         (PINNED_LENET["WS"], PINNED_LENET["PS"],
+          PINNED_LENET_PCS["POLY_PS"], "/".join(map(str, PINNED_FS_LENET))),
+         ("fold_round", "fold", "fold_cubic_round", "fold_ladder",
+          "g1_msm_table", "g1_msm", "ipa_round"),
+         ("round_ladder", "cubic_ladder") + FOLD_KERNELS,
+         dict(split=(18,), fiat_shamir=True)),
+        (LENET16_PCS_RUN, demo_lenet.main,
+         ["--synthetic", "--seed", "17"] + lenet16["argv"],
+         (lenet16["WS"], lenet16["PS"], lenet16["POLY_PS"],
+          lenet16["pcs_digest"]),
+         LADDERS + ("g1_msm_table", "g1_msm", "ipa_round"),
+         PER_ROUND + FOLD_KERNELS,
+         dict(split=(22,), cubic=((1 << 16, 1 << 11, 11),
+                                  (1 << 17, 1 << 9, 9)),
+              commits=MESH_SHARDS - 1))]
+    mesh_runs, mesh_results = {}, {}
+    for run, main_fn, argv, want, must, never, how in mesh_plan:
+        key = f"{run} over {MESH_SHARDS} shards"
+        r = mesh_entry(torch, main_fn, argv, key, smi, mesh)
+        check_run(r, want, must=must, never=never)
+        mesh_check(r, one_device[run], MESH_SHARDS, **how)
+        mesh_results[key] = mesh_line(key, r, one_device[run]["summary"],
+                                      smi)
+        r.pop("committed")
+        r.pop("seen")
+        mesh_runs[key] = r
+        lap(key)
+    if torch.cuda.device_count() >= 2:
+        key = f"{LENET_RUN} over 2 cards"
+        r = mesh_entry(torch, demo_lenet.main, lenet_argv + ["--no-pcs"],
+                       key, smi, mesh_on_cards(torch, 2))
+        check_run(r, mesh_plan[0][3], must=LADDERS, never=PER_ROUND)
+        mesh_check(r, one_device[LENET_RUN], 2, split=(18,),
+                   cubic=((1 << 16, 1 << 9, 9),))
+        if not r["mesh"]["peer_bytes"]:
+            raise AssertionError(f"{key}: nothing moved between cards")
+        mesh_results[key] = mesh_line(key, r, one_device[LENET_RUN][
+            "summary"], smi)
+        r.pop("committed")
+        r.pop("seen")
+        mesh_runs[key] = r
+        lap(key)
+    del one_device
 
     # 6. every entry against its plain version at the shapes of its run,
     # timed; the reported time is at the largest of them.  The per-round
@@ -2508,6 +2826,35 @@ def main():
                           "device_launches": r["device"][name]}
     for name, measured in zoo_cubic.items():
         by_name["cubic_ladder"][name]["shapes"] = measured
+    # the mesh runs: their launches under their keys; every round-kernel
+    # entry exact at every shape they launched it at (round_ladder and
+    # fold_ladder below, with the other runs' shapes), and each run's
+    # largest round_ladder and cubic_ladder shape (a shard's rows) timed
+    # beside its plain version and bound
+    runs.update(mesh_runs)
+    for key, r in mesh_runs.items():
+        for name, entry in by_name.items():
+            entry[key] = {"run": r["run"], "launches": r["launches"][name],
+                          "device_launches": r["device"][name]}
+        for name in ("cubic_ladder",) + PER_ROUND:
+            for shape in r["shapes"][name]:
+                compare(torch, rk, name, shape, gen, rng)
+        for name in ("round_ladder", "cubic_ladder"):
+            if not r["shapes"][name]:
+                continue
+            shape = max(r["shapes"][name])
+            e, kern, plain = compare(torch, rk, name, shape, gen, rng)
+            ms, pms = time_ms(torch, kern, 20), time_once_ms(torch, plain)[0]
+            b_ms, b_by = bound(name, shape)
+            by_name[name][key].update(
+                shape=list(shape), max_abs_err=e, ms=ms, plain_ms=pms,
+                bound_ms=b_ms, bound_by=b_by)
+            say(f"{name} at {shape} (a shard of {key}): equal to its plain "
+                f"version; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+                f"{b_ms:.6f} ms by {b_by} ({smi})")
+        say(f"{key}: the per-round entries and cubic_ladder equal to their "
+            f"plain versions at every shape of the run: "
+            f"{ {k: r['shapes'][k] for k in ('cubic_ladder',) + PER_ROUND} }")
     for key in ("vgg11", "vgg16"):
         liu = runs[key]["liu"]
         e, kern, plain = compare(torch, rk, "round_ladder", liu, gen, rng)
@@ -2640,6 +2987,10 @@ def main():
                     "ptxas": [r for r in regs
                               if r.startswith(("g1_table", "fp_mul"))],
                     "device": smi}))
+    say(json.dumps({"mesh": {"shards": MESH_SHARDS,
+                             "cards": torch.cuda.device_count(),
+                             "functions": mesh_fns, "runs": mesh_results,
+                             "device": smi}}))
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 
 calcNormalLayer / calcDotProdLayer / calcFFTLayer (reference
 src/neuralNetwork.cpp:918-965) as gathers, batched field muls and one
-exact segment sum per layer (in gate chunks); FFT layers use the batched NTT and the
-DOT_PROD layer one batched field matmul.
+exact segment sum per layer (in gate chunks); FFT layers use the batched NTT
+(under a mesh, small batches the stage-sharded one) and the DOT_PROD
+layer one batched field matmul.
 
 Index arrays here are PRE-subset (original ids), exactly like the
 reference, which evaluates witnesses before initSubset runs.
@@ -92,6 +93,25 @@ def eval_dot_prod_layer(layer: Layer, val_prev, pic_parallel: int,
     return _pad_rows(out, 1 << layer.bit_length)
 
 
+def _witness_ntt(x, fb: int, inverse: bool):
+    """The witness's NTT: under an active mesh of D shards, a batch of
+    fewer than 2D transforms of at least D^2 points (D a power of two)
+    takes the stage-sharded NTT (`parallel.stage_sharded_ntt`, split
+    within each transform), and any other batch the batched NTT with its
+    transforms split over the shards where D divides the batch
+    (`parallel.sharded_ntt`; the JAX package's GSPMD splits the slot
+    axis).  Each gives the words of the batched NTT on one device."""
+    from ..parallel.context import active_mesh
+    mesh = active_mesh()
+    if mesh is not None:
+        from ..parallel.sharding import sharded_ntt, stage_sharded_ntt
+        D = mesh.size
+        if D & (D - 1) == 0 and (1 << fb) >= D * D and x.shape[0] < 2 * D:
+            return stage_sharded_ntt(mesh, x, fb, inverse)
+        return sharded_ntt(mesh, x, fb, inverse)
+    return intt(x, fb) if inverse else ntt(x, fb)
+
+
 def eval_fft_layer(layer: Layer, val_prev):
     """calcFFTLayer (reference src/neuralNetwork.cpp:950-965).
 
@@ -105,9 +125,10 @@ def eval_fft_layer(layer: Layer, val_prev):
         n_slots = layer.size >> fb
         x = val_prev[: n_slots * Lh].reshape(n_slots, Lh, FR.n)
         x = torch.cat([x, torch.zeros_like(x)], dim=1)
-        out = ntt(x, fb).reshape(n_slots * L, FR.n)
+        out = _witness_ntt(x, fb, False).reshape(n_slots * L, FR.n)
     else:
         n_slots = layer.size >> (fb - 1)
         x = val_prev[: n_slots * L].reshape(n_slots, L, FR.n)
-        out = intt(x, fb)[:, :Lh].reshape(n_slots * Lh, FR.n)
+        out = _witness_ntt(x, fb, True)[:, :Lh].reshape(
+            n_slots * Lh, FR.n)
     return _pad_rows(out, 1 << layer.bit_length)

@@ -412,8 +412,12 @@ def _check_fold_cubic(name, fold, m, V0, V1):
     return on_cuda
 
 
-def _launch(fn, *args):
-    rc = fn(*args)
+def _launch(dev, fn, *args):
+    """fn(*args), a C entry that launches on a stream of CUDA device dev,
+    called with dev as the current device (a kernel launched while
+    another card is current would go to that card)."""
+    with torch.cuda.device(dev):
+        rc = fn(*args)
     if rc:
         raise RuntimeError("CUDA launch failed: "
                            + _lib().zk_error_string(rc).decode())
@@ -455,7 +459,7 @@ def _quad_ladder(name, A, V, rs):
     scratch, scratch_ptr = _scratch(
         dev, lib.zk_ladder_scratch_bytes(rows, 0, 1 + with_dots, R))
     n = ctypes.c_int(0)
-    _launch(lib.zk_round_ladder, A.data_ptr(),
+    _launch(dev, lib.zk_round_ladder, A.data_ptr(),
             V.data_ptr() if with_dots else None, out[0].data_ptr(),
             out[1].data_ptr() if with_dots else None,
             dots.data_ptr() if with_dots else None, rs_ptr,
@@ -476,7 +480,8 @@ def _cubic_ladder(name, m, V0, V1, rs):
     scratch, scratch_ptr = _scratch(
         dev, lib.zk_ladder_scratch_bytes(K, M, 3, R))
     n = ctypes.c_int(0)
-    _launch(lib.zk_cubic_ladder, m.data_ptr(), V0.data_ptr(), V1.data_ptr(),
+    _launch(dev, lib.zk_cubic_ladder, m.data_ptr(), V0.data_ptr(),
+            V1.data_ptr(),
             m_out.data_ptr(), Vout[0].data_ptr(), Vout[1].data_ptr(),
             coeffs.data_ptr(), rs_ptr, scratch_ptr, K, M, R, _stream(dev),
             ctypes.byref(n))
@@ -528,7 +533,7 @@ def fold_round(A, V, r_prev):
     scratch, scratch_ptr = _scratch(
         dev, lib.zk_round_scratch_bytes(rows, int(with_fold)))
     n = ctypes.c_int(0)
-    _launch(lib.zk_fold_round, A.data_ptr(), V.data_ptr(),
+    _launch(dev, lib.zk_fold_round, A.data_ptr(), V.data_ptr(),
             out[0].data_ptr() if with_fold else None,
             out[1].data_ptr() if with_fold else None, dots.data_ptr(),
             r_ptr, scratch_ptr, rows, _stream(dev), ctypes.byref(n))
@@ -554,7 +559,7 @@ def fold_cubic_round(m, V0, V1, r_prev):
     scratch, scratch_ptr = _scratch(
         dev, lib.zk_round_scratch_bytes(K, int(with_fold)))
     n = ctypes.c_int(0)
-    _launch(lib.zk_fold_cubic_round, m.data_ptr(), V0.data_ptr(),
+    _launch(dev, lib.zk_fold_cubic_round, m.data_ptr(), V0.data_ptr(),
             V1.data_ptr(), m_out.data_ptr() if fold_m else None,
             Vout[0].data_ptr() if with_fold else None,
             Vout[1].data_ptr() if with_fold else None, coeffs.data_ptr(),
@@ -609,7 +614,7 @@ def fold_round_phase(sides, n: int, add_term, include_add_term: bool,
     scratch, scratch_ptr = _scratch(dev, lib.zk_fold_round_phase_scratch(
         nb, n))
     k = ctypes.c_int(0)
-    _launch(lib.zk_fold_round_phase, ops, nb, fin.data_ptr(),
+    _launch(dev, lib.zk_fold_round_phase, ops, nb, fin.data_ptr(),
             buf.data_ptr(), head.ctypes.data,
             add_dev.data_ptr() if add_dev is not None else None,
             scratch_ptr, n, int(include_add_term), _stream(dev),
@@ -638,7 +643,7 @@ def fold_cubic_round_phase(m, V0, V1, n: int, state: bytes, counter: int):
     scratch, scratch_ptr = _scratch(
         dev, lib.zk_fold_cubic_round_phase_scratch(K, M, n))
     k = ctypes.c_int(0)
-    _launch(lib.zk_fold_cubic_round_phase, m.data_ptr(), V0.data_ptr(),
+    _launch(dev, lib.zk_fold_cubic_round_phase, m.data_ptr(), V0.data_ptr(),
             V1.data_ptr(), fin.data_ptr(), buf.data_ptr(), head.ctypes.data,
             scratch_ptr, K, M, n, _stream(dev), ctypes.byref(k))
     _count("fold_cubic_round", None, k.value)
@@ -656,7 +661,7 @@ def fs_tape_check(states, vals, counters, digests):
     n, dev = states.shape[0], states.device
     out = (torch.empty_like(states), _empty(dev, n),
            torch.empty_like(counters), _empty(dev, n))
-    _launch(_lib().zk_fs_tape_check, states.data_ptr(), vals.data_ptr(),
+    _launch(dev, _lib().zk_fs_tape_check, states.data_ptr(), vals.data_ptr(),
             vals.shape[1], counters.data_ptr(), digests.data_ptr(),
             *(x.data_ptr() for x in out), n, _stream(dev))
     return out

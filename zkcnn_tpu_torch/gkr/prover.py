@@ -15,7 +15,13 @@ Stateful dataflow preserved from the reference:
   * subset claims accumulate per layer for the Liu input-consolidation
     phase (prover.cpp:312-358).
 
-The prover runs on the device its witness tensors live on.
+The prover runs on the device its witness tensors live on.  Under an
+active mesh (`parallel/context.py`) the engines split every sumcheck
+side, and the DOT_PROD phase's V0 and V1, over the mesh's shards
+(engine.py); the witness `val`, the gate tensors and what the inits
+gather from them stay whole on the prover's device, which should be the
+mesh's first.  Splitting those too (the memory a vgg16 pic_cnt=8 proof
+needs) is later work.
 
 Three ways to drive it: `run_rounds_*` and the `_dev` finalizes run a
 whole phase at challenges known beforehand (the seeded tape's

@@ -99,8 +99,11 @@ def g1_lib():
     return _LIB
 
 
-def launch(fn, *args):
-    rc = fn(*args)
+def launch(dev, fn, *args):
+    """fn(*args), a C entry that launches on a stream of CUDA device dev,
+    called with dev as the current device."""
+    with torch.cuda.device(dev):
+        rc = fn(*args)
     if rc:
         raise RuntimeError("CUDA launch failed: "
                            + g1_lib().zk_g1_error_string(rc).decode())
@@ -282,8 +285,8 @@ def _add_kernel(p, q):
         q = q.reshape(-1, 3, FP.n).contiguous()
         q_ptr = q.data_ptr()
     if n:
-        launch(g1_lib().zk_g1_add, p.data_ptr(), q_ptr, out.data_ptr(), n,
-               stream_of(p.device))
+        launch(p.device, g1_lib().zk_g1_add, p.data_ptr(), q_ptr,
+               out.data_ptr(), n, stream_of(p.device))
         count_launch("g1_add", (n,))
     return out.reshape(shape)
 
@@ -340,8 +343,8 @@ def table_kernel(points, nwin: int = NWIN):
     tab = torch.empty((N, nwin, WTAB, 3, FP.n), dtype=torch.int32,
                       device=pts.device)
     n = ctypes.c_int(0)
-    launch(g1_lib().zk_g1_msm_table, pts.data_ptr(), tab.data_ptr(), N,
-           nwin, stream_of(pts.device), ctypes.byref(n))
+    launch(pts.device, g1_lib().zk_g1_msm_table, pts.data_ptr(),
+           tab.data_ptr(), N, nwin, stream_of(pts.device), ctypes.byref(n))
     count_launch("g1_msm_table", (N, nwin), n.value)
     return tab
 
@@ -359,7 +362,8 @@ def table_msm_kernel(tab, ks, nbits: int, mont: bool):
     parts = torch.empty((R, per_row, 3, FP.n), dtype=torch.int32,
                         device=ks.device) if per_row > 1 else None
     n = ctypes.c_int(0)
-    launch(lib.zk_g1_msm, tab.data_ptr(), ks.data_ptr(), out.data_ptr(),
+    launch(ks.device, lib.zk_g1_msm, tab.data_ptr(), ks.data_ptr(),
+           out.data_ptr(),
            parts.data_ptr() if parts is not None else None, R, N,
            tab.shape[1], nbits, int(mont), stream_of(ks.device),
            ctypes.byref(n))
@@ -400,8 +404,8 @@ def scalar_mul(pt, scalars_plain, nbits: int = 255):
         out = table_msm_kernel(tab, k.reshape(n, 1, FR.n), nbits, False)
         return out.reshape(lead + (3, FP.n))
     out = torch.empty((n, 3, FP.n), dtype=torch.int32, device=pt.device)
-    launch(g1_lib().zk_g1_scalar_mul, p.data_ptr(), k.data_ptr(), k_stride,
-           out.data_ptr(), n, nbits, stream_of(pt.device))
+    launch(pt.device, g1_lib().zk_g1_scalar_mul, p.data_ptr(), k.data_ptr(),
+           k_stride, out.data_ptr(), n, nbits, stream_of(pt.device))
     count_launch("g1_scalar_mul",
                  (n, nbits, "scalar" if k_stride == 0 else ""))
     return out.reshape(lead + (3, FP.n))

@@ -24,6 +24,14 @@ has finished its work.  `setup` builds the generators' fixed-base table
 are `table_s`.  The inner-product opening reuses that table (it adds
 Q's); every table the opening and the verifier build for their own
 bases is inside `pt` or `vt`.
+
+Under an active mesh (`parallel/context.py`) `commit` splits the
+matrix's rows over the shards (`parallel.ShardedMSM`): each shard
+commits its rows with one MSM against the generators' table on its own
+device (built by `setup`, once a device, into `table_s`), and the row
+commitments are gathered onto the setup's device.  A row is the same
+kernel on the same words, so the commitments are the same words.  `open`
+and `verify` run on the setup's device.
 """
 
 import time
@@ -35,6 +43,8 @@ import torch
 from ..field import FR
 from ..field.params import FR_P
 from ..mle import beta_table
+from ..parallel.context import active_mesh
+from ..parallel.sharding import ShardedMSM
 from . import curve
 from .ipa import ipa_prove, ipa_verify
 from .msm import FixedBaseMSM, points_equal
@@ -64,11 +74,13 @@ class HyraxPCS:
         self.table_s = 0.0   # setup's table of the generators, not in pt
         self.vt = 0.0   # verifier seconds
         self.ps = 0     # proof bytes
+        self.devices = ()   # the mesh's devices, where commit runs
 
     def _clock(self) -> float:
-        """The host clock once the device has finished."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """The host clock once the devices have finished."""
+        for dev in {self.device, *self.devices}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return time.time()
 
     def setup(self, bit_length: int, tape, device):
@@ -76,6 +88,8 @@ class HyraxPCS:
         (unknown discrete logs) for Fiat-Shamir tapes -- see module
         docstring."""
         self.device = torch.device(device)
+        mesh = active_mesh()
+        self.devices = tuple(mesh.devices) if mesh is not None else ()
         self.logn = bit_length
         self.l_col = bit_length - (bit_length >> 1)
         self.n_cols = 1 << self.l_col
@@ -89,6 +103,8 @@ class HyraxPCS:
                 self.device)
         t0 = self._clock()
         self.gen_msm = FixedBaseMSM(self.gens)
+        self.commit_msm = self.gen_msm if mesh is None else \
+            ShardedMSM(self.gen_msm, mesh)
         self.table_s = self._clock() - t0
 
     def _matrix(self, val0):
@@ -99,9 +115,10 @@ class HyraxPCS:
             self.n_rows, self.n_cols, FR.n)
 
     def commit(self, val0):
-        """Pedersen-commit each matrix row: [n_rows] G1 points."""
+        """Pedersen-commit each matrix row: [n_rows] G1 points (under a
+        mesh, each shard its rows; module docstring)."""
         t0 = self._clock()
-        self.row_commits = self.gen_msm.compute(self._matrix(val0))
+        self.row_commits = self.commit_msm.compute(self._matrix(val0))
         dt = self._clock() - t0
         self.commit_s += dt
         self.pt += dt

@@ -181,7 +181,7 @@ def ipa_round(b, x, s, prev):
         chal = FR.pack_mont_host(prev)     # read by value at the launch
         s_out, b_out, x_out = (torch.empty_like(s), torch.empty_like(b[:n]),
                                torch.empty_like(x[:n]))
-    curve.launch(lib.zk_ipa_round, b.data_ptr(), x.data_ptr(),
+    curve.launch(b.device, lib.zk_ipa_round, b.data_ptr(), x.data_ptr(),
                  s.data_ptr(), s_out.data_ptr(),
                  None if chal is None else chal.ctypes.data, b_out.data_ptr(),
                  x_out.data_ptr(), rows.data_ptr(), L, n,
