@@ -8,7 +8,10 @@ Run from the repository root, with no arguments:
 Phases; any failure raises and the script exits non-zero:
   1. start: require CUDA, print the card's name and power limit;
   2. build the CUDA kernels from zkcnn_tpu_torch/csrc with nvcc (one
-     compiler a source, side by side);
+     compiler a source, side by side), and while they compile build
+     vgg16's circuit and witness through the port's proving tool and
+     save them (cli/prove.py vgg16 --pcs --snapshot .snapshots/vgg16.snap
+     --build-only; the snapshot is removed at the script's exit);
   3. each round-kernel entry against its plain PyTorch version on the
      card at edge sizes, on random rows and rows of p - 1, exact: the
      multi-round ladders and the fold at 2, 4, 1554 (folded while the row
@@ -25,7 +28,8 @@ Phases; any failure raises and the script exits non-zero:
      multiples of p), and one thread's absorb and draw timed; the phase
      calls (fold_round_phase, fold_cubic_round_phase: a whole Fiat-Shamir
      phase, the tape on the card) against their plain versions word for
-     word at 2, 4, 2^12, 2^18 and 2^21 rows, at LeNet's largest phases,
+     word at 2, 4, 2^12, 2^18, 2^21, 2^24 and 2^25 rows, at LeNet's
+     largest phases,
      with sides that exhaust mid-phase and Liu's phase, random rows and
      rows of p - 1.  Then the curve kernels' Fp product in
      one thread (the check entry zk_fp_mul) and split over the table
@@ -42,11 +46,16 @@ Phases; any failure raises and the script exits non-zero:
      Python integers on the host: the four edge cases of the addition,
      n = 1, 2, 3, 1554 and 2^18; scalars 0, 1, p - 1 and one with bit
      254 set at 255 bits against py_mul, random ones at 16 and 32 bits
-     against the plain version, a shared point (the table route) and a
-     shared scalar; (R, N) = (1, 1), (3, 5), (2, 512) and (3, 130) (a
-     row of several blocks, the last one partly filled) with a repeated
-     base for the MSM on its table (py_mul at full-size scalars, the
-     plain version at 32-bit ones); a round of the inner-product opening
+     against py_mul of the points' discrete logs at n = 1, 2, 3, 512 and
+     at PLAIN_BITS = 8 bits against the plain version (n = 1 and 512), a
+     shared point (the table route) and a shared scalar; (R, N) = (1, 1),
+     (3, 5), (2, 512) and (3, 130) (a row of several blocks, the last one
+     partly filled) with a repeated base for the MSM on its table (py_mul
+     at full-size and 32-bit scalars, the plain version at 8-bit ones at
+     (2, 512) and (3, 130)); the plain scalar multiplication and MSM run
+     a chain of launches a bit, about 0.3 s a bit whatever the shape, and
+     py_mul runs on a pool of host processes (g_muls); a round of the
+     inner-product opening
      (ipa_round: the fold of b and x, the two Q-column dots, the weights
      and the rows) against its plain version, word for word, at (L, n)
      from (2, 2) to (4096, 4096) (at (1024, 64) and L = 4096 a thread
@@ -118,12 +127,23 @@ Phases; any failure raises and the script exits non-zero:
      operation past the kernels, no plain Fr op inside ipa_prove, peak
      device memory under the card's 80 GB; its witness time, PT, VT, VT
      slow, POLY_PT, POLY_VT, the setup's table, launches by kernel, peak
-     memory and the log's laps printed.  Then vgg16 the same way
-     (PINNED_VGG16: WS 20843338(2^25); Liu's phase at (2^25, 25 rounds),
-     g1_msm at (4096, 8192), 13 ipa_round, no cubic_ladder; peak memory
-     by span).  Then LeNet5 pic_cnt=16 and lenetCifar through demo_lenet,
-     --no-pcs and with the commitment (PINNED_ZOO: the --no-pcs digests
-     the CPU's, pinned in tests/test_torch_zoo.py; cubic_ladder launched;
+     memory and the log's laps printed.  Then vgg16 the same way through
+     the port's proving tool from phase 2's snapshot (cli/prove.py vgg16
+     --pcs --snapshot; PINNED_VGG16: WS 20843338(2^25); Liu's phase at
+     (2^25, 25 rounds), g1_msm at (4096, 8192), 13 ipa_round, no
+     cubic_ladder; peak memory by span), then vgg16 from the snapshot
+     again under FiatShamirTape(b"zkcnn-demo-17") with the inner-product
+     commitment (fs_vgg_run: WS, PS and POLY_PS as PINNED_VGG16's, the
+     tape's final state and counter PINNED_FS_VGG16, fold_round as phase
+     calls only with Liu's (no side, 2^25 rows, 25 rounds, no add_term)
+     among them, one fold_ladder, at most one fetch a phase, at most 4
+     tables, g1_msm at (4096, 8192), 13 ipa_round, no ladder of a round
+     and no g1_add or g1_scalar_mul, no plain Fr op inside ipa_prove;
+     seconds and peak memory by span of verify(), the host hash-to-curve
+     apart); the snapshot is removed after.  Then LeNet5 pic_cnt=16 and
+     lenetCifar through demo_lenet, --no-pcs and with the commitment
+     (PINNED_ZOO: the --no-pcs digests the CPU's, pinned in
+     tests/test_torch_zoo.py; cubic_ladder launched;
      with the commitment the setup's table of 2048 / 512 bases, g1_msm at
      (2048, 2048) / (512, 512), 11 / 9 ipa_round, no g1_add or
      g1_scalar_mul, no plain Fr op inside ipa_prove).  Then the mesh
@@ -149,39 +169,38 @@ Phases; any failure raises and the script exits non-zero:
      one-device run's.  With two cards or more, LeNet --no-pcs over two
      cards too, which must copy between them;
   6. each entry against its plain version at every shape its run
-     launched it at (the round kernels exact; the curve kernels as group
-     elements, on 32-bit scalars laid out as the run lays them out, and
-     at the largest shape on full-size scalars too; the tables entry by
-     entry, also at edge shapes that leave groups of a warp and of a block
-     empty and at 1 and 2 windows), timed with CUDA events (g1_msm with
-     and without building its table), with the least time the card could
-     take for the same work beside it (g1_scalar_mul and g1_msm at the
-     largest shape on full-size scalars against py_mul of the points'
-     discrete logs: no plain_ms there, and the kernel's and the plain
-     version's times on the same 32-bit scalars under ms_32bit and
-     plain_ms_32bit);
+     launched it at (the round kernels exact; g1_add as group elements;
+     g1_scalar_mul and g1_msm at every shape on full-size scalars against
+     py_mul of the points' discrete logs, and at the largest against the
+     plain version on PLAIN_BITS-bit scalars, whose times are the entry's
+     ms_few_bits and plain_ms_few_bits, its plain_ms null), timed with
+     CUDA events (g1_msm with and without building its table), with the
+     least time the card could take for the same work beside it;
      fold_round's and fold_cubic_round's phase calls at every phase
      shape of the Fiat-Shamir LeNet run, timed a phase.  At the shapes of
      the vgg and zoo runs: round_ladder at Liu's (2^24, 24 rounds) and
      (2^25, 25 rounds) on random rows against its plain version, exact;
-     cubic_ladder at every shape of the LeNet5 pic_cnt=16 and lenetCifar
-     runs, exact; on the runs' own operands, the commits' g1_msm at
-     (4096, 4096), (4096, 8192) and (2048, 2048) against Python integers
-     (every row commitment is py_mul of its discrete log, the generators
-     being s_i G for the tape's draws), the setup tables of 4096, 8192,
-     2048 and 512 bases against one call of the plain version on vgg16's
-     8192 generators (every other run's are their first n_cols) entry by
-     entry, and every round of the vgg11, vgg16, LeNet5 pic_cnt=16 and
-     lenetCifar openings (ipa_round at L = 4096, 8192, 2048, 512) against
-     its plain version word for word; each timed beside its bound; and
-     every other shape those runs and the mesh's launched round_ladder,
-     fold_ladder, g1_msm and g1_msm_table at (the ladders exact on random rows,
-     g1_msm with one base against its plain version on 32-bit scalars and
-     with more against py_mul of the discrete logs, the tables on random
-     bases in the tables' one plain call); every shape at which the mesh
-     runs launched cubic_ladder and the per-round entries, exact, and
-     each mesh run's largest round_ladder and cubic_ladder shape timed
-     beside its plain version and bound.  Then a LeNet
+     fold_round's phase calls at every phase shape of vgg16 under
+     Fiat-Shamir (Liu's among them), random rows and rows of p - 1, each
+     timed beside its bound; cubic_ladder at every shape of the LeNet5
+     pic_cnt=16 and lenetCifar runs, exact; on the runs' own operands,
+     the commits' g1_msm at (4096, 4096), (4096, 8192) and (2048, 2048)
+     against Python integers (every row commitment is py_mul of its
+     discrete log, the generators being s_i G for the tape's draws); the
+     tables: one plain call on vgg16's 8192 generators (every other
+     setup's are their first n_cols) and random bases at every other
+     table shape of the runs (LeNet's and the edge shapes, which leave
+     groups of a warp and of a block empty and take 1 and 2 windows),
+     every table against it entry by entry; every round of
+     the vgg11, vgg16 (with and without Fiat-Shamir), LeNet5 pic_cnt=16
+     and lenetCifar openings (ipa_round at L = 4096, 8192, 2048, 512)
+     against its plain version word for word; each timed beside its
+     bound; and every other shape those runs and the mesh's launched
+     round_ladder, fold_ladder and g1_msm at (the ladders exact on random
+     rows, g1_msm against py_mul of the discrete logs); every shape at
+     which the mesh runs launched cubic_ladder and the per-round entries,
+     exact, and each mesh run's largest round_ladder and cubic_ladder
+     shape timed beside its plain version and bound.  Then a LeNet
      side's rounds one by one as the one-round form runs them
      (fold_round, a fetch a round) against one ladder and one phase
      call;
@@ -189,7 +208,12 @@ Phases; any failure raises and the script exits non-zero:
      split functions checked, each mesh run's times, counts and launches
      beside its one-device run's), one JSON line each of the vgg11,
      vgg16, LeNet5 pic_cnt=16 and lenetCifar runs (their times, sizes,
-     peak memory, launches and digests), one JSON line of the
+     peak memory, launches and digests; vgg16's with its snapshot's bytes
+     and its build, save and load seconds), one of vgg16 under
+     FiatShamirTape (the load, PT, VT, POLY_PT, POLY_VT, the host
+     hash-to-curve's and the encode-and-absorb's seconds, launches by
+     kernel, fetches, phase shapes, seconds and peak memory by span, the
+     tape's final state and counter), one JSON line of the
      Fiat-Shamir
      path's measurements (round loops of the phase calls and of the
      one-round form, the device tape's microseconds, fetches, phases and
@@ -205,13 +229,13 @@ Phases; any failure raises and the script exits non-zero:
      with the commitment, but g1_add's and g1_scalar_mul's to the
      fold-based opening, with their launches on the main path, 0, beside
      them; a key for each vgg and zoo run with its launches and, at its
-     new shapes, its times and bounds), the nvidia-smi name/power line, and the final JSON status
-     line.
+     new shapes, its times and bounds), the nvidia-smi name/power line,
+     and the final JSON status line.
 """
 
-import contextlib
-import io
+import atexit
 import json
+import multiprocessing
 import os
 import random
 import re
@@ -219,6 +243,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # 1-device transcript digests and proof sizes of the tiny models
 # (seed 24, Tape(b"dryrun-<name>"), identical to the JAX package's pins)
@@ -294,6 +319,16 @@ PINNED_VGG16 = {
     "WS": "20843338(2^25)", "PS": "147.0625", "POLY_PS": "193.2500",
     "digest": "86e1e15008e77957c127175875a569bb956cbc68d5b003c2e4f30512b5e135bb",
 }
+# vgg16 as PINNED_VGG16's run, under FiatShamirTape(b"zkcnn-demo-17") with
+# the inner-product commitment: the tape's final state and counter, the
+# port's own pin (an H100 run; no JAX proof of vgg16 has run)
+PINNED_FS_VGG16 = (
+    "9f18af52ef9236176c8a7bb5d73b492bd5c1d35eaa684b88b72b88e5e3dfd778"
+    "22f0335dcda63ff8e3e1a48b09748504bbcef7dd33fa863e9ee784fafb20ed97",
+    1699)
+# where cli/prove.py saves vgg16's circuit and witness (listed in
+# .gitignore; about 12 GB, removed once the Fiat-Shamir run has loaded it)
+SNAPSHOT = os.path.join(".snapshots", "vgg16.snap")
 # LeNet5 pic_cnt=16 and lenetCifar pic_cnt=1 (--synthetic --seed 17, max
 # pool, Tape(b"zkcnn-demo-17")): --no-pcs, the port's digests on the CPU,
 # pinned in tests/test_torch_zoo.py; with the inner-product commitment, the
@@ -372,13 +407,19 @@ LENET_RUN = "lenet --no-pcs"
 LENET_PCS_RUN = "lenet with the commitment"
 LENET_FS_RUN = "lenet under FiatShamirTape with the commitment"
 LENET16_PCS_RUN = "lenet16 with the commitment"
+VGG16_FS_RUN = "vgg16 under FiatShamirTape with the commitment"
 FOLDS_RUN = "ipa_prove_by_folds on the opening of lenet with the commitment"
 ENGINES_RUN = "the per-round engines at lenet's largest phases"
 # curve kernels that the LeNet opening no longer runs: their shapes and
 # launches come from FOLDS_RUN
 FOLD_KERNELS = ("g1_add", "g1_scalar_mul")
+# the scalar bits of the curve kernels' plain runs: the plain scalar
+# multiplication and MSM run a chain of launches a bit (about 0.3 s a bit
+# on the card, whatever the shape), so full-size scalars are held against
+# py_mul of the points' discrete logs instead
+PLAIN_BITS = 8
 # calls of each opening, in turns, when the two are timed
-OPENING_PAIRS = 8
+OPENING_PAIRS = 4
 # g1_msm_table's shapes in a LeNet proof with the commitment (N, nwin); and
 # edge shapes: chain blocks (2 bases) partly filled, one and two windows,
 # the digits on a ragged last block
@@ -401,6 +442,25 @@ IPA_EDGE = [(2, 2), (4, 2), (8, 8), (8, 4), (128, 2), (512, 512), (512, 2),
 
 def say(msg):
     print(msg, flush=True)
+
+
+# the process pool of run()'s py_mul references (g_muls), set by main()
+HOST_POOL = []
+
+
+def _g_mul(k: int):
+    """py_mul(G, k), a task of the host pool."""
+    from zkcnn_tpu_torch.pcs import curve
+    return curve.py_mul((curve.G1_X, curve.G1_Y), k)
+
+
+def g_muls(ks):
+    """[py_mul(G, k) for k in ks]: k G in affine Python integers (None for
+    k = 0), on the host pool when main() has one."""
+    ks = list(ks)
+    if HOST_POOL and len(ks) > 16:
+        return HOST_POOL[0].map(_g_mul, ks, chunksize=16)
+    return [_g_mul(k) for k in ks]
 
 
 def ptxas_summary(text: str):
@@ -543,9 +603,9 @@ def compare(torch, rk, name, shape, gen, rng, fill=rand_fe):
         args = (fill(torch, shape[0], gen), ch)
     else:
         args = (fill(torch, shape[0], gen), fill(torch, shape[0], gen), ch)
-    kern, plain = getattr(rk, name), getattr(rk, name + "_plain")
-    got, want = kern(*args), plain(*args)
-    torch.cuda.synchronize()
+    kern = getattr(rk, name)
+    got = kern(*args)
+    want, plain = plain_call(torch, getattr(rk, name + "_plain"), args)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     if len(got) != len(want) or any(g.shape != w.shape
@@ -555,7 +615,16 @@ def compare(torch, rk, name, shape, gen, rng, fill=rand_fe):
     if err:
         raise AssertionError(f"{name} at {shape}: kernel differs from its "
                              f"plain version (max abs err {err})")
-    return err, (lambda: kern(*args)), (lambda: plain(*args))
+    return err, (lambda: kern(*args)), plain
+
+
+def plain_call(torch, fn, args):
+    """fn(*args), the device finished, timed as time_once_ms times it ->
+    (its result, the call as a function whose .ms is that time)."""
+    ms, out = time_once_ms(torch, lambda: fn(*args))
+    call = lambda: fn(*args)              # noqa: E731
+    call.ms = ms
+    return out, call
 
 
 def even_rounds(rows: int) -> int:
@@ -662,12 +731,13 @@ def per_round_phases(torch, engine, FiatShamirTape, how, rss=None):
 
 def phase_edges():
     """Phase shapes held against the plain version in phase 3: one side
-    of 2, 4, 2^12, 2^18 and 2^21 rows (as many rounds), Liu's phase
+    of 2, 4, 2^12, 2^18, 2^21, 2^24 and 2^25 rows (as many rounds; vgg11's
+    and vgg16's inputs), Liu's phase
     (include_add_term False), LeNet's largest sides (2^18 and 2^12 rows,
     one round past the longer), sides that exhaust mid-phase, a side of
     one and of two rows; DOT_PROD phases with m folding to one row, as
     wide as V and of one row, LeNet's largest (2^16, 2^9), and 2^21."""
-    quad = [(-1, nb, nb, True) for nb in (1, 2, 12, 18, 21)]
+    quad = [(-1, nb, nb, True) for nb in (1, 2, 12, 18, 21, 24, 25)]
     quad += [(-1, 12, 12, False), (18, 12, 19, True), (3, 10, 10, True),
              (0, 9, 9, True), (1, 2, 4, True)]
     cubic = [(2, 2, 1), (4, 2, 2), (1 << 12, 1 << 5, 12), (1 << 8, 1, 8),
@@ -698,14 +768,14 @@ def phase_compare(torch, rk, name, shape, gen, rng, fill=rand_fe):
         args = (fill(torch, M, gen), fill(torch, K, gen), fill(torch, K, gen),
                 n, state, counter)
     kern = getattr(rk, name + "_phase")
-    plain = getattr(rk, name + "_phase_plain")
-    got, want = kern(*args), plain(*args)
-    torch.cuda.synchronize()
+    got = kern(*args)
+    want, plain = plain_call(torch, getattr(rk, name + "_phase_plain"),
+                             args)
     err = max(max_err(torch, g, w) for g, w in zip(got[:2], want[:2]))
     if err:
         raise AssertionError(f"{name} phase at {shape}: kernel differs from "
                              f"its plain version (max abs err {err})")
-    return err, (lambda: kern(*args)), (lambda: plain(*args))
+    return err, (lambda: kern(*args)), plain
 
 
 def phase_bound(name: str, shape):
@@ -811,10 +881,12 @@ def same_points(msm_mod, got, want, what) -> int:
 
 def rand_scalars(torch, n: int, gen, bits: int):
     """[n, 8] random plain scalars below the modulus on the card: of full
-    size (bits = 255) or of one word (bits = 32)."""
+    size (bits = 255) or below 2^bits (bits <= 32)."""
     k = rand_fe(torch, n, gen)
-    if bits == 32:
+    if bits <= 32:
         k[:, 1:] = 0
+        if bits < 32:
+            k[:, 0] &= (1 << bits) - 1
     return k
 
 
@@ -1117,19 +1189,27 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
     say("g1_scalar_mul equals py_mul at 255 bits: scalars 0, 1, p - 1, "
         "bit 254 set, random; a shared point, a point a thread (infinity "
         "among them), a shared scalar")
-    # ... and at 16 and 32 bits against the plain version (a 255-bit
-    # plain run is about 10^6 launches)
+    # ... at 16 and 32 bits of full-size scalars (the kernel's nbits)
+    # against py_mul of the points' discrete logs, and against the plain
+    # version on PLAIN_BITS-bit scalars (the plain version runs a chain of
+    # launches a bit, about 0.3 s a bit whatever n)
     for n in (1, 2, 3, 512):
-        for nbits in (16, 32):
-            for shared in ("", "point"):
+        for shared in ("", "point"):
+            for nbits in (16, 32):
+                g1_log_check(torch, curve, msm_mod, FR, "g1_scalar_mul",
+                             (n, nbits, shared), gen)
+            if (n, shared) in ((1, ""), (512, ""), (512, "point")):
                 _, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
                                            "g1_scalar_mul",
-                                           (n, nbits, shared), gen)
+                                           (n, PLAIN_BITS, shared), gen,
+                                           PLAIN_BITS)
                 same_points(msm_mod, kern(), plain(),
-                            f"g1_scalar_mul n={n} nbits={nbits} {shared}")
-    say("g1_scalar_mul (a point a thread) and a shared point (its table "
-        "and g1_msm) equal their plain version at 16 and 32 bits, "
-        "n = 1, 2, 3, 512")
+                            f"g1_scalar_mul n={n} nbits={PLAIN_BITS} "
+                            f"{shared}")
+    say(f"g1_scalar_mul (a point a thread) and a shared point (its table "
+        f"and g1_msm) equal py_mul of the discrete logs at 16 and 32 bits "
+        f"and their plain version at {PLAIN_BITS} bits, n = 1, 2, 3, 512 "
+        f"(the plain version at n = 1 and 512, and 512 on a shared point)")
 
     # g1_add: the edge cases against Python integers and the plain
     # version, then random points
@@ -1165,9 +1245,8 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
         f"most {worst})")
 
     # g1_msm against Python integers (known discrete logs) at full-size
-    # scalars, and against the plain version at 32-bit scalars (at 255
-    # bits a plain run takes a minute; phase 6 makes one at the LeNet
-    # shape)
+    # and 32-bit scalars, and against the plain version at PLAIN_BITS-bit
+    # scalars (a 32-bit plain run takes 10-13 s, a 255-bit one minutes)
     for R, N in ((1, 1), (3, 5), (2, 512), (3, 130)):
         gk = [rng.randrange(FR_P) for _ in range(N)]
         if N > 1:
@@ -1180,16 +1259,24 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
             k = torch.from_numpy(FR.pack_mont_host(coeffs)).cuda().reshape(
                 R, N, 8)
             got = fixed.compute(k)
-            want = [curve.py_mul(G, sum(c * g for c, g in zip(
-                coeffs[r * N:(r + 1) * N], gk)) % FR_P) for r in range(R)]
+            want = g_muls(sum(c * g for c, g in zip(
+                coeffs[r * N:(r + 1) * N], gk)) % FR_P for r in range(R))
             if curve.to_affine_host(got) != want:
                 raise AssertionError(f"g1_msm ({R}, {N}) differs from "
                                      f"py_mul at {bits}-bit scalars")
-        same_points(msm_mod, got, msm_mod.msm_plain(bases, k, 32),
+        if (R, N) not in ((2, 512), (3, 130)):
+            continue
+        coeffs = [rng.getrandbits(PLAIN_BITS) for _ in range(R * N)]
+        coeffs[0] = 0
+        k = torch.from_numpy(FR.pack_mont_host(coeffs)).cuda().reshape(
+            R, N, 8)
+        same_points(msm_mod, fixed.compute(k),
+                    msm_mod.msm_plain(bases, k, PLAIN_BITS),
                     f"g1_msm ({R}, {N})")
-    say("g1_msm equals py_mul (255- and 32-bit scalars) and its plain "
-        "version (32-bit) at (R, N) = (1, 1), (3, 5), (2, 512), (3, 130), "
-        "with a zero scalar and a repeated base")
+    say(f"g1_msm equals py_mul (255- and 32-bit scalars) at (R, N) = (1, 1), "
+        f"(3, 5), (2, 512), (3, 130), and its plain version "
+        f"({PLAIN_BITS}-bit) at (2, 512) and (3, 130), with a zero scalar "
+        f"and a repeated base")
 
 
 def g1_log_check(torch, curve, msm_mod, FR, name, shape, gen):
@@ -1230,8 +1317,7 @@ def g1_log_check(torch, curve, msm_mod, FR, name, shape, gen):
         want = FR.unpack_mont_host(FR.dot_mont(
             mont, FR.mul_scalar(logs, r_mont)[None], axis=-2).cpu().numpy())
         scalars = k
-    G = (curve.G1_X, curve.G1_Y)
-    if curve.to_affine_host(kern()) != [curve.py_mul(G, e) for e in want]:
+    if curve.to_affine_host(kern()) != g_muls(want):
         raise AssertionError(f"{name} at {shape} on full-size scalars "
                              f"differs from py_mul of the discrete logs")
     return scalars, kern
@@ -1293,29 +1379,6 @@ def ipa_round_bound(shape, fold):
     by_ops = products * FULL_MULS / INT32_MULS_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
-
-
-def table_shapes(torch, curve, msm_mod, shapes, gen):
-    """g1_msm_table at each of its shapes (N, nwin) against one call of
-    the plain version on all their bases at once (its time is a chain of
-    doublings, whatever N), entries compared as group elements; raises on
-    a mismatch.  Returns that call's ms."""
-    nwin = max(w for _, w in shapes)
-    base = curve.base_point("cuda")
-    pts = curve.scalar_mul(base, rand_fe(torch, sum(n for n, _ in shapes),
-                                         gen))
-    pms, want = time_once_ms(torch,
-                             lambda: msm_mod.msm_table_plain(pts, nwin))
-    at = 0
-    for N, w in shapes:
-        got = curve.table_kernel(pts[at:at + N], w)
-        same_points(msm_mod, got, want[at:at + N, :w],
-                    f"g1_msm_table at {(N, w)}")
-        at += N
-    say(f"g1_msm_table equals its plain version, entry by entry as group "
-        f"elements, at {shapes} (the plain version in one call on all "
-        f"{len(pts)} bases: {pms:.4f} ms)")
-    return pms
 
 
 def capture_opening(torch, hyrax, ipa, FR):
@@ -1419,26 +1482,29 @@ def wall_ms(torch, fn) -> float:
 
 def memory_spans(torch, spans):
     """Wraps each (class, method) of spans so that the card's peak memory
-    is read and reset as each call starts and ends: returns the dict of
-    peaks in bytes (a method's own under its name, the stretch before it
-    since the last read under "before <name>") and a function that undoes
-    the wraps."""
-    peaks, real = {}, []
+    is read and reset as each call starts and ends, the device finished:
+    returns the dict of peaks in bytes (a method's own under its name, the
+    stretch before it since the last read under "before <name>"), the
+    dict of each method's calls as [start, end] host times, and a
+    function that undoes the wraps."""
+    peaks, calls, real = {}, {}, []
 
     def read(key):
         torch.cuda.synchronize()
         peaks[key] = max(peaks.get(key, 0), torch.cuda.max_memory_allocated())
         torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
 
     def wrap(owner, name):
         fn = getattr(owner, name)
 
         def run(*args, **kw):
-            read("before " + name)
+            call = [read("before " + name)]
             try:
                 return fn(*args, **kw)
             finally:
-                read(name)
+                call.append(read(name))
+                calls.setdefault(name, []).append(call)
         real.append((owner, name, fn))
         setattr(owner, name, run)
 
@@ -1448,7 +1514,7 @@ def memory_spans(torch, spans):
     def undo():
         for owner, name, fn in reversed(real):
             setattr(owner, name, fn)
-    return peaks, undo
+    return peaks, calls, undo
 
 
 def opening_checks(torch, ipa, curve, msm_mod, seen, smi, run):
@@ -1546,8 +1612,9 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
     inputs kept (capture_opening), the card's peak memory read by span of
     `spans` (memory_spans).  Prints the result and the launches; returns
     the demo's result, the launches (wrapper calls that launched, device
-    kernels), shapes, curve operations past the kernels, a summary for
-    the JSON lines, the opening (seen) and the commit (committed)."""
+    kernels), shapes (the phase calls' apart), curve operations past the
+    kernels, a summary for the JSON lines (with the seconds by span), the
+    opening (seen), the commit (committed) and the spans' calls."""
     from zkcnn_tpu_torch.field import FR, round_kernels as rk
     from zkcnn_tpu_torch.gkr import engine
     from zkcnn_tpu_torch.pcs import curve, hyrax, ipa
@@ -1559,7 +1626,7 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
 
     hyrax.HyraxPCS.commit = keep_commit
     seen, uncapture = capture_opening(torch, hyrax, ipa, FR)
-    peaks, unwrap = memory_spans(torch, spans)
+    peaks, span_calls, unwrap = memory_spans(torch, spans)
     curve.BASE_TABLES.clear()
     rk.reset_launches()
     curve.reset_launches()
@@ -1586,9 +1653,11 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
     device.update(curve.KERNEL_LAUNCHES)
     shapes = {k: sorted(rk.SHAPES[k]) for k in rk.NAMES}
     shapes.update({k: sorted(curve.SHAPES[k]) for k in curve.NAMES})
+    phase_shapes = {k: sorted(rk.PHASE_SHAPES[k]) for k in PHASES}
     plain = dict(curve.PLAIN_CALLS)
     fetches = engine.FETCHES["rounds"]
     row = res["row"]
+    span_s = {k: sum(b - a for a, b in v) for k, v in span_calls.items()}
     summary = {"wall_s": wall, "witness_s": res["witness_s"],
                "pt_s": res["pt"], "vt_s": res["vt"],
                "vt_slow_s": res["vt_slow"], "poly_pt_s": res["poly_pt"],
@@ -1602,6 +1671,9 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
     if spans:
         summary["peak_gib_by_span"] = {k: v / 2 ** 30
                                        for k, v in peaks.items()}
+        summary["seconds_by_span"] = span_s
+    if "snapshot" in res:
+        summary["snapshot"] = res["snapshot"]
     say(f"{run}: Verification pass, WS {row['WS']}, PS {row['PS']} KB, "
         f"POLY_PS {row['POLY_PS']} KB, witness {res['witness_s']:.2f} s, PT "
         f"{row['PT']} s, VT {row['VT']} s (slow {res['vt_slow']:.2f} s), "
@@ -1618,11 +1690,13 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
         say(f"{run} peak device memory by span (GiB; 'before X': from the "
             f"end of the previous span to X's start, the witness before the "
             f"setup): " + ", ".join(f"{k} {v / 2 ** 30:.2f}"
-                                   for k, v in peaks.items()) + f" ({smi})")
+                                   for k, v in peaks.items()) + f"; seconds "
+            f"by span (the device finished): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in span_s.items()) + f" ({smi})")
     return {"run": run, "res": res, "launches": launches, "device": device,
-            "shapes": shapes, "plain": plain, "fetches": fetches,
-            "peak": peak, "summary": summary, "seen": seen,
-            "committed": committed}
+            "shapes": shapes, "phase_shapes": phase_shapes, "plain": plain,
+            "fetches": fetches, "peak": peak, "summary": summary,
+            "seen": seen, "committed": committed, "span_calls": span_calls}
 
 
 def check_run(r, want, must=(), never=()):
@@ -1650,27 +1724,30 @@ def check_run(r, want, must=(), never=()):
         opening_fr_check(r["seen"], run)
 
 
-def vgg_run(torch, model, pin, smi):
-    """vgg11 or vgg16 (CIFAR 32x32x3, pic_cnt=1) through the port's
-    demo_vgg entry (--synthetic --seed 17 --log, the inner-product
-    commitment), the peak device memory read by span of verify().  It
-    must verify with WS, PS, POLY_PS and digest equal to `pin`, launch
-    round_ladder (Liu's phase at (2^bl, bl) among its shapes),
-    fold_ladder, g1_msm_table, g1_msm at the commitment's (rows, cols)
-    and one ipa_round a round of the opening, no per-round entry, no
-    cubic_ladder (no convolution of a vgg is an FFT one), no g1_add or
+def vgg_run(torch, model, pin, smi, main_fn=None, argv=None):
+    """vgg11 or vgg16 (CIFAR 32x32x3, pic_cnt=1) through main_fn(argv),
+    by default the port's demo_vgg entry (--synthetic --seed 17 --log, the
+    inner-product commitment), the peak device memory read by span of
+    verify().  It must verify with WS, PS, POLY_PS and digest equal to
+    `pin`, launch round_ladder (Liu's phase at (2^bl, bl) among its
+    shapes), fold_ladder, g1_msm_table, g1_msm at the commitment's (rows,
+    cols) and one ipa_round a round of the opening, no per-round entry,
+    no cubic_ladder (no convolution of a vgg is an FFT one), no g1_add or
     g1_scalar_mul (check_run).  Returns the run, its commit's operands
     moved to the host."""
     from zkcnn_tpu_torch.cli import demo_vgg
     from zkcnn_tpu_torch.gkr import Verifier
     from zkcnn_tpu_torch.pcs import hyrax
-    r = run_entry(torch, demo_vgg.main, [
-        "--synthetic", "--seed", "17", "--model", model, "--log"],
-        f"{model} with the commitment", smi, spans=[
-            (hyrax.HyraxPCS, "setup"), (hyrax.HyraxPCS, "commit"),
-            (Verifier, "_prover_pass"), (Verifier, "_predicate_pass"),
-            (Verifier, "_replay"), (hyrax.HyraxPCS, "open"),
-            (hyrax.HyraxPCS, "verify")])
+    if main_fn is None:
+        main_fn, argv = demo_vgg.main, ["--synthetic", "--seed", "17",
+                                        "--model", model, "--log"]
+    r = run_entry(torch, main_fn, argv, f"{model} with the commitment", smi,
+                  spans=[(hyrax.HyraxPCS, "setup"),
+                         (hyrax.HyraxPCS, "commit"),
+                         (Verifier, "_prover_pass"),
+                         (Verifier, "_predicate_pass"),
+                         (Verifier, "_replay"), (hyrax.HyraxPCS, "open"),
+                         (hyrax.HyraxPCS, "verify")])
     check_run(r, (pin["WS"], pin["PS"], pin["POLY_PS"], pin["digest"]),
               must=("round_ladder", "fold_ladder", "g1_msm_table", "g1_msm",
                     "ipa_round"),
@@ -1685,6 +1762,72 @@ def vgg_run(torch, model, pin, smi):
                              f"launches: {shapes}")
     r.update(liu=liu, committed=keep_commit_operands(r["committed"],
                                                      r["seen"]))
+    return r
+
+
+def fs_vgg_run(torch, snapshot, smi):
+    """vgg16 under FiatShamirTape(b"zkcnn-demo-17") with the inner-product
+    commitment, its circuit and witness loaded from the snapshot that
+    cli/prove.py saved (fs_main), the peak memory and the seconds read by
+    span of verify() (the setup, whose host hash-to-curve is its time less
+    its table's, the commit, the per-round proof and check, the opening;
+    the commitment's encode-and-absorb lies between the commit and the
+    per-round path).  It must verify with WS, PS and POLY_PS equal to
+    PINNED_VGG16's (the challenges move, not the count of messages) and
+    the tape's final state and counter equal to PINNED_FS_VGG16; launch
+    fold_round as phase calls only, Liu's phase (no side, 2^bl rows, bl
+    rounds, no add_term) among its PHASE_SHAPES, one fold_ladder (the
+    output layer's MLE at its point), at most TABLES_FIAT_SHAMIR tables,
+    g1_msm at the commitment's (rows, cols) and one ipa_round a round;
+    make at most one round fetch a phase; launch no round_ladder,
+    cubic_ladder, fold, fold_cubic_round, g1_add or g1_scalar_mul, no
+    curve operation past the kernels and no plain Fr op inside ipa_prove
+    (check_run).  Returns the run, without the setup's table."""
+    from zkcnn_tpu_torch.gkr import Verifier
+    from zkcnn_tpu_torch.pcs import hyrax
+    r = run_entry(torch, fs_main, ["vgg16", "--snapshot", snapshot],
+                  VGG16_FS_RUN, smi,
+                  spans=[(hyrax.HyraxPCS, "setup"),
+                         (hyrax.HyraxPCS, "commit"),
+                         (Verifier, "_verify_per_round"),
+                         (Verifier, "verify_input")])
+    check_run(r, (PINNED_VGG16["WS"], PINNED_VGG16["PS"],
+                  PINNED_VGG16["POLY_PS"], "/".join(map(str,
+                                                        PINNED_FS_VGG16))),
+              must=("fold_round", "fold_ladder", "g1_msm_table", "g1_msm",
+                    "ipa_round"),
+              never=("round_ladder", "cubic_ladder", "fold",
+                     "fold_cubic_round") + FOLD_KERNELS)
+    pcs, launches = r.pop("committed")["pcs"], r["launches"]
+    r["seen"].pop("gen_msm")
+    liu = (-1, pcs.logn, pcs.logn, False)
+    commit = (pcs.n_rows, pcs.n_cols)
+    if r["shapes"]["fold_round"] or \
+            liu not in r["phase_shapes"]["fold_round"] or \
+            launches["fold_ladder"] != 1 or \
+            r["fetches"] > launches["fold_round"] or \
+            launches["g1_msm_table"] > TABLES_FIAT_SHAMIR or \
+            commit not in r["shapes"]["g1_msm"] or \
+            launches["ipa_round"] != pcs.l_col:
+        raise AssertionError(
+            f"{VGG16_FS_RUN}: one-round fold_round shapes "
+            f"{r['shapes']['fold_round']}, Liu's phase {liu} in "
+            f"{r['phase_shapes']['fold_round']}, {r['fetches']} fetches for "
+            f"{launches['fold_round']} phases, g1_msm at {commit} in "
+            f"{r['shapes']['g1_msm']}, launches {launches}")
+    calls, summary = r["span_calls"], r["summary"]
+    summary["hash_to_curve_s"] = summary["seconds_by_span"]["setup"] - \
+        summary["table_s"]
+    summary["absorb_s"] = calls["_verify_per_round"][0][0] - \
+        calls["commit"][0][1]
+    summary["fingerprint"] = summary.pop("digest")
+    summary["phase_shapes"] = r["phase_shapes"]["fold_round"]
+    say(f"{VGG16_FS_RUN}: the tape's final state and counter equal "
+        f"PINNED_FS_VGG16; {launches['fold_round']} phase calls of "
+        f"fold_round (Liu's at {liu}) with {r['fetches']} round fetches; "
+        f"the setup's host hash-to-curve {summary['hash_to_curve_s']:.4f} "
+        f"s, the encode-and-absorb of the commitment "
+        f"{summary['absorb_s']:.4f} s ({smi})")
     return r
 
 
@@ -1758,8 +1901,7 @@ def commit_check(torch, curve, msm_mod, FR, Tape, committed, run, smi):
     s_mont = torch.from_numpy(FR.pack_mont_host(draws)).cuda()
     logs = FR.unpack_mont_host(FR.dot_mont(mat, s_mont[None], axis=-2)
                                .cpu().numpy())
-    G = (curve.G1_X, curve.G1_Y)
-    if curve.to_affine_host(got) != [curve.py_mul(G, k) for k in logs]:
+    if curve.to_affine_host(got) != g_muls(logs):
         raise AssertionError(f"g1_msm at {shape} in {run} differs from "
                              f"py_mul")
     scalars = torch.cat([msm_mod.plain_scalars(mat[r:r + MSM_BOUND_ROWS])
@@ -1803,27 +1945,38 @@ MESH_MSM = (8, 512)
 MESH_SEGMENTS = 1 << 10
 
 
-def fs_lenet_main(argv=None):
-    """LeNet5 pic_cnt=1 (random_source(17)) built as cli/runner.py builds
-    it and proven on the card under FiatShamirTape(b"zkcnn-demo-17") with
-    the inner-product commitment, as a demo's result for run_entry: the
-    row's sizes and times, the witness and the proof's times, the peak
-    memory, and as its digest the tape's final state and counter."""
+def fs_main(argv):
+    """A model of cli/runner.py's build_model (argv[0]: random_source(17),
+    max pool, pic_cnt=1), or its circuit and witness loaded from the
+    snapshot that cli/prove.py saved (argv[1:] = ["--snapshot", PATH]),
+    proven on the card under FiatShamirTape(b"zkcnn-demo-17") with the
+    inner-product commitment, as a demo's result for run_entry: the row's
+    sizes and times, the witness (or the load) and the proof's times, the
+    peak memory, and as its digest the tape's final state and counter."""
+    import argparse
     import torch
+    from zkcnn_tpu_torch.cli.prove import load_snapshot
+    from zkcnn_tpu_torch.cli.runner import build_model
     from zkcnn_tpu_torch.gkr import Prover, Verifier, FiatShamirTape
-    from zkcnn_tpu_torch.nn import models as zoo, random_source
-    from zkcnn_tpu_torch.nn.params import PoolType
+    from zkcnn_tpu_torch.nn import random_source
     from zkcnn_tpu_torch.pcs import HyraxPCS
     t0 = time.time()
-    C, vals = zoo.lenet(32, 32, 1, 1, PoolType.MAX).create(random_source(17))
+    if argv[1:2] == ["--snapshot"]:
+        C, vals = load_snapshot(argv[2], "cuda")
+    else:
+        nn, _, _ = build_model(argv[0], argparse.Namespace(pool="max",
+                                                           pic_cnt=1))
+        C, vals = nn.create(random_source(17))
+        del nn
     torch.cuda.synchronize()
     witness_s = time.time() - t0
     p = Prover(C, vals, own_vals=True)
+    del vals
     pcs, tape = HyraxPCS(mode="ipa"), FiatShamirTape(b"zkcnn-demo-17")
     v = Verifier(p, C, tape, pcs=pcs)
     if not v.verify():
-        raise AssertionError("lenet under FiatShamirTape: verification "
-                             "failed on cuda")
+        raise AssertionError(f"{argv[0]} under FiatShamirTape: verification "
+                             f"failed on cuda")
     torch.cuda.synchronize()
     size = C.layers[0].size
     row = {"WS": f"{size}(2^{(size - 1).bit_length()})",
@@ -2010,14 +2163,28 @@ def main():
         sys.exit("chip_smoke: zkcnn_tpu_torch not found beside this "
                  "script: run it from a checkout of the repository")
     sys.path.insert(0, root)
+    # the Python-integer references of the curve checks (py_mul) run on
+    # the host's other cores
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        HOST_POOL.append(pool)
+        try:
+            run(torch, root)
+        finally:
+            HOST_POOL.clear()
 
+
+def run(torch, root):
+    """Phases 1-7 (the module docstring)."""
     # 1. start; lap(name) keeps the seconds since the last lap, so that
     # the script's command time can be read phase by phase
     laps, last = [], [time.time()]
+    start = last[0]
 
     def lap(name):
         now = time.time()
         laps.append(f"{name} {now - last[0]:.1f}")
+        say(f"[{now - start:.1f} s] {laps[-1]} s")
         last[0] = now
 
     kind = torch.cuda.get_device_name(0)
@@ -2026,17 +2193,39 @@ def main():
         f"{torch.version.cuda}")
     say(f"nvidia-smi: {smi}")
 
-    # 2. build
+    # 2. build the kernels (one nvcc a source, side by side) and, while
+    # they compile, build vgg16's circuit and witness through the port's
+    # proving tool and save them (cli/prove.py --pcs --snapshot
+    # --build-only: host work and plain field ops, no kernel of the
+    # port's); the snapshot is removed at the script's exit
     from zkcnn_tpu_torch import cuda_build
-    t0 = time.time()
-    report = io.StringIO()
-    with contextlib.redirect_stdout(report):
-        libs = cuda_build.build(verbose=True)
-    regs = ptxas_summary(report.getvalue())
+    from zkcnn_tpu_torch.cli import prove
+    snap = os.path.join(root, SNAPSHOT)
+    os.makedirs(os.path.dirname(snap), exist_ok=True)
+    if os.path.exists(snap):
+        os.remove(snap)
+    atexit.register(lambda: os.path.exists(snap) and os.remove(snap))
+    t0, report = time.time(), []
+    with ThreadPoolExecutor(1) as compiler:
+        compiled = compiler.submit(cuda_build.build, True, report.append)
+        built = prove.main(["vgg16", "--pcs", "--snapshot", snap,
+                            "--build-only"])
+        built["wall_s"] = time.time() - t0
+        libs = compiled.result()
+    regs = ptxas_summary("\n".join(report))
     say(f"build: {sorted(p.name for p in libs.values())} in "
         f"{time.time() - t0:.1f}s; registers and spills (ptxas): "
         + "; ".join(regs))
-    lap("build")
+    snap_info = built["snapshot"]
+    say(f"vgg16 through cli/prove.py --pcs --snapshot --build-only, beside "
+        f"the build: the witness "
+        f"{built['witness_s'] - snap_info['save_s']:.2f} s, the snapshot "
+        f"saved in {snap_info['save_s']:.2f} s ({snap_info['bytes']} "
+        f"bytes), {built['wall_s']:.1f} s in all ({smi})")
+    if not os.path.exists(snap) or os.path.exists(snap + ".tmp"):
+        raise AssertionError("cli/prove.py left no snapshot, or its .tmp "
+                             "file")
+    lap("build, and beside it vgg16's witness built and saved")
     from zkcnn_tpu_torch.field import FP, FR, round_kernels as rk
     from zkcnn_tpu_torch.gkr import engine, FiatShamirTape
     from zkcnn_tpu_torch.pcs import HyraxPCS, curve, hyrax, ipa
@@ -2051,23 +2240,32 @@ def main():
     edge = edge_shapes()
     worst = {k: 0 for k in edge}
     for name, shapes in edge.items():
+        plain_s = 0
         for shape in shapes:
             for fill in (rand_fe, pm1_fe):
-                err, _, _ = compare(torch, rk, name, shape, gen, rng, fill)
+                err, _, plain = compare(torch, rk, name, shape, gen, rng,
+                                        fill)
                 worst[name] = max(worst[name], err)
+                plain_s += plain.ms / 1e3
         say(f"edge sizes exact (tolerance 0; random rows and rows of "
-            f"p - 1): {name} at {shapes}")
+            f"p - 1): {name} at {shapes} (the plain version {plain_s:.1f} "
+            f"s)")
+    lap("round kernels at edge sizes")
 
     # the device tape, then the phase calls against their plain versions
     tape_us = tape_checks(torch, rk, FR, gen, rng, smi)
     for name, shapes in phase_edges().items():
+        plain_s = {}
         for shape in shapes:
             for fill in (rand_fe, pm1_fe):
-                phase_compare(torch, rk, name, shape, gen, rng, fill)
+                plain_s[shape] = plain_s.get(shape, 0) + phase_compare(
+                    torch, rk, name, shape, gen, rng, fill)[2].ms / 1e3
+        say(f"{name}'s phase edges, the plain version's seconds: "
+            + ", ".join(f"{sh} {t:.2f}" for sh, t in plain_s.items()))
         say(f"phase calls exact (tolerance 0; random rows and rows of "
             f"p - 1): {name} at {shapes}")
 
-    lap("round kernels at edge sizes")
+    lap("the device tape and the phase calls at edge shapes")
 
     # the Fp product and the curve kernels against Python integers and
     # their plain versions
@@ -2515,14 +2713,25 @@ def main():
 
     lap("lenet with the chunks lowered")
 
-    # 5c. vgg11 and vgg16 through the port's demo_vgg entry (--synthetic
-    # --seed 17, the inner-product commitment); the counts cover exactly
-    # each run, and the commit and the opening keep their operands for
-    # phase 6
+    # 5c. vgg11 through the port's demo_vgg entry (--synthetic --seed 17,
+    # the inner-product commitment); the counts cover exactly the run, and
+    # the commit and the opening keep their operands for phase 6
     vgg11 = vgg_run(torch, "vgg11", PINNED_VGG11, smi)
     lap("vgg11")
-    vgg16 = vgg_run(torch, "vgg16", PINNED_VGG16, smi)
-    lap("vgg16")
+    # 5c'. vgg16 through the port's proving tool (cli/prove.py): the
+    # circuit and witness of phase 2 loaded and proven three-pass (--pcs
+    # --snapshot, PINNED_VGG16), then loaded again and proven under
+    # FiatShamirTape (PINNED_FS_VGG16); then the snapshot is removed
+    vgg16 = vgg_run(torch, "vgg16", PINNED_VGG16, smi, prove.main,
+                    ["vgg16", "--pcs", "--snapshot", snap])
+    lap("vgg16 from the snapshot")
+    fs_vgg16 = fs_vgg_run(torch, snap, smi)
+    lap("vgg16 under Fiat-Shamir")
+    os.remove(snap)
+    vgg16["summary"]["snapshot"].update(
+        build_s=built["witness_s"] - snap_info["save_s"],
+        save_s=snap_info["save_s"],
+        fs_load_s=fs_vgg16["summary"]["witness_s"])
 
     # 5d. LeNet5 pic_cnt=16 and lenetCifar through the port's demo_lenet
     # entry, --no-pcs and with the commitment
@@ -2552,11 +2761,11 @@ def main():
     lap("mesh: the split functions")
     lenet_argv = ["--synthetic", "--seed", "17", "--pic-cnt", "1"]
     lenet16 = PINNED_ZOO["lenet16"]
+    lenet_want = (PINNED_LENET["WS"], PINNED_LENET["PS"], "0.0000",
+                  PINNED_LENET["digest"])
     mesh_plan = [
-        (LENET_RUN, demo_lenet.main, lenet_argv + ["--no-pcs"],
-         (PINNED_LENET["WS"], PINNED_LENET["PS"], "0.0000",
-          PINNED_LENET["digest"]), LADDERS, PER_ROUND,
-         dict(split=(18,), cubic=((1 << 16, 1 << 9, 9),))),
+        (LENET_RUN, demo_lenet.main, lenet_argv + ["--no-pcs"], lenet_want,
+         LADDERS, PER_ROUND, dict(split=(18,), cubic=((1 << 16, 1 << 9, 9),))),
         (LENET_PCS_RUN, demo_lenet.main, lenet_argv,
          (PINNED_LENET["WS"], PINNED_LENET["PS"],
           PINNED_LENET_PCS["POLY_PS"], PINNED_LENET_PCS["digest"]),
@@ -2564,7 +2773,7 @@ def main():
          PER_ROUND + FOLD_KERNELS,
          dict(split=(18,), cubic=((1 << 16, 1 << 9, 9),),
               commits=MESH_SHARDS - 1)),
-        (LENET_FS_RUN, fs_lenet_main, [],
+        (LENET_FS_RUN, fs_main, ["lenet"],
          (PINNED_LENET["WS"], PINNED_LENET["PS"],
           PINNED_LENET_PCS["POLY_PS"], "/".join(map(str, PINNED_FS_LENET))),
          ("fold_round", "fold", "fold_cubic_round", "fold_ladder",
@@ -2596,7 +2805,7 @@ def main():
         key = f"{LENET_RUN} over 2 cards"
         r = mesh_entry(torch, demo_lenet.main, lenet_argv + ["--no-pcs"],
                        key, smi, mesh_on_cards(torch, 2))
-        check_run(r, mesh_plan[0][3], must=LADDERS, never=PER_ROUND)
+        check_run(r, lenet_want, must=LADDERS, never=PER_ROUND)
         mesh_check(r, one_device[LENET_RUN], 2, split=(18,),
                    cubic=((1 << 16, 1 << 9, 9),))
         if not r["mesh"]["peer_bytes"]:
@@ -2618,16 +2827,15 @@ def main():
         seen = shapes[name]
         run = ENGINES_RUN if name in PER_ROUND else LENET_RUN
         say(f"shapes of {name} in its run ({run}): {seen}")
-        err, times = worst[name], []
+        err, times = worst[name], {}
         for shape in seen:
-            e, kern, _ = compare(torch, rk, name, shape, gen, rng)
+            e, kern, plain = compare(torch, rk, name, shape, gen, rng)
             err = max(err, e)
-            times.append((shape, time_ms(torch, kern, 20)))
-        for shape, ms in times:
+            times[shape] = (time_ms(torch, kern, 20), plain.ms)
+        for shape, (ms, _) in times.items():
             say(f"time {name} {shape}: kernel {ms:.4f} ms ({smi})")
         shape = max(seen)
-        e, kern, plain = compare(torch, rk, name, shape, gen, rng)
-        ms, pms = time_ms(torch, kern, 20), time_once_ms(torch, plain)[0]
+        e, (ms, pms) = 0, times[shape]
         b_ms, b_by = bound(name, shape)
         say(f"reported time of {name}: the largest shape of its run "
             f"({run}) {shape}: "
@@ -2648,18 +2856,18 @@ def main():
             one_round = {k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "shape", "run")}
             one_round["launches"] = engines_ran[name]
-            perr, ptimes = err, []
+            perr, ptimes = err, {}
             for shape in phase_shapes[name]:
-                e, kern, _ = phase_compare(torch, rk, name, shape, gen, rng)
+                e, kern, plain = phase_compare(torch, rk, name, shape, gen,
+                                               rng)
                 perr = max(perr, e)
-                ptimes.append((shape, time_ms(torch, kern, 5)))
-            for shape, ms in ptimes:
+                ptimes[shape] = (time_ms(torch, kern, 5), plain.ms)
+            for shape, (ms, _) in ptimes.items():
                 say(f"time {name} phase {shape}: {ms:.4f} ms ({smi})")
             big = max(phase_shapes[name], key=lambda sh: (
                 sum(1 << nb for nb in sh[:2] if nb >= 0), sh)
                 if name == "fold_round" else sh)
-            e, kern, plain = phase_compare(torch, rk, name, big, gen, rng)
-            ms, pms = time_ms(torch, kern, 10), time_once_ms(torch, plain)[0]
+            e, (ms, pms) = 0, ptimes[big]
             b_ms, b_by = phase_bound(name, big)
             say(f"reported time of {name}: its largest phase in "
                 f"{LENET_FS_RUN} {big}: kernels {ms:.4f} ms a phase "
@@ -2680,7 +2888,7 @@ def main():
                             | set(zr["pcs"]["shapes"]["cubic_ladder"])):
             e, kern, plain = compare(torch, rk, "cubic_ladder", shape, gen,
                                      rng)
-            ms, pms = time_ms(torch, kern, 20), time_once_ms(torch, plain)[0]
+            ms, pms = time_ms(torch, kern, 20), plain.ms
             b_ms, b_by = bound("cubic_ladder", shape)
             zoo_cubic.setdefault(name, []).append({
                 "shape": list(shape), "max_abs_err": e, "ms": ms,
@@ -2694,13 +2902,13 @@ def main():
 
     # the curve kernels at every shape of their run (the LeNet run with
     # the commitment; G1 and G2: the fold-based opening of its opening),
-    # as group elements: against the plain version on 32-bit scalars (it
-    # takes seconds a shape; the tables in one call on all their bases),
-    # and at the largest shape on full-size scalars too (g1_add against
-    # its plain version; g1_scalar_mul and g1_msm against py_mul of the
-    # discrete logs, where a plain run takes about a minute: their entries
-    # carry no plain_ms, and the kernel's and the plain version's times on
-    # the same 32-bit scalars apart); ipa_round word for word
+    # as group elements: g1_add against its plain version; g1_scalar_mul
+    # and g1_msm on full-size scalars against py_mul of the points'
+    # discrete logs (g1_log_check), and at the largest shape against the
+    # plain version on 8-bit scalars (the plain versions run a chain of
+    # launches a scalar bit: about 0.3 s a bit whatever the shape); the
+    # tables against the one plain call of phase 6b; ipa_round word for
+    # word
     for name in curve.NAMES:
         run, seen_shapes, launched = LENET_PCS_RUN, g1_shapes, g1_launches
         if name in FOLD_KERNELS:
@@ -2736,40 +2944,43 @@ def main():
                 f"{len(per)} rounds {sum(t for _, t in per):.4f} ms "
                 f"({smi})")
             continue
-        if name == "g1_msm_table":
-            table_pms = table_shapes(torch, curve, msm_mod,
-                                     sorted(seen_shapes[name]) + TABLE_EDGES,
-                                     gen)
-        plain32, ms32 = {}, {}
+        err, on_few, pms = 0, {}, None
         for sh in seen_shapes[name]:
-            if name != "g1_msm_table":
-                _, kern, plain = g1_inputs(torch, curve, msm_mod, FR, name,
-                                           sh, gen, 32)
-                plain32[sh], want = time_once_ms(torch, plain)
-                same_points(msm_mod, kern(), want,
-                            f"{name} at {sh}, 32-bit scalars")
-                ms32[sh] = time_ms(torch, kern, 3)
-            _, kern, _ = g1_inputs(torch, curve, msm_mod, FR, name, sh, gen)
             with_table = ""
+            if name in ("g1_scalar_mul", "g1_msm"):
+                _, kern = g1_log_check(torch, curve, msm_mod, FR, name, sh,
+                                       gen)
+            elif name == "g1_add":
+                _, kern, plain = g1_inputs(torch, curve, msm_mod, FR, name,
+                                           sh, gen)
+                err = max(err, same_points(msm_mod, kern(), plain(),
+                                           f"{name} at {sh}"))
+            else:
+                _, kern, _ = g1_inputs(torch, curve, msm_mod, FR, name, sh,
+                                       gen)
             if name == "g1_msm":
                 with_table = (f", with building its table "
                               f"{time_ms(torch, kern.with_table, 3):.4f} ms")
             say(f"time {name} {sh}: kernel "
                 f"{time_ms(torch, kern, 3):.4f} ms{with_table} ({smi})")
-        err, on32 = 0, {}
         if name in ("g1_scalar_mul", "g1_msm"):
+            _, kern8, plain8 = g1_inputs(torch, curve, msm_mod, FR, name,
+                                         shape, gen, PLAIN_BITS)
+            pms8, want = time_once_ms(torch, plain8)
+            same_points(msm_mod, kern8(), want,
+                        f"{name} at {shape}, {PLAIN_BITS}-bit scalars")
+            on_few = {"plain_bits": PLAIN_BITS,
+                      "ms_few_bits": time_ms(torch, kern8, 3),
+                      "plain_ms_few_bits": pms8}
             scalars, kern = g1_log_check(torch, curve, msm_mod, FR, name,
                                          shape, gen)
-            pms, on32 = None, {"ms_32bit": ms32[shape],
-                               "plain_ms_32bit": plain32[shape]}
         else:
             scalars, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
                                              name, shape, gen)
-            if name == "g1_msm_table":
-                pms = table_pms
-            else:
+            if name == "g1_add":
                 pms, want = time_once_ms(torch, plain)
-                err = same_points(msm_mod, kern(), want, f"{name} at {shape}")
+                err = max(err, same_points(msm_mod, kern(), want,
+                                           f"{name} at {shape}"))
         ms = time_ms(torch, kern, 5)
         if name == "g1_msm_table":
             b_ms, b_by = table_bound(shape)
@@ -2781,7 +2992,7 @@ def main():
                  "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": None,
                  "shape": list(shape), "run": run}
-        entry.update(on32)
+        entry.update(on_few)
         if name in FOLD_KERNELS:
             entry["launches_on_the_main_path"] = g1_launches[name]
         if name == "g1_msm_table" and shape in sweep:
@@ -2793,10 +3004,13 @@ def main():
             entry["ms_with_table"] = time_ms(torch, kern.with_table, 5)
             with_table = (f" (with building its table "
                           f"{entry['ms_with_table']:.4f} ms)")
-        plain_txt = (f"plain {pms:.4f} ms (one call)" if not on32 else
-                     f"no plain run on these scalars; on 32-bit scalars "
-                     f"kernel {on32['ms_32bit']:.4f} ms, plain "
-                     f"{on32['plain_ms_32bit']:.4f} ms (one call)")
+        plain_txt = (
+            f"plain {pms:.4f} ms (one call)" if name == "g1_add" else
+            "its plain version in phase 6b's one call on all the tables' "
+            "bases" if name == "g1_msm_table" else
+            f"every shape equal to py_mul of the discrete logs; on "
+            f"{PLAIN_BITS}-bit scalars kernel {on_few['ms_few_bits']:.4f} ms, "
+            f"plain {on_few['plain_ms_few_bits']:.4f} ms (one call)")
         say(f"reported time of {name}: the largest shape of its run "
             f"({run}) {shape}: kernel {ms:.4f} ms{with_table}, {plain_txt}, "
             f"bound {b_ms:.6f} ms by {b_by} ({smi})")
@@ -2808,15 +3022,18 @@ def main():
 
     # 6b. the kernels at the vgg and zoo runs' shapes: round_ladder at
     # each vgg's Liu phase (2^24 and 2^25 rows, as many rounds) on random
-    # rows against its plain version, exact; on the runs' own operands,
-    # the commits' g1_msm (vgg11, vgg16, LeNet5 pic_cnt=16) against Python
-    # integers (commit_check), every setup table against one call of its
-    # plain version on vgg16's 8192 generators (the tape's draws are
-    # counter-based, so every other run's generators are its first
-    # n_cols), and every round of each opening (ipa_round) against its
-    # plain version, word for word; each timed beside its bound
+    # rows against its plain version, exact; fold_round's phase calls at
+    # every phase shape of vgg16 under Fiat-Shamir, Liu's among them,
+    # word for word on random rows and rows of p - 1; on the runs' own
+    # operands, the commits' g1_msm (vgg11, vgg16, LeNet5 pic_cnt=16)
+    # against Python integers (commit_check), every setup table against
+    # one call of its plain version on vgg16's 8192 generators (the tape's
+    # draws are counter-based, so every other run's generators are its
+    # first n_cols) and random bases at every other shape of the tables,
+    # and every round of each opening (ipa_round) against its plain
+    # version, word for word; each timed beside its bound
     by_name = {k["name"]: k for k in kernels}
-    runs = {"vgg11": vgg11, "vgg16": vgg16}
+    runs = {"vgg11": vgg11, "vgg16": vgg16, VGG16_FS_RUN: fs_vgg16}
     for name, zr in zoo_runs.items():
         runs[name] = zr["pcs"]
         runs[name + " --no-pcs"] = zr["no_pcs"]
@@ -2844,7 +3061,7 @@ def main():
                 continue
             shape = max(r["shapes"][name])
             e, kern, plain = compare(torch, rk, name, shape, gen, rng)
-            ms, pms = time_ms(torch, kern, 20), time_once_ms(torch, plain)[0]
+            ms, pms = time_ms(torch, kern, 20), plain.ms
             b_ms, b_by = bound(name, shape)
             by_name[name][key].update(
                 shape=list(shape), max_abs_err=e, ms=ms, plain_ms=pms,
@@ -2855,11 +3072,11 @@ def main():
         say(f"{key}: the per-round entries and cubic_ladder equal to their "
             f"plain versions at every shape of the run: "
             f"{ {k: r['shapes'][k] for k in ('cubic_ladder',) + PER_ROUND} }")
+    lap("the mesh runs' shapes")
     for key in ("vgg11", "vgg16"):
         liu = runs[key]["liu"]
         e, kern, plain = compare(torch, rk, "round_ladder", liu, gen, rng)
-        ms = time_ms(torch, kern, 5)
-        pms, _ = time_once_ms(torch, plain)
+        ms, pms = time_ms(torch, kern, 5), plain.ms
         b_ms, b_by = bound("round_ladder", liu)
         by_name["round_ladder"][key].update(
             shape=list(liu), max_abs_err=e, ms=ms, plain_ms=pms,
@@ -2868,14 +3085,46 @@ def main():
             f"random rows: equal to its plain version; kernel {ms:.4f} ms, "
             f"plain {pms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({smi})")
         del kern, plain
+    lap("the round ladders at the vgg runs' Liu phases")
+    # fold_round's phase calls at every phase shape of vgg16 under
+    # Fiat-Shamir, each timed beside its bound; Liu's phase reported,
+    # with its plain version's time
+    fs_shapes, perr = fs_vgg16["phase_shapes"]["fold_round"], 0
+    timed = []
+    for shape in fs_shapes:
+        for fill in (rand_fe, pm1_fe):
+            e, kern, plain = phase_compare(torch, rk, "fold_round", shape,
+                                           gen, rng, fill)
+            perr = max(perr, e)
+        b_ms, b_by = phase_bound("fold_round", shape)
+        timed.append({"shape": list(shape), "ms": time_ms(torch, kern, 3),
+                      "bound_ms": b_ms, "bound_by": b_by})
+        say(f"fold_round phase {shape} ({VGG16_FS_RUN}): equal to its plain "
+            f"version on random rows and rows of p - 1; kernels "
+            f"{timed[-1]['ms']:.4f} ms a phase, bound {b_ms:.6f} ms by "
+            f"{b_by} ({smi})")
+    liu = max(sh for sh in fs_shapes if sh[0] < 0 and not sh[3])
+    e, kern, plain = phase_compare(torch, rk, "fold_round", liu, gen, rng)
+    ms, pms = time_ms(torch, kern, 5), plain.ms
+    b_ms, b_by = phase_bound("fold_round", liu)
+    by_name["fold_round"][VGG16_FS_RUN].update(
+        shape=list(liu), max_abs_err=max(perr, e), ms=ms, plain_ms=pms,
+        bound_ms=b_ms, bound_by=b_by, phases=timed)
+    say(f"fold_round at Liu's phase {liu} of {VGG16_FS_RUN}: kernels "
+        f"{ms:.4f} ms a phase, plain {pms:.4f} ms, bound {b_ms:.6f} ms by "
+        f"{b_by}; all {len(fs_shapes)} phase shapes of the run equal to the "
+        f"plain version ({smi})")
+    lap("fold_round at the phase shapes of vgg16 under Fiat-Shamir")
     for key in ("vgg11", "vgg16", "lenet16"):
         by_name["g1_msm"][key].update(commit_check(
             torch, curve, msm_mod, FR, Tape, runs[key]["committed"],
             runs[key]["run"], smi))
+    lap("the commits of vgg11, vgg16 and lenet16")
     # every other shape of those runs that no check above covers: the
-    # ladders exact on random rows; g1_msm with one base against its plain
-    # version on 32-bit scalars, with more against py_mul of the discrete
-    # logs; the tables below, on random bases in the tables' plain call
+    # ladders exact on random rows; g1_msm against py_mul of the discrete
+    # logs; the tables on random bases in the tables' one plain call, with
+    # the LeNet run's shapes and the edge shapes, which leave groups of a
+    # warp and of a block empty and take one and two windows
     setups = ("vgg11", "vgg16", "lenet16", "lenet-cifar")
     covered = {k: set(shapes[k]) | set(edge[k])
                for k in ("round_ladder", "fold_ladder")}
@@ -2883,37 +3132,37 @@ def main():
     covered["g1_msm"] = set(g1_shapes["g1_msm"]) | {
         (1, 1), (3, 5), (2, 512), (3, 130)} | {
         runs[k]["committed"]["shape"] for k in ("vgg11", "vgg16", "lenet16")}
-    covered["g1_msm_table"] = set(g1_shapes["g1_msm_table"]) | set(
-        TABLE_EDGES) | {(runs[k]["committed"]["gens"].shape[0], curve.NWIN)
-                        for k in setups}
+    covered["g1_msm_table"] = {(runs[k]["committed"]["gens"].shape[0],
+                                curve.NWIN) for k in setups}
     other = {k: sorted(set().union(*(r["shapes"][k] for r in runs.values()))
                        - v) for k, v in covered.items()}
     for name in ("round_ladder", "fold_ladder"):
         for shape in other[name]:
             compare(torch, rk, name, shape, gen, rng)
     for shape in other["g1_msm"]:
-        if shape[1] == 1:
-            _, kern, plain = g1_inputs(torch, curve, msm_mod, FR, "g1_msm",
-                                       shape, gen, 32)
-            same_points(msm_mod, kern(), plain(),
-                        f"g1_msm at {shape}, 32-bit scalars")
-        else:
-            g1_log_check(torch, curve, msm_mod, FR, "g1_msm", shape, gen)
+        g1_log_check(torch, curve, msm_mod, FR, "g1_msm", shape, gen)
+    # the tables: one plain call on all their bases, every table held
+    # against it entry by entry
     gens = vgg16["committed"]["gens"]
     base = curve.base_point("cuda")
+    tables = sorted(set(other["g1_msm_table"]) | set(g1_shapes[
+        "g1_msm_table"]) | set(TABLE_EDGES))
     extra = [curve.scalar_mul(base, rand_fe(torch, n, gen))
-             for n, _ in other["g1_msm_table"]]
+             for n, _ in tables]
     bases = torch.cat([gens] + extra)
     pms, want = time_once_ms(torch, lambda: msm_mod.msm_table_plain(bases))
     at = gens.shape[0]
-    for (n, w), pts in zip(other["g1_msm_table"], extra):
+    for (n, w), pts in zip(tables, extra):
         same_points(msm_mod, curve.table_kernel(pts, w), want[at:at + n, :w],
                     f"g1_msm_table at {(n, w)}")
         at += n
+    by_name["g1_msm_table"].update(plain_ms=pms, plain_bases=bases.shape[0])
     say(f"the other shapes of the vgg and zoo runs equal their plain "
         f"versions (the ladders exact on random rows; g1_msm as group "
-        f"elements, with one base on 32-bit scalars, else against py_mul; "
-        f"the tables entry by entry): {other}")
+        f"elements against py_mul; the tables entry by entry against one "
+        f"plain call on all {bases.shape[0]} bases ({pms:.4f} ms), with "
+        f"{LENET_PCS_RUN}'s and the edge shapes): {other}, tables {tables} "
+        f"({smi})")
     for key in setups:
         mine = runs[key]["committed"]["gens"]
         n = mine.shape[0]
@@ -2933,12 +3182,13 @@ def main():
             f"plain {pms:.4f} ms (one call on all {bases.shape[0]} bases), "
             f"bound {b_ms:.6f} ms by {b_by} ({smi})")
     del want, bases, extra
-    for key in setups:
+    lap("the other shapes of the vgg and zoo runs and the tables")
+    for key in setups + (VGG16_FS_RUN,):
         by_name["ipa_round"][key].update(opening_rounds_check(
             torch, ipa, runs[key]["seen"], runs[key]["run"], smi))
     del runs, vgg11["committed"], vgg16["committed"], zoo_runs
 
-    lap("the kernels at the vgg and zoo runs' shapes")
+    lap("the openings of the vgg and zoo runs")
 
     # what a ladder saves at LeNet's largest side: its rounds one by one
     # as the per-round path runs them (fold_round, each round's dots
@@ -2971,6 +3221,7 @@ def main():
     # them, then the kernels
     say(json.dumps({"vgg11": vgg11["summary"]}))
     say(json.dumps({"vgg16": vgg16["summary"]}))
+    say(json.dumps({"vgg16 under FiatShamirTape": fs_vgg16["summary"]}))
     for name, zr in zoo_summaries.items():
         say(json.dumps({name: zr}))
     say(json.dumps({"round_loops_s": {"phase_calls": round_s[0],

@@ -19,6 +19,11 @@ from zkcnn_tpu_torch.circuit.ir import UNI_G, UNI_U, UNI_LU, UNI_SC, \
     BIN_G, BIN_U, BIN_V, BIN_SC, BIN_L
 from zkcnn_tpu_torch.interop import limbs16_to_words, words_to_limbs16
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 CHUNK = 7          # GATE_CHUNK and EVAL_CHUNK: several chunks, a ragged end
 
 

@@ -15,6 +15,11 @@ from zkcnn_tpu_torch.nn import random_source
 from zkcnn_tpu_torch.nn import models as zoo
 from zkcnn_tpu_torch.nn.params import PoolType, ConvType
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 
 def test_eval_normal_layer_matches_integer_replay():
     """The field-domain layer evaluation reproduces NeuralNetwork's

@@ -3,9 +3,15 @@ row; the Hyrax commitment is the default and --no-pcs is required to
 leave it out (tests/test_torch_pcs_e2e.py runs the entry with it)."""
 
 import pytest
+import torch
 
 from zkcnn_tpu_torch.cli import demo_lenet
 from zkcnn_tpu_torch.cli.runner import OUT_COLS, base_arg_parser, finish_args
+
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
 
 
 def test_demo_cli_runs_and_requires_no_pcs():

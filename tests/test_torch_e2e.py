@@ -13,6 +13,7 @@ models with the commitment in place.
 
 import numpy as np
 import pytest
+import torch
 
 from __graft_entry__ import PINNED_1CHIP
 from zkcnn_tpu.nn import random_source as j_random_source
@@ -26,6 +27,11 @@ from zkcnn_tpu_torch.nn import random_source, NeuralNetwork
 from zkcnn_tpu_torch.nn import models as zoo
 from zkcnn_tpu_torch.nn.params import PoolType, ConvType, ConvKernel, \
     PoolKernel, FconKernel
+
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
 
 # LeNet5 pic_cnt=1, random_source(17), Tape(b"zkcnn-demo-17"), no PCS:
 # the port's step-path digest on the CPU.  (The JAX package's

@@ -11,6 +11,11 @@ import torch
 from zkcnn_tpu_torch.field import FR, FR_P
 from zkcnn_tpu_torch.field.ops import SIGNED_FR, bits_to_mont
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 P = FR_P
 
 

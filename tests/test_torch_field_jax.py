@@ -16,6 +16,11 @@ from zkcnn_tpu_torch.field.ops import segment_sum_field
 from zkcnn_tpu_torch.interop import limbs16_to_words, words_to_limbs16, \
     vals_from_jax
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 P = FR_P
 
 

@@ -26,6 +26,11 @@ from zkcnn_tpu_torch.field.round_kernels import HEAD_ROWS, phase_head, \
 from zkcnn_tpu_torch.gkr import FiatShamirTape
 from zkcnn_tpu_torch.gkr.engine import Side, PhaseEngine
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 _HARNESS = r"""
 #include <vector>
 #define ZK_DEV

@@ -20,6 +20,7 @@ repository root, reproduces TINY_FC_FS_PIN with the JAX package.
 
 import numpy as np
 import pytest
+import torch
 
 from zkcnn_tpu.gkr import Prover as JProver, Verifier as JVerifier
 from zkcnn_tpu.gkr.tape import FiatShamirTape as JFiatShamirTape
@@ -32,6 +33,11 @@ from zkcnn_tpu_torch.nn import random_source, NeuralNetwork
 from zkcnn_tpu_torch.nn.models import singleConv
 from zkcnn_tpu_torch.nn.params import ConvType, ConvKernel, PoolKernel, \
     PoolType, FconKernel
+
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
 
 # tiny_fc_fft (__graft_entry__._dryrun_models), random_source(24),
 # FiatShamirTape(b"fs-tiny_fc_fft"), no commitment: the JAX package's

@@ -24,6 +24,7 @@ PINNED_FS_TINY with the JAX package (about 5 minutes on one core).
 """
 
 import pytest
+import torch
 
 from __graft_entry__ import PINNED_1CHIP
 from zkcnn_tpu_torch.field import FR, FR_P
@@ -33,6 +34,11 @@ from zkcnn_tpu_torch.nn import models as zoo
 from zkcnn_tpu_torch.nn.params import PoolType, ConvType, ConvKernel, \
     PoolKernel, FconKernel
 from zkcnn_tpu_torch.pcs import HyraxPCS
+
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
 
 # FiatShamirTape(b"dryrun-<name>"), random_source(24), the commitment in
 # the given mode: the final tape state (sha512, hex) and draw counter;

@@ -14,6 +14,11 @@ from zkcnn_tpu_torch.field import FR, FR_P
 from zkcnn_tpu_torch.gkr import FiatShamirTape
 from zkcnn_tpu_torch.pcs import HyraxPCS, curve
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 G = (curve.G1_X, curve.G1_Y)
 LOGN = 4
 

@@ -22,6 +22,11 @@ from zkcnn_tpu_torch.nn import random_source
 from zkcnn_tpu_torch.nn.models import singleConv
 from zkcnn_tpu_torch.nn.params import ConvType
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 
 def _rand(rng, m):
     return torch.from_numpy(FR.pack_mont_host(

@@ -6,10 +6,16 @@ package in tests/test_torch_round.py.
 """
 
 import numpy as np
+import torch
 
 from zkcnn_tpu.gkr.tape import FiatShamirTape as JFiatShamirTape
 from zkcnn_tpu_torch.field import FR_P
 from zkcnn_tpu_torch.gkr import FiatShamirTape
+
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
 
 
 def test_fiat_shamir_tape_matches_jax():

@@ -18,6 +18,11 @@ from zkcnn_tpu_torch.gkr import FiatShamirTape, Tape
 from zkcnn_tpu_torch.pcs import curve, ipa
 from zkcnn_tpu_torch.pcs.msm import FixedBaseMSM, msm_host, points_equal
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 G = (curve.G1_X, curve.G1_Y)
 
 

@@ -30,6 +30,11 @@ from zkcnn_tpu_torch.interop import limbs16_to_words, words_to_limbs16
 from zkcnn_tpu_torch.pcs import curve, ipa
 from zkcnn_tpu_torch.pcs.msm import FixedBaseMSM
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 G = (curve.G1_X, curve.G1_Y)
 
 _HARNESS = r"""

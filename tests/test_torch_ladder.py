@@ -22,6 +22,11 @@ from zkcnn_tpu_torch.field import round_kernels as rk
 from zkcnn_tpu_torch.gkr.engine import Side, PhaseEngine, DotProdPhase1
 from zkcnn_tpu_torch.interop import limbs16_to_words, vals_from_jax
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 
 def _ints(rng, n):
     return [int.from_bytes(rng.bytes(31), "little") % FR_P for _ in range(n)]

@@ -20,6 +20,7 @@ import gc
 import jax
 import numpy as np
 import pytest
+import torch
 
 from zkcnn_tpu.field import FR as JFR
 from zkcnn_tpu.gkr import Prover as JProver
@@ -29,6 +30,11 @@ from zkcnn_tpu.nn.params import PoolType as JPoolType
 from zkcnn_tpu_torch.circuit.ir import LayerType
 from zkcnn_tpu_torch.gkr import Prover, Verifier, Tape
 from zkcnn_tpu_torch.interop import circuit_from_jax, vals_from_jax
+
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
 
 # LeNet5 pic_cnt=1, random_source(17), Tape(b"zkcnn-demo-17"), no
 # commitment: the port's digest, pinned in tests/test_torch_e2e.py

@@ -15,6 +15,11 @@ from zkcnn_tpu_torch.mle import beta_table, beta_table_2pt, phi_table
 from zkcnn_tpu_torch.ntt import ntt, intt
 from zkcnn_tpu_torch.interop import limbs16_to_words, vals_from_jax
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 
 def _ints(rng, n):
     return [int.from_bytes(rng.bytes(32), "little") % FR_P for _ in range(n)]

@@ -19,6 +19,11 @@ from zkcnn_tpu_torch.parallel import (COUNTS, make_mesh, use_mesh,
 from zkcnn_tpu_torch.pcs import curve
 from zkcnn_tpu_torch.pcs.msm import FixedBaseMSM, points_equal
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 MESHES = (1, 2, 4, 8)
 
 

@@ -19,6 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

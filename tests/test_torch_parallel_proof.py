@@ -38,6 +38,11 @@ from zkcnn_tpu_torch.pcs import HyraxPCS
 from tests.test_torch_fs_gkr import TINY_FC_FS_PIN
 from tests.test_torch_fs_paths import PINNED_FS_TINY
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 TINY = dict(tiny_models())
 
 # tiny_fc_fft, random_source(24), FiatShamirTape(b"dryrun-tiny_fc_fft"),

@@ -10,6 +10,7 @@ Tolerance 0 (digests and byte counts).
 """
 
 import pytest
+import torch
 
 from __graft_entry__ import PINNED_1CHIP
 from zkcnn_tpu_torch.gkr import Prover, Verifier, Tape
@@ -18,6 +19,11 @@ from zkcnn_tpu_torch.nn import models as zoo
 from zkcnn_tpu_torch.nn.params import PoolType, ConvType, ConvKernel, \
     PoolKernel, FconKernel
 from zkcnn_tpu_torch.pcs import HyraxPCS
+
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
 
 # LeNet5 pic_cnt=1, random_source(17), Tape(b"zkcnn-demo-17"), with the
 # commitment (512 generator draws before the GKR proof): the port's

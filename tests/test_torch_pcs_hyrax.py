@@ -24,6 +24,11 @@ from zkcnn_tpu_torch.interop import limbs16_to_words, words_to_limbs16, \
 from zkcnn_tpu_torch.pcs import HyraxPCS, curve
 from zkcnn_tpu_torch.pcs.hyrax import SqrtProof
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 G = (curve.G1_X, curve.G1_Y)
 LOGN = 4
 

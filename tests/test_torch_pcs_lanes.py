@@ -24,6 +24,11 @@ import torch
 from zkcnn_tpu_torch.field import FP, FP_P, FR, FR_P
 from zkcnn_tpu_torch.pcs import curve
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 G = (curve.G1_X, curve.G1_Y)
 # lanes a product and products at once of the chain kernel
 # (csrc/g1_kernels.cu: TABLE_LANES, TABLE_GROUPS)

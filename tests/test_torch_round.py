@@ -22,6 +22,11 @@ from zkcnn_tpu_torch.field import FR, FR_P
 from zkcnn_tpu_torch.field import round_kernels as rk
 from zkcnn_tpu_torch.interop import limbs16_to_words, vals_from_jax
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 
 def _rand_mont(rng, m, fill="random"):
     """The same residues, random or all p - 1, as JAX limbs and as port

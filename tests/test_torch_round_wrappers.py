@@ -11,6 +11,11 @@ import torch
 from zkcnn_tpu_torch.field import FR, FR_P
 from zkcnn_tpu_torch.field import round_kernels as rk
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 
 def _rand(rng, m):
     return torch.from_numpy(FR.pack_mont_host(

@@ -34,6 +34,11 @@ from zkcnn_tpu_torch.gkr import Prover, Verifier, Tape
 from zkcnn_tpu_torch.nn import random_source
 from zkcnn_tpu_torch.nn.debug import check_zero_regions, layer_summary
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 # the tiny vgg, random_source(41), Tape(b"vgg-tiny"), no commitment: the
 # JAX package's transcript digest and proof size
 TINY_VGG_PIN = {

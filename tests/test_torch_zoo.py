@@ -35,6 +35,11 @@ from zkcnn_tpu_torch.nn import models as zoo
 from zkcnn_tpu_torch.nn.debug import check_zero_regions
 from zkcnn_tpu_torch.nn.params import PoolType
 
+# one CPU thread a test process: the suite's six xdist workers share
+# the machine's cores, and torch's own thread pool in each of them
+# made CPU-bound tests ten times slower than alone
+torch.set_num_threads(1)
+
 # --synthetic --seed 17, Tape(b"zkcnn-demo-17"), --no-pcs: the port's
 # digests on the CPU, which chip_smoke.py pins the card to
 PINNED_ZOO_NO_PCS = {

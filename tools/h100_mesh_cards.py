@@ -57,7 +57,7 @@ def main():
         ("lenet with the commitment", demo_lenet.main, argv,
          (ws, ps, poly_ps, cs.PINNED_LENET_PCS["digest"]), [4],
          dict(split=(18,), cubic=cubic)),
-        ("lenet under FiatShamirTape", cs.fs_lenet_main, [],
+        ("lenet under FiatShamirTape", cs.fs_main, ["lenet"],
          (ws, ps, poly_ps, "/".join(map(str, cs.PINNED_FS_LENET))), [4],
          dict(split=(18,), fiat_shamir=True))]
     out, failed = {}, []

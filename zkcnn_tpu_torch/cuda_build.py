@@ -42,9 +42,11 @@ def library_paths() -> dict:
     return {name: BUILD_DIR / f"libzkcnn_{name}_{tag}.so" for name in SOURCES}
 
 
-def build(verbose: bool = False) -> dict:
+def build(verbose: bool = False, log=print) -> dict:
     """Compile every source that has no library for this exact tree and
-    flag set, all at once; returns {name: path}."""
+    flag set, all at once; returns {name: path}.  verbose: the compiler
+    reports each kernel's registers and spills (-Xptxas -v), passed to
+    `log`."""
     paths = library_paths()
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
@@ -66,7 +68,7 @@ def build(verbose: bool = False) -> dict:
                           f"({proc.returncode}):\n{err}")
             continue
         if verbose and err:
-            print(err)
+            log(err)
         os.replace(tmp, todo[name])
     if failed:
         raise RuntimeError("\n".join(failed))
