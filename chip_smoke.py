@@ -131,17 +131,34 @@ Phases; any failure raises and the script exits non-zero:
      the port's proving tool from phase 2's snapshot (cli/prove.py vgg16
      --pcs --snapshot; PINNED_VGG16: WS 20843338(2^25); Liu's phase at
      (2^25, 25 rounds), g1_msm at (4096, 8192), 13 ipa_round, no
-     cubic_ladder; peak memory by span), then vgg16 from the snapshot
-     again under FiatShamirTape(b"zkcnn-demo-17") with the inner-product
-     commitment (fs_vgg_run: WS, PS and POLY_PS as PINNED_VGG16's, the
-     tape's final state and counter PINNED_FS_VGG16, fold_round as phase
-     calls only with Liu's (no side, 2^25 rows, 25 rounds, no add_term)
-     among them, one fold_ladder, at most one fetch a phase, at most 4
-     tables, g1_msm at (4096, 8192), 13 ipa_round, no ladder of a round
-     and no g1_add or g1_scalar_mul, no plain Fr op inside ipa_prove;
-     seconds and peak memory by span of verify(), the host hash-to-curve
-     apart); the snapshot is removed after.  Then LeNet5 pic_cnt=16 and
-     lenetCifar through demo_lenet, --no-pcs and with the commitment
+     cubic_ladder; peak memory by span), then from the snapshot again on
+     one device under
+     FiatShamirTape(b"zkcnn-demo-17") with the inner-product commitment
+     (fs_vgg_run: WS, PS and POLY_PS as PINNED_VGG16's, the tape's final
+     state and counter PINNED_FS_VGG16, fold_round as phase calls only
+     with Liu's (no side, 2^25 rows, 25 rounds, no add_term) among them,
+     one fold_ladder, at most one fetch a phase, at most 4 tables, g1_msm
+     at (4096, 8192), 13 ipa_round, no ladder of a round and no g1_add or
+     g1_scalar_mul, no plain Fr op inside ipa_prove; seconds and peak
+     memory by span of verify(), the host hash-to-curve apart); then from
+     the snapshot three-pass (cli/prove.py vgg16 --pcs --snapshot,
+     PINNED_VGG16: WS 20843338(2^25), PS, POLY_PS, digest) over
+     MESH_SHARDS = 4 shards on the card (vgg16_mesh_run): the witness, the
+     gate classes and the inits' column accumulators split as the sides
+     are, Liu's round_ladder at a shard's (2^23, 23) and never at (2^25,
+     25), one g1_msm a shard for the commit at (1024, 8192) and none at
+     (4096, 8192), 13 ipa_round, no cubic_ladder, split_check against the
+     one-device run (every witness layer that splits as 4 blocks, every
+     gate class of more than GATE_CHUNK rows over 4 shards, each shard's
+     resident high-water of witness, gates and accumulators at most a
+     quarter of the one-device run's plus the tables it reads whole, each
+     split block in a storage of its own), the card's peak within
+     MESH_PEAK_RATIO of the one-device three-pass run's, its PT, VT, VT
+     slow, POLY_PT, bytes copied, indexed gathers, routed gate chunks and
+     each shard's high-water printed beside that run's; the snapshot is
+     removed after.  Then
+     LeNet5 pic_cnt=16 and lenetCifar through demo_lenet, --no-pcs and
+     with the commitment
      (PINNED_ZOO: the --no-pcs digests the CPU's, pinned in
      tests/test_torch_zoo.py; cubic_ladder launched;
      with the commitment the setup's table of 2048 / 512 bases, g1_msm at
@@ -164,10 +181,12 @@ Phases; any failure raises and the script exits non-zero:
      g1_msm than one device (one a shard for the commit), under
      Fiat-Shamir a phase with a split operand on the host tape with
      fold_round at a shard's rows, a phase call only for a phase whose
-     operands stayed whole; PT, VT, POLY_PT, the witness, the
-     wall time, the gathers and the bytes copied printed beside the
-     one-device run's.  With two cards or more, LeNet --no-pcs over two
-     cards too, which must copy between them;
+     operands stayed whole, and split_check against the one-device run;
+     PT, VT, VT slow, POLY_PT, the witness, the wall time, the peak, the
+     gathers, the bytes copied, the indexed gathers and each shard's
+     resident high-water printed beside the one-device run's.  With two
+     cards or more, LeNet --no-pcs over two cards too, which must copy
+     between them;
   6. each entry against its plain version at every shape its run
      launched it at (the round kernels exact; g1_add as group elements;
      g1_scalar_mul and g1_msm at every shape on full-size scalars against
@@ -178,8 +197,9 @@ Phases; any failure raises and the script exits non-zero:
      least time the card could take for the same work beside it;
      fold_round's and fold_cubic_round's phase calls at every phase
      shape of the Fiat-Shamir LeNet run, timed a phase.  At the shapes of
-     the vgg and zoo runs: round_ladder at Liu's (2^24, 24 rounds) and
-     (2^25, 25 rounds) on random rows against its plain version, exact;
+     the vgg and zoo runs: round_ladder at Liu's (2^24, 24 rounds), a
+     shard's (2^23, 23 rounds) and vgg16's one-device (2^25, 25 rounds)
+     on random rows against its plain version, exact;
      fold_round's phase calls at every phase shape of vgg16 under
      Fiat-Shamir (Liu's among them), random rows and rows of p - 1, each
      timed beside its bound; cubic_ladder at every shape of the LeNet5
@@ -199,8 +219,10 @@ Phases; any failure raises and the script exits non-zero:
      round_ladder, fold_ladder and g1_msm at (the ladders exact on random
      rows, g1_msm against py_mul of the discrete logs); every shape at
      which the mesh runs launched cubic_ladder and the per-round entries,
-     exact, and each mesh run's largest round_ladder and cubic_ladder
-     shape timed beside its plain version and bound.  Then a LeNet
+     exact, and each mesh run's largest round_ladder, cubic_ladder and
+     per-round entry shape (a shard's rows: vgg16's Liu at (2^23, 23);
+     under Fiat-Shamir fold_round, fold_cubic_round and fold) timed beside
+     its plain version and bound.  Then a LeNet
      side's rounds one by one as the one-round form runs them
      (fold_round, a fetch a round) against one ladder and one phase
      call;
@@ -1616,7 +1638,9 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
     kernels, a summary for the JSON lines (with the seconds by span), the
     opening (seen), the commit (committed) and the spans' calls."""
     from zkcnn_tpu_torch.field import FR, round_kernels as rk
-    from zkcnn_tpu_torch.gkr import engine
+    from zkcnn_tpu_torch.gkr import engine, Prover
+    from zkcnn_tpu_torch.parallel import reset_counts
+    from zkcnn_tpu_torch.parallel.context import RESIDENT
     from zkcnn_tpu_torch.pcs import curve, hyrax, ipa
     committed, real_commit = {}, hyrax.HyraxPCS.commit
 
@@ -1627,10 +1651,12 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
     hyrax.HyraxPCS.commit = keep_commit
     seen, uncapture = capture_opening(torch, hyrax, ipa, FR)
     peaks, span_calls, unwrap = memory_spans(torch, spans)
+    split, unrecord = split_record(Prover)
     curve.BASE_TABLES.clear()
     rk.reset_launches()
     curve.reset_launches()
     engine.FETCHES["rounds"] = 0
+    reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -1638,10 +1664,12 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
         res = main_fn(argv)
         torch.cuda.synchronize()
     finally:
+        unrecord()
         unwrap()
         uncapture()
         hyrax.HyraxPCS.commit = real_commit
     wall = time.time() - t0
+    resident = {s: dict(h) for s, h in RESIDENT["high"].items()}
     if spans:
         peaks["after verify"] = torch.cuda.max_memory_allocated()
     # with spans, the runner's own peak covers only the stretch since the
@@ -1667,6 +1695,7 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
                "poly_ps_kb": row["POLY_PS"], "ws": row["WS"],
                "peak_gib": peak / 2 ** 30, "round_fetches": fetches,
                "launches": launches, "device_launches": device,
+               "resident_high": resident,
                "digest": res["digest"], "device": smi}
     if spans:
         summary["peak_gib_by_span"] = {k: v / 2 ** 30
@@ -1696,7 +1725,96 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
     return {"run": run, "res": res, "launches": launches, "device": device,
             "shapes": shapes, "phase_shapes": phase_shapes, "plain": plain,
             "fetches": fetches, "peak": peak, "summary": summary,
-            "seen": seen, "committed": committed, "span_calls": span_calls}
+            "seen": seen, "committed": committed, "span_calls": span_calls,
+            "split": split, "resident": resident}
+
+
+def split_record(Prover):
+    """Wraps the Prover so that a proof records what it held split: each
+    witness layer's (layer, rows, blocks, whether every block has a
+    storage of its own) and each gate class's (layer, key, rows, shards)
+    as an init (routed over its shards) or a sum (as blocks) took it.
+    Returns the record and a function that undoes the wraps."""
+    rec = {"val": set(), "gates": set()}
+    real = {k: getattr(Prover, k) for k in ("__init__", "_init_gates",
+                                            "_sum_gates")}
+
+    def init(self, *args, **kw):
+        real["__init__"](self, *args, **kw)
+        rec["val"].update((i, sum(b.shape[0] for b in v), len(v),
+                           all(b.untyped_storage().nbytes() ==
+                               b.numel() * b.element_size() for b in v))
+                          for i, v in enumerate(self.val) if v is not None)
+
+    def init_gates(self, lid, keys, D):
+        out = real["_init_gates"](self, lid, keys, D)
+        rec["gates"].update((lid, k, self._gate_host(lid)[k].shape[0], D)
+                            for k in keys)
+        return out
+
+    def sum_gates(self, lid, key):
+        out = real["_sum_gates"](self, lid, key)
+        rec["gates"].add((lid, key, self._gate_host(lid)[key].shape[0],
+                          len(out)))
+        return out
+
+    Prover.__init__, Prover._init_gates, Prover._sum_gates = \
+        init, init_gates, sum_gates
+
+    def undo():
+        for k, fn in real.items():
+            setattr(Prover, k, fn)
+    return rec, undo
+
+
+def storage_check(r):
+    """Raises unless every witness layer that run r held as several
+    blocks held each block in a storage of its own: a block that is a
+    view keeps the whole layer alive on its device, which the resident
+    account, of the blocks' bytes, does not see."""
+    for lid, rows, n, own in r["split"]["val"]:
+        if n > 1 and not own:
+            raise AssertionError(f"{r['run']}: witness layer {lid} of "
+                                 f"{rows} rows held as {n} blocks, not each "
+                                 f"in its own storage")
+
+
+def split_check(r, one, D):
+    """Raises unless run r, over D shards, held its witness, gates and
+    init accumulators split: every witness layer that splits under the
+    shard_rows rule as D blocks (a layer too small, one), each block in a
+    storage of its own (storage_check), every gate class of more than
+    GATE_CHUNK rows over D shards, and each shard's resident high-water
+    of the three at most 1/D of the one-device run `one`'s plus the
+    whole tables the shard read (its "replicated" high-water).  Returns
+    each shard's high-water and the bound."""
+    from zkcnn_tpu_torch.gkr import kernels
+    run = r["run"]
+    for lid, rows, n, _ in r["split"]["val"]:
+        if n != (D if rows % D == 0 and rows // D >= 2 else 1):
+            raise AssertionError(f"{run}: witness layer {lid} of {rows} "
+                                 f"rows held as {n} blocks")
+    storage_check(r)
+    big = [g for g in r["split"]["gates"] if g[2] > kernels.GATE_CHUNK]
+    for lid, key, rows, n in big:
+        if n != D:
+            raise AssertionError(f"{run}: gate class {key} of layer {lid} "
+                                 f"({rows} rows) held as {n} blocks")
+    whole = one["resident"][0]["split"]
+    out = {}
+    for s, h in sorted(r["resident"].items()):
+        limit = whole / D + h["replicated"]
+        if h["split"] > limit:
+            raise AssertionError(f"{run}: shard {s} holds {h['split']} "
+                                 f"bytes of witness, gates and accumulators "
+                                 f"at most, over {whole} / {D} + "
+                                 f"{h['replicated']} replicated")
+        out[s] = {**h, "bound": limit}
+    return {"shards": out, "one_device": whole,
+            "val_layers_split": sum(n == D for _, _, n, _ in
+                                    r["split"]["val"]),
+            "val_layers": len(r["split"]["val"]),
+            "big_gate_classes": len(big)}
 
 
 def check_run(r, want, must=(), never=()):
@@ -1724,6 +1842,17 @@ def check_run(r, want, must=(), never=()):
         opening_fr_check(r["seen"], run)
 
 
+def vgg_spans():
+    """The spans of a three-pass verify() with the commitment whose peak
+    memory and seconds run_entry reads."""
+    from zkcnn_tpu_torch.gkr import Verifier
+    from zkcnn_tpu_torch.pcs import hyrax
+    return [(hyrax.HyraxPCS, "setup"), (hyrax.HyraxPCS, "commit"),
+            (Verifier, "_prover_pass"), (Verifier, "_predicate_pass"),
+            (Verifier, "_replay"), (hyrax.HyraxPCS, "open"),
+            (hyrax.HyraxPCS, "verify")]
+
+
 def vgg_run(torch, model, pin, smi, main_fn=None, argv=None):
     """vgg11 or vgg16 (CIFAR 32x32x3, pic_cnt=1) through main_fn(argv),
     by default the port's demo_vgg entry (--synthetic --seed 17 --log, the
@@ -1736,18 +1865,11 @@ def vgg_run(torch, model, pin, smi, main_fn=None, argv=None):
     g1_scalar_mul (check_run).  Returns the run, its commit's operands
     moved to the host."""
     from zkcnn_tpu_torch.cli import demo_vgg
-    from zkcnn_tpu_torch.gkr import Verifier
-    from zkcnn_tpu_torch.pcs import hyrax
     if main_fn is None:
         main_fn, argv = demo_vgg.main, ["--synthetic", "--seed", "17",
                                         "--model", model, "--log"]
     r = run_entry(torch, main_fn, argv, f"{model} with the commitment", smi,
-                  spans=[(hyrax.HyraxPCS, "setup"),
-                         (hyrax.HyraxPCS, "commit"),
-                         (Verifier, "_prover_pass"),
-                         (Verifier, "_predicate_pass"),
-                         (Verifier, "_replay"), (hyrax.HyraxPCS, "open"),
-                         (hyrax.HyraxPCS, "verify")])
+                  spans=vgg_spans())
     check_run(r, (pin["WS"], pin["PS"], pin["POLY_PS"], pin["digest"]),
               must=("round_ladder", "fold_ladder", "g1_msm_table", "g1_msm",
                     "ipa_round"),
@@ -1831,6 +1953,51 @@ def fs_vgg_run(torch, snapshot, smi):
     return r
 
 
+def vgg16_mesh_run(torch, snapshot, one, smi):
+    """vgg16 from phase 2's snapshot through the port's proving tool
+    (cli/prove.py vgg16 --pcs --snapshot: three-pass, the inner-product
+    commitment) over MESH_SHARDS shards on the machine's cards, the peak
+    memory and seconds read by span of verify() (mesh_entry).  It must
+    verify with WS, PS, POLY_PS and digest equal to PINNED_VGG16; run as
+    a split run must (mesh_check against the one-device vgg16 run `one`:
+    Liu's 2^25-row side at a shard's (2^25 / D, 25 - log2 D) and never at
+    (2^25, 25), the gathered tail, one g1_msm a shard for the commit at
+    (4096 / D, 8192), never at (4096, 8192); the witness, every gate
+    class of more than GATE_CHUNK rows and the accumulators split, each
+    shard's resident high-water at most 1/D of one's plus its replicated
+    tables, D - 1 more g1_msm launches than one); and keep the card's
+    peak within MESH_PEAK_RATIO of one's.  `one` is vgg16 three-pass on
+    one device in the same call (vgg_run), whose commit's operands are
+    this run's, so this run keeps none.  Returns the run."""
+    from zkcnn_tpu_torch.cli import prove
+    D = MESH_SHARDS
+    r = mesh_entry(torch, prove.main, ["vgg16", "--pcs", "--snapshot",
+                                       snapshot], VGG16_MESH_RUN, smi,
+                   mesh_on_cards(torch, D), spans=vgg_spans())
+    check_run(r, (PINNED_VGG16["WS"], PINNED_VGG16["PS"],
+                  PINNED_VGG16["POLY_PS"], PINNED_VGG16["digest"]),
+              must=("round_ladder", "fold_ladder", "g1_msm_table", "g1_msm",
+                    "ipa_round"),
+              never=PER_ROUND + FOLD_KERNELS + ("cubic_ladder",))
+    pcs = r["committed"]["pcs"]
+    mesh_check(r, one, D, split=(pcs.logn,), commits=D - 1)
+    # the commit a shard's rows at a time, never the whole matrix
+    commit = (pcs.n_rows // D, pcs.n_cols)
+    if commit not in r["shapes"]["g1_msm"] or \
+            (pcs.n_rows, pcs.n_cols) in r["shapes"]["g1_msm"]:
+        raise AssertionError(f"{VGG16_MESH_RUN}: g1_msm not at a shard's "
+                             f"commit rows {commit}: {r['shapes']['g1_msm']}")
+    if r["peak"] > MESH_PEAK_RATIO * one["peak"]:
+        raise AssertionError(f"{VGG16_MESH_RUN}: peak {r['peak']} bytes, "
+                             f"over {MESH_PEAK_RATIO} x the one-device run's "
+                             f"{one['peak']}")
+    logD = D.bit_length() - 1
+    r["committed"].clear()
+    r["seen"].pop("gen_msm")
+    r.update(liu=(1 << pcs.logn - logD, pcs.logn - logD))
+    return r
+
+
 def zoo_lenet_runs(torch, name, pin, smi):
     """LeNet5 pic_cnt=16 or lenetCifar through the port's demo_lenet entry
     (--synthetic --seed 17), --no-pcs and then with the inner-product
@@ -1878,9 +2045,15 @@ def keep_commit_operands(committed, seen):
     later run's peak memory must not count this run's tensors."""
     pcs = committed.pop("pcs")
     seen.pop("gen_msm")
-    return {"val0": committed.pop("val0").cpu(), "gens": pcs.gens,
+    val0 = committed.pop("val0")        # the prover's row blocks
+    return {"val0": torch_cat([b.cpu() for b in val0]), "gens": pcs.gens,
             "row_commits": pcs.row_commits,
             "shape": (pcs.n_rows, pcs.n_cols)}
+
+
+def torch_cat(blocks):
+    import torch
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks)
 
 
 def commit_check(torch, curve, msm_mod, FR, Tape, committed, run, smi):
@@ -1939,6 +2112,10 @@ def opening_rounds_check(torch, ipa, seen, run, smi):
 # the mesh phase: shards of the proof's mesh, the split functions' row
 # counts and shard counts, the split MSM's (rows, bases)
 MESH_SHARDS = 4
+# vgg16 over the mesh's shards, and how far above the one-device run's
+# the card's peak may go (the blocks are the same bytes)
+VGG16_MESH_RUN = f"vgg16 with the commitment over {MESH_SHARDS} shards"
+MESH_PEAK_RATIO = 1.15
 MESH_ROWS = (1 << 12, 1 << 18)
 MESH_SIZES = (2, 4)
 MESH_MSM = (8, 512)
@@ -2072,7 +2249,8 @@ def mesh_check(r, one, D, split, cubic=(), commits=0, fiat_shamir=False):
     and not (2^k, k), and the gathered tail (D, log2 D)), the cubic
     phases in `cubic` ((K, M, R) of one device) at (K / D, M, R), and
     `commits` more g1_msm launches than the one-device run `one` (one a
-    shard for the commit); under Fiat-Shamir phases on the host tape,
+    shard for the commit; None: not counted), split_check against one;
+    under Fiat-Shamir phases on the host tape,
     round 1 of each side of `split` as fold_round on the shards' rows
     (2^k / D, no fold), not on 2^k, and phase calls (counted in
     "device_tape_phases") only at shapes whose operands do not split: a
@@ -2080,6 +2258,7 @@ def mesh_check(r, one, D, split, cubic=(), commits=0, fiat_shamir=False):
     block fewer than max(M, 2) rows."""
     run, counts, shapes = r["run"], r["mesh"], r["shapes"]
     logD = D.bit_length() - 1
+    r["split_check"] = split_check(r, one, D)
     if not counts["splits"] or counts["gathers"] != counts["splits"]:
         raise AssertionError(f"{run}: {counts['splits']} operands split, "
                              f"{counts['gathers']} gathered")
@@ -2110,20 +2289,20 @@ def mesh_check(r, one, D, split, cubic=(), commits=0, fiat_shamir=False):
                 (K, M, R) in shapes["cubic_ladder"]:
             raise AssertionError(f"{run}: the cubic phase {(K, M, R)} did "
                                  f"not run split: {shapes['cubic_ladder']}")
-    if r["launches"]["g1_msm"] != one["launches"]["g1_msm"] + commits:
+    if commits is not None and \
+            r["launches"]["g1_msm"] != one["launches"]["g1_msm"] + commits:
         raise AssertionError(f"{run}: {r['launches']['g1_msm']} g1_msm "
                              f"launches, the one-device run's "
                              f"{one['launches']['g1_msm']} + {commits}")
 
 
-def mesh_entry(torch, main_fn, argv, run, smi, mesh):
-    """run_entry of a demo under `mesh`, the mesh's counts reset just
-    before; adds them (r["mesh"]) and the phase calls' shapes."""
+def mesh_entry(torch, main_fn, argv, run, smi, mesh, spans=()):
+    """run_entry of a demo under `mesh` (the mesh's counts are reset just
+    before); adds them (r["mesh"]) and the phase calls' shapes."""
     from zkcnn_tpu_torch.field import round_kernels as rk
-    from zkcnn_tpu_torch.parallel import COUNTS, reset_counts, use_mesh
-    reset_counts()
+    from zkcnn_tpu_torch.parallel import COUNTS, use_mesh
     with use_mesh(mesh):
-        r = run_entry(torch, main_fn, argv, run, smi)
+        r = run_entry(torch, main_fn, argv, run, smi, spans)
     r["mesh"] = dict(COUNTS)
     r["phase_shapes"] = {k: sorted(v) for k, v in rk.PHASE_SHAPES.items()
                          if v}
@@ -2135,22 +2314,41 @@ def mesh_line(run, r, one, smi):
     s, o = r["summary"], one
 
     def was(key, digits):
-        return "not timed" if o[key] is None else f"{o[key]:.{digits}f}"
+        return "not measured" if o.get(key) is None else \
+            f"{o[key]:.{digits}f}"
 
+    c, split = r["mesh"], r["split_check"]
     say(f"{run}: PT {s['pt_s']:.4f} s (one device {o['pt_s']:.4f}), VT "
-        f"{s['vt_s']:.4f} s ({o['vt_s']:.4f}), POLY_PT {s['poly_pt_s']:.4f} "
-        f"s ({o['poly_pt_s']:.4f}), witness {s['witness_s']:.2f} s "
-        f"({was('witness_s', 2)}), wall {s['wall_s']:.1f} s "
-        f"({was('wall_s', 1)}); {r['mesh']['gathers']} gathers of "
-        f"{r['mesh']['splits']} split operands, {r['mesh']['partials']} "
-        f"collections of partials, {r['mesh']['transposes']} NTT transposes, "
-        f"{r['mesh']['bytes']} bytes copied ({r['mesh']['peer_bytes']} "
-        f"between cards) ({smi})")
+        f"{s['vt_s']:.4f} s ({o['vt_s']:.4f}), VT slow "
+        f"{s['vt_slow_s']:.4f} s ({was('vt_slow_s', 4)}), POLY_PT "
+        f"{s['poly_pt_s']:.4f} s ({o['poly_pt_s']:.4f}), witness "
+        f"{s['witness_s']:.2f} s ({was('witness_s', 2)}), wall "
+        f"{s['wall_s']:.1f} s ({was('wall_s', 1)}), peak {s['peak_gib']:.2f} "
+        f"GiB ({was('peak_gib', 2)}); {c['gathers']} gathers of "
+        f"{c['splits']} split operands, {c['partials']} collections of "
+        f"partials, {c['transposes']} NTT transposes, {c['bytes']} bytes "
+        f"copied ({c['peer_bytes']} between cards), {c['takes']} indexed "
+        f"gathers of {c['take_bytes']} bytes, {c['routes']} gate chunks "
+        f"routed ({c['route_bytes']} bytes), {c['reblocks']} re-blocked "
+        f"prefixes; {split['val_layers_split']} of {split['val_layers']} "
+        f"witness layers split, {split['big_gate_classes']} gate classes of "
+        f"more than GATE_CHUNK rows split; resident high-water of witness, "
+        f"gates and accumulators by shard (bytes; bound one device's "
+        f"{split['one_device']} / {len(split['shards'])} + the shard's "
+        f"replicated tables): " + ", ".join(
+            f"{k} {h['split']} (val {h['val']}, gates {h['gates']}, acc "
+            f"{h['acc']}, replicated {h['replicated']}; bound "
+            f"{h['bound']:.0f})" for k, h in split["shards"].items())
+        + f" ({smi})")
     keys = ("pt_s", "vt_s", "poly_pt_s", "witness_s", "wall_s")
-    return {**{k: s[k] for k in keys},
-            "one_device": {k: o[k] for k in keys},
-            "counts": r["mesh"], "launches": r["launches"],
-            "digest": s["digest"]}
+    return {**{k: s[k] for k in keys + ("vt_slow_s", "peak_gib")},
+            "one_device": {k: o.get(k) for k in keys + ("vt_slow_s",
+                                                         "peak_gib")},
+            "counts": c, "split": split, "launches": r["launches"],
+            "digest": s["digest"],
+            **({"peak_gib_by_span": s["peak_gib_by_span"],
+                "seconds_by_span": s["seconds_by_span"]}
+               if "peak_gib_by_span" in s else {})}
 
 
 def main():
@@ -2228,6 +2426,8 @@ def run(torch, root):
     lap("build, and beside it vgg16's witness built and saved")
     from zkcnn_tpu_torch.field import FP, FR, round_kernels as rk
     from zkcnn_tpu_torch.gkr import engine, FiatShamirTape
+    from zkcnn_tpu_torch.parallel import reset_counts
+    from zkcnn_tpu_torch.parallel.context import RESIDENT
     from zkcnn_tpu_torch.pcs import HyraxPCS, curve, hyrax, ipa
     from zkcnn_tpu_torch.pcs import msm as msm_mod
     rk._lib()
@@ -2461,7 +2661,8 @@ def run(torch, root):
                                    if k not in FOLD_KERNELS),
               never=FOLD_KERNELS)
     one_device[LENET_PCS_RUN] = {"summary": r["summary"],
-                                 "launches": r["launches"]}
+                                 "launches": r["launches"],
+                                 "resident": r["resident"]}
     del r           # the setup's table: no later run's peak counts it
     rounds_ipa = len(pcs_seen["b"]).bit_length() - 1
     if g1_launches["g1_msm_table"] > TABLES_THREE_PASS or \
@@ -2497,6 +2698,7 @@ def run(torch, root):
         pcs, tape = HyraxPCS(mode="ipa"), FiatShamirTape(b"zkcnn-demo-17")
         return C, p, pcs, tape, Verifier(p, C, tape, pcs=pcs)
 
+    reset_counts()                      # the account covers the Prover
     C, p, pcs, tape, v = fs_lenet()
     rounds = C.layers[0].bit_length + sum(
         ly.max_bl_u + (ly.max_bl_v if ly.need_phase2 else 0)
@@ -2544,6 +2746,7 @@ def run(torch, root):
     ok = v.verify()
     torch.cuda.synchronize()
     fs_wall = time.perf_counter() - t0
+    fs_resident = {s: dict(h) for s, h in RESIDENT["high"].items()}
     uncapture()
     span = {k: b - a for k, (a, b) in marks.items()}
     span["absorb"] = marks["_verify_per_round"][0] - marks["commit"][1]
@@ -2584,7 +2787,7 @@ def run(torch, root):
         "summary": {"pt_s": p.prove_time, "vt_s": v.vt,
                     "poly_pt_s": pcs.pt, "witness_s": None,
                     "wall_s": None},
-        "launches": dict(fs, **curve.LAUNCHES)}
+        "launches": dict(fs, **curve.LAUNCHES), "resident": fs_resident}
     if (ws, ps, poly_ps) != (PINNED_LENET["WS"], PINNED_LENET["PS"],
                              PINNED_LENET_PCS["POLY_PS"]):
         raise AssertionError(f"lenet under FiatShamirTape: WS/PS/POLY_PS "
@@ -2719,14 +2922,23 @@ def run(torch, root):
     vgg11 = vgg_run(torch, "vgg11", PINNED_VGG11, smi)
     lap("vgg11")
     # 5c'. vgg16 through the port's proving tool (cli/prove.py): the
-    # circuit and witness of phase 2 loaded and proven three-pass (--pcs
-    # --snapshot, PINNED_VGG16), then loaded again and proven under
-    # FiatShamirTape (PINNED_FS_VGG16); then the snapshot is removed
+    # circuit and witness of phase 2 loaded and proven three-pass on one
+    # device (--pcs --snapshot, PINNED_VGG16), loaded again and proven
+    # under FiatShamirTape (PINNED_FS_VGG16), and loaded a third time and
+    # proven three-pass over MESH_SHARDS shards, the witness, the gate
+    # classes and the inits' accumulators split as the sides are
+    # (vgg16_mesh_run), beside the one-device three-pass run; then the
+    # snapshot is removed
     vgg16 = vgg_run(torch, "vgg16", PINNED_VGG16, smi, prove.main,
                     ["vgg16", "--pcs", "--snapshot", snap])
     lap("vgg16 from the snapshot")
     fs_vgg16 = fs_vgg_run(torch, snap, smi)
     lap("vgg16 under Fiat-Shamir")
+    mesh_results = {}
+    vgg16_mesh = vgg16_mesh_run(torch, snap, vgg16, smi)
+    mesh_results[VGG16_MESH_RUN] = mesh_line(VGG16_MESH_RUN, vgg16_mesh,
+                                             vgg16["summary"], smi)
+    lap("vgg16 over the mesh")
     os.remove(snap)
     vgg16["summary"]["snapshot"].update(
         build_s=built["witness_s"] - snap_info["save_s"],
@@ -2789,7 +3001,7 @@ def run(torch, root):
          dict(split=(22,), cubic=((1 << 16, 1 << 11, 11),
                                   (1 << 17, 1 << 9, 9)),
               commits=MESH_SHARDS - 1))]
-    mesh_runs, mesh_results = {}, {}
+    mesh_runs = {}
     for run, main_fn, argv, want, must, never, how in mesh_plan:
         key = f"{run} over {MESH_SHARDS} shards"
         r = mesh_entry(torch, main_fn, argv, key, smi, mesh)
@@ -3033,7 +3245,8 @@ def run(torch, root):
     # and every round of each opening (ipa_round) against its plain
     # version, word for word; each timed beside its bound
     by_name = {k["name"]: k for k in kernels}
-    runs = {"vgg11": vgg11, "vgg16": vgg16, VGG16_FS_RUN: fs_vgg16}
+    runs = {"vgg11": vgg11, "vgg16": vgg16, VGG16_MESH_RUN: vgg16_mesh,
+            VGG16_FS_RUN: fs_vgg16}
     for name, zr in zoo_runs.items():
         runs[name] = zr["pcs"]
         runs[name + " --no-pcs"] = zr["no_pcs"]
@@ -3046,8 +3259,8 @@ def run(torch, root):
     # the mesh runs: their launches under their keys; every round-kernel
     # entry exact at every shape they launched it at (round_ladder and
     # fold_ladder below, with the other runs' shapes), and each run's
-    # largest round_ladder and cubic_ladder shape (a shard's rows) timed
-    # beside its plain version and bound
+    # largest round_ladder, cubic_ladder and per-round entry shape (a
+    # shard's rows) timed beside its plain version and bound
     runs.update(mesh_runs)
     for key, r in mesh_runs.items():
         for name, entry in by_name.items():
@@ -3056,7 +3269,7 @@ def run(torch, root):
         for name in ("cubic_ladder",) + PER_ROUND:
             for shape in r["shapes"][name]:
                 compare(torch, rk, name, shape, gen, rng)
-        for name in ("round_ladder", "cubic_ladder"):
+        for name in ("round_ladder", "cubic_ladder") + PER_ROUND:
             if not r["shapes"][name]:
                 continue
             shape = max(r["shapes"][name])
@@ -3073,7 +3286,7 @@ def run(torch, root):
             f"plain versions at every shape of the run: "
             f"{ {k: r['shapes'][k] for k in ('cubic_ladder',) + PER_ROUND} }")
     lap("the mesh runs' shapes")
-    for key in ("vgg11", "vgg16"):
+    for key in ("vgg11", "vgg16", VGG16_MESH_RUN):
         liu = runs[key]["liu"]
         e, kern, plain = compare(torch, rk, "round_ladder", liu, gen, rng)
         ms, pms = time_ms(torch, kern, 5), plain.ms
@@ -3081,9 +3294,10 @@ def run(torch, root):
         by_name["round_ladder"][key].update(
             shape=list(liu), max_abs_err=e, ms=ms, plain_ms=pms,
             bound_ms=b_ms, bound_by=b_by)
-        say(f"round_ladder at {liu} (Liu's phase of {runs[key]['run']}), "
-            f"random rows: equal to its plain version; kernel {ms:.4f} ms, "
-            f"plain {pms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({smi})")
+        say(f"round_ladder at {liu} (Liu's phase of "
+            f"{by_name['round_ladder'][key]['run']}), random rows: equal to "
+            f"its plain version; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {b_ms:.6f} ms by {b_by} ({smi})")
         del kern, plain
     lap("the round ladders at the vgg runs' Liu phases")
     # fold_round's phase calls at every phase shape of vgg16 under
@@ -3128,10 +3342,12 @@ def run(torch, root):
     setups = ("vgg11", "vgg16", "lenet16", "lenet-cifar")
     covered = {k: set(shapes[k]) | set(edge[k])
                for k in ("round_ladder", "fold_ladder")}
-    covered["round_ladder"] |= {runs[k]["liu"] for k in ("vgg11", "vgg16")}
+    covered["round_ladder"] |= {runs[k]["liu"] for k in (
+        "vgg11", "vgg16", VGG16_MESH_RUN)}
     covered["g1_msm"] = set(g1_shapes["g1_msm"]) | {
         (1, 1), (3, 5), (2, 512), (3, 130)} | {
-        runs[k]["committed"]["shape"] for k in ("vgg11", "vgg16", "lenet16")}
+        runs[k]["committed"]["shape"] for k in ("vgg11", "vgg16",
+                                                "lenet16")}
     covered["g1_msm_table"] = {(runs[k]["committed"]["gens"].shape[0],
                                 curve.NWIN) for k in setups}
     other = {k: sorted(set().union(*(r["shapes"][k] for r in runs.values()))
@@ -3139,8 +3355,19 @@ def run(torch, root):
     for name in ("round_ladder", "fold_ladder"):
         for shape in other[name]:
             compare(torch, rk, name, shape, gen, rng)
+    # g1_msm at each other shape timed beside its bound (a shard's rows of
+    # the commit among them: (1024, 8192) in vgg16 over 4 shards)
+    by_name["g1_msm"]["other_shapes"] = []
     for shape in other["g1_msm"]:
-        g1_log_check(torch, curve, msm_mod, FR, "g1_msm", shape, gen)
+        scalars, kern = g1_log_check(torch, curve, msm_mod, FR, "g1_msm",
+                                     shape, gen)
+        b_ms, b_by = g1_bound(torch, curve, "g1_msm", shape, scalars)
+        by_name["g1_msm"]["other_shapes"].append({
+            "shape": list(shape), "ms": time_ms(torch, kern, 3),
+            "bound_ms": b_ms, "bound_by": b_by})
+        say(f"g1_msm at {shape}: equal to py_mul of the discrete logs; "
+            f"kernel {by_name['g1_msm']['other_shapes'][-1]['ms']:.4f} ms, "
+            f"bound {b_ms:.6f} ms by {b_by} ({smi})")
     # the tables: one plain call on all their bases, every table held
     # against it entry by entry
     gens = vgg16["committed"]["gens"]
@@ -3221,6 +3448,7 @@ def run(torch, root):
     # them, then the kernels
     say(json.dumps({"vgg11": vgg11["summary"]}))
     say(json.dumps({"vgg16": vgg16["summary"]}))
+    say(json.dumps({VGG16_MESH_RUN: vgg16_mesh["summary"]}))
     say(json.dumps({"vgg16 under FiatShamirTape": fs_vgg16["summary"]}))
     for name, zr in zoo_summaries.items():
         say(json.dumps({name: zr}))

@@ -169,21 +169,39 @@ def _whole(blocks):
     return blocks[0]
 
 
+def _blocks(X, m: int, min_block: int = 2):
+    """An engine operand as row blocks: a list is taken as the blocks
+    `shard_rows` would make of its m rows (the split inits' outputs, the
+    witness's blocks); a tensor is zero-padded to m rows and split.  A
+    split operand counts once in "splits", however it came; the engine
+    gathers it once."""
+    if isinstance(X, list):
+        blocks = list(X)
+    else:
+        if X.shape[0] < m:
+            X = torch.cat([X, FR.zeros(m - X.shape[0], X.device)])
+        blocks = shard_rows(X[:m].contiguous(), min_block=min_block,
+                            count=False)
+    assert sum(b.shape[0] for b in blocks) == m, (m, len(blocks))
+    if len(blocks) > 1:
+        MESH_COUNTS["splits"] += 1
+    return blocks
+
+
 class Side:
     """One (mult, V) operand pair over a 2^nb hypercube, as row blocks
     `As` and `Vs` (one block each unless an active mesh splits them;
     module docstring); `A` and `V` are the whole operands once they are
-    one block."""
+    one block.  A and V are tensors, or lists of row blocks already split
+    as `shard_rows` splits 2^nb rows (the split inits and the witness's
+    blocks, `gkr/prover.py`)."""
 
     def __init__(self, A, V, nb: int):
         m = 1 << nb
-        assert A.shape[0] == V.shape[0]
-        if A.shape[0] < m:
-            pad = FR.zeros(m - A.shape[0], A.device)
-            A, V = torch.cat([A, pad]), torch.cat([V, pad])
-        self.home = A.device
-        self.As = shard_rows(A[:m].contiguous())
-        self.Vs = shard_rows(V[:m].contiguous())
+        self.As, self.Vs = _blocks(A, m), _blocks(V, m)
+        assert [a.shape[0] for a in self.As] == \
+            [v.shape[0] for v in self.Vs]
+        self.home = self.As[0].device
         self.nb = nb
         self.folds = 0
         self.collapsed = False
@@ -403,13 +421,21 @@ class DotProdPhase1:
     device holds a copy of all of m (`ms`, one a block), which folds there
     alongside the block; m comes back from the first copy when V is
     gathered.  `m`, `V0` and `V1` are the whole operands once they are one
-    block."""
+    block.  V0 and V1 are tensors, or lists of row blocks already split as
+    `shard_rows` splits them with blocks of at least M rows."""
 
     def __init__(self, m, V0, V1, fft_bl: int, nb1: int):
         m = m.contiguous()
-        self.home = V0.device
-        self.V0s = shard_rows(V0.contiguous(), min_block=m.shape[0])
-        self.V1s = shard_rows(V1.contiguous(), min_block=m.shape[0])
+        M = m.shape[0]
+
+        def split(V):
+            n = sum(b.shape[0] for b in V) if isinstance(V, list) \
+                else V.shape[0]
+            return _blocks(V, n, min_block=M)
+
+        self.V0s, self.V1s = split(V0), split(V1)
+        assert len(self.V0s) == len(self.V1s)
+        self.home = self.V0s[0].device
         self.ms = replicate(m, self.V0s)
         self.fft_bl = fft_bl
         self.nb1 = nb1

@@ -55,6 +55,7 @@ from ..circuit import Circuit, LayerType
 from ..circuit.eval import two_mul_table
 from ..mle import beta_table, beta_table_2pt, phi_table
 from ..pcs import curve
+from ..parallel.context import shard_rows
 from .engine import _fetch_ints
 from .kernels import pred_uni, pred_bin, zero_region_scale, \
     mul_outer_flat, gr_term
@@ -148,17 +149,17 @@ class Verifier:
     def _predicate_phase1_dev(self, depth):
         """uni_value as [8] tensors (or int 0)."""
         cur = self.C.layers[depth]
-        cache = self.p._gate_dev(depth)
+        host = self.p._gate_host(depth)
         self.uni_value = [0, 0]
         self.bin_value = [0, 0, 0]
         if cur.ty in (LayerType.FFT, LayerType.IFFT):
             self.uni_value[1] = FR.dot_mont(self.beta_gs, self.beta_u)
             return
         for b, key in ((0, "uni0"), (1, "uni1")):
-            uni = cache[key]
-            if uni.shape[0]:
+            if host[key].shape[0]:
                 self.uni_value[b] = pred_uni(self.beta_g, self.beta_u,
-                                             self.tm, uni)
+                                             self.tm,
+                                             self.p._sum_gates(depth, key))
 
     def _predicate_phase1(self, depth):
         """_predicate_phase1_dev with host ints (per-round path)."""
@@ -174,7 +175,7 @@ class Verifier:
 
     def _predicate_phase2_dev(self, depth):
         cur = self.C.layers[depth]
-        cache = self.p._gate_dev(depth)
+        host = self.p._gate_host(depth)
         beta_v = self._beta(self.r_v[depth][:cur.max_bl_v])
         self.uni_value = [
             0 if isinstance(v, int) and v == 0 else
@@ -184,14 +185,14 @@ class Verifier:
         use_tm = cur.ty != LayerType.DOT_PROD
         for ub in (0, 1):
             for vb in (0, 1):
-                if not cache[f"bin{ub}{vb}"].shape[0]:
+                if not host[f"bin{ub}{vb}"].shape[0]:
                     continue
                 for l in (0, 1, 2, 3):
                     key = f"bin{ub}{vb}_l{l}"
-                    if key not in cache:
+                    if key not in host:
                         continue
                     t = pred_bin(use_tm, self.beta_g, self.beta_u, beta_v,
-                                 self.tm, cache[key])
+                                 self.tm, self.p._sum_gates(depth, key))
                     old = self.bin_value[l]
                     self.bin_value[l] = t if isinstance(old, int) \
                         else FR.add(old, t)
@@ -200,6 +201,31 @@ class Verifier:
         """_predicate_phase2_dev with host ints (per-round path)."""
         self._predicate_phase2_dev(depth)
         self._values_to_host()
+
+    def _gr(self, sig_u, sig_v):
+        """The Liu phase's subset predicate at the bound points, summed
+        over every layer side (verifier.cpp:307-333), as an [8] tensor
+        (None without a side).  With the input layer split, the beta table
+        over r_u[0] is split as it is and each side's subset ids by the
+        shard of their rows (`Prover._liu_blocks`): one partial a shard."""
+        C, p = self.C, self.p
+        beta_g = self._beta(self.r_u[0])
+        split = len(p.val[0]) > 1
+        if split:
+            beta_g = shard_rows(beta_g, mesh=p.mesh, count=False)
+        gr = None
+        for i in range(1, C.size):
+            ly = C.layers[i]
+            for bl, ori, rr, sig in (
+                    (ly.bit_length_u[0], "ori_u", self.r_u[i], sig_u[i - 1]),
+                    (ly.bit_length_v[0], "ori_v", self.r_v[i],
+                     sig_v[i - 1])):
+                if bl < 0:
+                    continue
+                ids = p._liu_blocks(i, ori) if split else p._ori_dev(i)[ori]
+                t = gr_term(beta_g, ids, self._beta(rr[:bl], sig))
+                gr = t if gr is None else FR.add(gr, t)
+        return gr
 
     # ------------------------------------------------------------------
 
@@ -425,19 +451,7 @@ class Verifier:
         self.tape.absorb(self.eval_in)
 
         # gr = sum over layers of the subset predicate at the bound points
-        beta_g = self._beta(self.r_u[0])
-        gr = None
-        for i in range(1, C.size):
-            ly = C.layers[i]
-            cache = p._ori_dev(i)
-            for bl, ori, rr, sig in (
-                    (ly.bit_length_u[0], "ori_u", self.r_u[i], sig_u[i - 1]),
-                    (ly.bit_length_v[0], "ori_v", self.r_v[i],
-                     sig_v[i - 1])):
-                if bl < 0:
-                    continue
-                t = gr_term(beta_g, cache[ori], self._beta(rr[:bl], sig))
-                gr = t if gr is None else FR.add(gr, t)
+        gr = self._gr(sig_u, sig_v)
         gr = _fetch_ints([gr])[0] if gr is not None else 0
 
         if self.eval_in * gr % FR_P != previous_sum:
@@ -574,21 +588,7 @@ class Verifier:
 
         # Liu gr = subset predicate at the bound points (verifier.cpp:
         # 307-333)
-        C, p = self.C, self.p
-        beta_g = self._beta(self.r_u[0])
-        gr = None
-        for i in range(1, C.size):
-            ly = C.layers[i]
-            cache = p._ori_dev(i)
-            for bl, ori, rr, sig in (
-                    (ly.bit_length_u[0], "ori_u", self.r_u[i],
-                     recs["sig_u"][i - 1]),
-                    (ly.bit_length_v[0], "ori_v", self.r_v[i],
-                     recs["sig_v"][i - 1])):
-                if bl < 0:
-                    continue
-                t = gr_term(beta_g, cache[ori], self._beta(rr[:bl], sig))
-                gr = t if gr is None else FR.add(gr, t)
+        gr = self._gr(recs["sig_u"], recs["sig_v"])
 
         slots = [(lst, j, v) for rec in recs["layers"]
                  for lst in (rec["uni"], rec["bin"])

@@ -22,8 +22,16 @@ results; the output equals the unsplit counterpart's word for word:
     (the Hyrax commit, `pcs/hyrax.py`).
 
 `sharded_dot` and `sharded_segment_sum` have no caller on the proof
-path yet, as their JAX counterparts have none: the witness and the
-gates stay whole in this slice (`gkr/prover.py`).
+path, as their JAX counterparts have none; they are held against them
+(tests/test_torch_parallel_jax.py).  The proof's split of the witness
+and the gates (`gkr/prover.py`, `gkr/kernels.py`) takes `sharded_dot`'s
+shape where it sums (the FFT layers' count contraction, the opening's
+row fold, the predicates: one partial a block, an exact sum on the
+first device), but not `sharded_segment_sum`'s for the inits' scatter:
+a full-length partial a shard, then their sum, would hold the whole
+column accumulator on every shard (4 GiB a shard at vgg16's Liu phase),
+so each gate chunk is routed instead to the shard that owns its scatter
+row, and each shard's accumulator holds its own rows.
 
 The reduction across shards is exact and modular: the partials are
 gathered onto the first device and summed with `FR.sum` (a sum of the
@@ -45,15 +53,20 @@ __all__ = ["make_mesh", "ladder_shards", "sharded_fold_coeffs",
            "stage_sharded_ntt", "ShardedMSM", "sharded_msm"]
 
 
-def _reduce(parts, mesh: Mesh):
-    """The exact modular sum of same-shaped per-shard Montgomery
-    partials, on the first device."""
+def reduce_parts(parts, device):
+    """The exact modular sum of same-shaped per-shard Montgomery partials
+    (a dot's, a row fold's), gathered onto `device`; one part as it is,
+    on `device`."""
     if len(parts) == 1:
-        return parts[0]
+        return _moved(parts[0], device)
     shape = parts[0].shape
-    joined = gather_parts([p.reshape(1, -1, FR.n) for p in parts],
-                          mesh.first)
+    joined = gather_parts([p.reshape(1, -1, FR.n) for p in parts], device)
     return FR.sum(joined, axis=0).reshape(shape)
+
+
+def _reduce(parts, mesh: Mesh):
+    """reduce_parts onto the mesh's first device."""
+    return reduce_parts(parts, mesh.first)
 
 
 def ladder_shards(As, Vs, rs):
@@ -193,7 +206,15 @@ class ShardedMSM:
     def compute(self, scalars_mont):
         """scalars_mont [R, N, 8] (Montgomery) -> [R, 3, 12] points on the
         bases' device."""
-        blocks = shard_rows(scalars_mont, self.mesh)
+        return self.compute_blocks(shard_rows(scalars_mont, self.mesh,
+                                              count=False))
+
+    def compute_blocks(self, blocks):
+        """compute of the rows given as blocks already split (block i on
+        the mesh's device i: the committed layer's own blocks, `Prover.val`)
+        -> the rows' points joined on the bases' device."""
+        if len(blocks) > 1:
+            COUNTS["splits"] += 1
         return gather_rows([self.on[b.device].compute(b) for b in blocks],
                            self.home)
 

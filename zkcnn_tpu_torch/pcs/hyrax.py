@@ -30,8 +30,12 @@ matrix's rows over the shards (`parallel.ShardedMSM`): each shard
 commits its rows with one MSM against the generators' table on its own
 device (built by `setup`, once a device, into `table_s`), and the row
 commitments are gathered onto the setup's device.  A row is the same
-kernel on the same words, so the commitments are the same words.  `open`
-and `verify` run on the setup's device.
+kernel on the same words, so the commitments are the same words.  The
+committed layer may come as the prover's row blocks (`Prover.val[0]`):
+where each block holds whole matrix rows, the commit takes each shard's
+rows from its own block, and `open`'s row fold is one partial a block,
+on its device, summed exactly on the setup's device.  `verify` runs on
+the setup's device.
 """
 
 import time
@@ -43,8 +47,8 @@ import torch
 from ..field import FR
 from ..field.params import FR_P
 from ..mle import beta_table
-from ..parallel.context import active_mesh
-from ..parallel.sharding import ShardedMSM
+from ..parallel.context import active_mesh, row_range, _moved
+from ..parallel.sharding import ShardedMSM, reduce_parts
 from . import curve
 from .ipa import ipa_prove, ipa_verify
 from .msm import FixedBaseMSM, points_equal
@@ -108,17 +112,39 @@ class HyraxPCS:
         self.table_s = self._clock() - t0
 
     def _matrix(self, val0):
+        """The committed layer (a tensor or row blocks) as the whole
+        [n_rows, n_cols, 8] matrix on its device (blocks joined on the
+        first block's)."""
+        if isinstance(val0, list):
+            val0 = row_range(val0, 0, sum(b.shape[0] for b in val0),
+                             val0[0].device)
         if val0.shape[0] < self.n_rows * self.n_cols:
             raise ValueError(f"the committed layer holds {val0.shape[0]} "
                              f"values, fewer than 2^{self.logn}")
         return val0[: self.n_rows * self.n_cols].reshape(
             self.n_rows, self.n_cols, FR.n)
 
+    def _row_blocks(self, val0):
+        """The matrix as row blocks, one a block of the committed layer
+        where each holds whole matrix rows and they hold exactly the
+        matrix; else the whole matrix as one block."""
+        blocks = val0 if isinstance(val0, list) else [val0]
+        L = blocks[0].shape[0]
+        if len(blocks) > 1 and L % self.n_cols == 0 and \
+                L * len(blocks) == self.n_rows * self.n_cols:
+            return [b.reshape(L // self.n_cols, self.n_cols, FR.n)
+                    for b in blocks]
+        return [self._matrix(val0)]
+
     def commit(self, val0):
         """Pedersen-commit each matrix row: [n_rows] G1 points (under a
         mesh, each shard its rows; module docstring)."""
         t0 = self._clock()
-        self.row_commits = self.commit_msm.compute(self._matrix(val0))
+        mats = self._row_blocks(val0)
+        if len(mats) == 1:
+            self.row_commits = self.commit_msm.compute(mats[0])
+        else:
+            self.row_commits = self.commit_msm.compute_blocks(mats)
         dt = self._clock() - t0
         self.commit_s += dt
         self.pt += dt
@@ -132,7 +158,16 @@ class HyraxPCS:
         """Produce the opening proof at point r from the witness."""
         t0 = self._clock()
         eq_hi = beta_table(r[self.l_col:], 1, self.device)   # [n_rows, 8]
-        b = FR.dot_mont(self._matrix(val0), eq_hi[:, None, :], axis=0)
+        mats = self._row_blocks(val0)
+        if len(mats) == 1:
+            b = FR.dot_mont(mats[0], eq_hi[:, None, :], axis=0)
+        else:
+            parts, at = [], 0
+            for m in mats:
+                e = _moved(eq_hi[at:at + m.shape[0]], m.device)
+                parts.append(FR.dot_mont(m, e[:, None, :], axis=0))
+                at += m.shape[0]
+            b = reduce_parts(parts, self.device)
         self.pt += self._clock() - t0
         if self.mode == "sqrt":
             self.ps += self.n_cols * F_BYTE_SIZE
