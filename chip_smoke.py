@@ -8,10 +8,14 @@ Run from the repository root, with no arguments:
 Phases; any failure raises and the script exits non-zero:
   1. start: require CUDA, print the card's name and power limit;
   2. build the CUDA kernels from zkcnn_tpu_torch/csrc with nvcc (one
-     compiler a source, side by side), and while they compile build
-     vgg16's circuit and witness through the port's proving tool and
+     compiler a source, side by side); beside them, in a child process
+     of the port's proving tool, build vgg16's circuit and witness and
      save them (cli/prove.py vgg16 --pcs --snapshot .snapshots/vgg16.snap
-     --build-only; the snapshot is removed at the script's exit);
+     --build-only, its output in .snapshots/vgg16.snap.log; waited for
+     before vgg16's runs in phase 5; the snapshot is removed at the
+     script's exit), and in this process run vgg11 at pic_cnt=2 through
+     demo_vgg (phase 5 says how it is checked): its witness is built
+     while the kernels compile, and its proof waits for them;
   3. each round-kernel entry against its plain PyTorch version on the
      card at edge sizes, on random rows and rows of p - 1, exact: the
      multi-round ladders and the fold at 2, 4, 1554 (folded while the row
@@ -117,17 +121,23 @@ Phases; any failure raises and the script exits non-zero:
      the segment sums' FINISH_BLOCK, the beta tables' BETA_BLOCK_BITS):
      the same pinned digest, WS and PS, and eval_normal_layer at that
      chunk equal to the witness on every normal layer of LeNet.  Then
-     vgg11 (CIFAR 32x32x3, pic_cnt=1) through the port's demo_vgg entry
-     (--synthetic --seed 17 --log, the inner-product commitment), counts
-     reset just before and read just after: Verification pass, WS
-     12975498(2^24), its PS, POLY_PS and digest pinned (PINNED_VGG11),
-     round_ladder (Liu's phase at (2^24, 24 rounds) among its shapes),
-     fold_ladder, g1_msm_table, g1_msm at (4096, 4096) and 12 ipa_round
-     launched, no per-round entry, no g1_add or g1_scalar_mul, no curve
-     operation past the kernels, no plain Fr op inside ipa_prove, peak
-     device memory under the card's 80 GB; its witness time, PT, VT, VT
-     slow, POLY_PT, POLY_VT, the setup's table, launches by kernel, peak
-     memory and the log's laps printed.  Then vgg16 the same way through
+     vgg11 at pic_cnt=2, run in phase 2 (CIFAR 32x32x3; every
+     convolution an FFT one: PADDING, FFT, DOT_PROD, IFFT, ADD_BIAS)
+     through the port's demo_vgg entry (--synthetic --seed 17 --pic-cnt 2
+     --log: the witness's zero regions checked, the inner-product
+     commitment), counts reset just before and read just after:
+     Verification pass, its WS, PS, POLY_PS and digest pinned
+     (PINNED_VGG11_PIC2), round_ladder (Liu's phase at (2^bl, bl rounds)
+     among its shapes), cubic_ladder (its DOT_PROD phase 1s), fold_ladder,
+     g1_msm_table, g1_msm at the commitment's (rows, cols) and one
+     ipa_round a round launched, no per-round entry, no g1_add or
+     g1_scalar_mul, no curve operation past the kernels, no plain Fr op
+     inside ipa_prove, peak device memory under the card's 80 GB; its
+     witness time, PT, VT, VT slow, POLY_PT, POLY_VT, the setup's table,
+     launches by kernel, peak memory by span and the log's laps printed
+     (vgg11 at pic_cnt=1, PINNED_VGG11, runs in tools/h100_mesh_cards.py
+     --only vgg11; vgg16 at pic_cnt=8, PINNED_VGG16_PIC8, on one card
+     and over four in --only vgg16x8).  Then vgg16 the same way through
      the port's proving tool from phase 2's snapshot (cli/prove.py vgg16
      --pcs --snapshot; PINNED_VGG16: WS 20843338(2^25); Liu's phase at
      (2^25, 25 rounds), g1_msm at (4096, 8192), 13 ipa_round, no
@@ -203,16 +213,18 @@ Phases; any failure raises and the script exits non-zero:
      fold_round's phase calls at every phase shape of vgg16 under
      Fiat-Shamir (Liu's among them), random rows and rows of p - 1, each
      timed beside its bound; cubic_ladder at every shape of the LeNet5
-     pic_cnt=16 and lenetCifar runs, exact; on the runs' own operands,
-     the commits' g1_msm at (4096, 4096), (4096, 8192) and (2048, 2048)
-     against Python integers (every row commitment is py_mul of its
-     discrete log, the generators being s_i G for the tape's draws); the
+     pic_cnt=16, lenetCifar and vgg11 pic_cnt=2 runs (the latter's up to
+     2^26 rows, the largest first, the plain version's seconds printed),
+     exact; on the runs' own operands, the commits' g1_msm at (4096,
+     4096), (4096, 8192) and (2048, 2048) against Python integers (every
+     row commitment is py_mul of its discrete log, the generators being
+     s_i G for the tape's draws); the
      tables: one plain call on vgg16's 8192 generators (every other
      setup's are their first n_cols) and random bases at every other
      table shape of the runs (LeNet's and the edge shapes, which leave
      groups of a warp and of a block empty and take 1 and 2 windows),
-     every table against it entry by entry; every round of
-     the vgg11, vgg16 (with and without Fiat-Shamir), LeNet5 pic_cnt=16
+     every table against it entry by entry; every round of the vgg11
+     pic_cnt=2, vgg16 (with and without Fiat-Shamir), LeNet5 pic_cnt=16
      and lenetCifar openings (ipa_round at L = 4096, 8192, 2048, 512)
      against its plain version word for word; each timed beside its
      bound; and every other shape those runs and the mesh's launched
@@ -228,11 +240,11 @@ Phases; any failure raises and the script exits non-zero:
      call;
   7. the seconds each phase took, one JSON line of the mesh phase (the
      split functions checked, each mesh run's times, counts and launches
-     beside its one-device run's), one JSON line each of the vgg11,
-     vgg16, LeNet5 pic_cnt=16 and lenetCifar runs (their times, sizes,
-     peak memory, launches and digests; vgg16's with its snapshot's bytes
-     and its build, save and load seconds), one of vgg16 under
-     FiatShamirTape (the load, PT, VT, POLY_PT, POLY_VT, the host
+     beside its one-device run's), one JSON line each of the vgg11
+     pic_cnt=2, vgg16, LeNet5 pic_cnt=16 and lenetCifar runs (their
+     times, sizes, peak memory, launches and digests; vgg16's with its
+     snapshot's bytes and its build, save and load seconds), one of vgg16
+     under FiatShamirTape (the load, PT, VT, POLY_PT, POLY_VT, the host
      hash-to-curve's and the encode-and-absorb's seconds, launches by
      kernel, fetches, phase shapes, seconds and peak memory by span, the
      tape's final state and counter), one JSON line of the
@@ -329,10 +341,26 @@ PINNED_FS_LENET = (
 
 # vgg11 CIFAR 32x32x3, pic_cnt=1, max pool, --synthetic --seed 17, with the
 # inner-product commitment, Tape(b"zkcnn-demo-17"): the port's own pin
-# (an H100 run; no run of the JAX package finished vgg11)
+# (an H100 run; no run of the JAX package finished vgg11), held by
+# tools/h100_mesh_cards.py --only vgg11
 PINNED_VGG11 = {
     "WS": "12975498(2^24)", "PS": "110.0000", "POLY_PS": "193.1562",
     "digest": "23242e8efa5404f2a8ef576a9433a91318683350776efe950a79f27187f5abdf",
+}
+# vgg11 as PINNED_VGG11's run at pic_cnt=2, every convolution an FFT one
+# (PADDING, FFT, DOT_PROD, IFFT, ADD_BIAS): the port's own pin (an H100
+# run; no run of the JAX package finished it)
+PINNED_VGG11_PIC2 = {
+    "WS": "16200074(2^24)", "PS": "158.5938", "POLY_PS": "193.1562",
+    "digest": "9c7fdf8cf2029bfcd06b1175311a200b64fbb9a259c2c315e0918ec14d160d31",
+}
+# vgg16 as PINNED_VGG16's run at pic_cnt=8 (BASELINE.json config 5, every
+# convolution an FFT one), held on one card and over four by
+# tools/h100_mesh_cards.py --only vgg16x8: the port's own pin (an H100
+# run; no run of the JAX package finished it)
+PINNED_VGG16_PIC8 = {
+    "WS": "60030794(2^26)", "PS": "240.3438", "POLY_PS": "385.2500",
+    "digest": "dd85c3e6bf1499f416970d41f0930a4e1fea76ee075c6c1f7aa7f5e9450cdac8",
 }
 # vgg16 CIFAR 32x32x3, pic_cnt=1, max pool, --synthetic --seed 17, with the
 # inner-product commitment, Tape(b"zkcnn-demo-17"): the port's own pin
@@ -349,7 +377,7 @@ PINNED_FS_VGG16 = (
     "22f0335dcda63ff8e3e1a48b09748504bbcef7dd33fa863e9ee784fafb20ed97",
     1699)
 # where cli/prove.py saves vgg16's circuit and witness (listed in
-# .gitignore; about 12 GB, removed once the Fiat-Shamir run has loaded it)
+# .gitignore; about 12 GB, removed once the mesh run has loaded it)
 SNAPSHOT = os.path.join(".snapshots", "vgg16.snap")
 # LeNet5 pic_cnt=16 and lenetCifar pic_cnt=1 (--synthetic --seed 17, max
 # pool, Tape(b"zkcnn-demo-17")): --no-pcs, the port's digests on the CPU,
@@ -430,6 +458,7 @@ LENET_PCS_RUN = "lenet with the commitment"
 LENET_FS_RUN = "lenet under FiatShamirTape with the commitment"
 LENET16_PCS_RUN = "lenet16 with the commitment"
 VGG16_FS_RUN = "vgg16 under FiatShamirTape with the commitment"
+VGG11X2_RUN = "vgg11 pic_cnt=2 with the commitment"
 FOLDS_RUN = "ipa_prove_by_folds on the opening of lenet with the commitment"
 ENGINES_RUN = "the per-round engines at lenet's largest phases"
 # curve kernels that the LeNet opening no longer runs: their shapes and
@@ -1732,10 +1761,11 @@ def run_entry(torch, main_fn, argv, run, smi, spans=()):
 def split_record(Prover):
     """Wraps the Prover so that a proof records what it held split: each
     witness layer's (layer, rows, blocks, whether every block has a
-    storage of its own) and each gate class's (layer, key, rows, shards)
-    as an init (routed over its shards) or a sum (as blocks) took it.
+    storage of its own), each layer's kind, and each gate class's (layer,
+    key, rows, shards) as an init (routed over its shards) or a sum (as
+    blocks) took it.
     Returns the record and a function that undoes the wraps."""
-    rec = {"val": set(), "gates": set()}
+    rec = {"val": set(), "gates": set(), "kinds": {}}
     real = {k: getattr(Prover, k) for k in ("__init__", "_init_gates",
                                             "_sum_gates")}
 
@@ -1745,6 +1775,7 @@ def split_record(Prover):
                            all(b.untyped_storage().nbytes() ==
                                b.numel() * b.element_size() for b in v))
                           for i, v in enumerate(self.val) if v is not None)
+        rec["kinds"].update((i, ly.ty) for i, ly in enumerate(self.C.layers))
 
     def init_gates(self, lid, keys, D):
         out = real["_init_gates"](self, lid, keys, D)
@@ -1842,6 +1873,27 @@ def check_run(r, want, must=(), never=()):
         opening_fr_check(r["seen"], run)
 
 
+def child_build(child, snap, t0):
+    """Waits for phase 2's child process (cli/prove.py --snapshot snap
+    --build-only, its output in snap + ".log"); raises unless it exited
+    0 and left the snapshot.  Returns its witness and save seconds (read
+    from its stage lines), the snapshot's bytes, the seconds since t0
+    and the seconds waited."""
+    t = time.time()
+    rc = child.wait()
+    with open(snap + ".log") as f:
+        text = f.read()
+    if rc or not os.path.exists(snap) or os.path.exists(snap + ".tmp"):
+        raise AssertionError(f"the child process that builds {snap} exited "
+                             f"{rc}: {text[-3000:]}")
+    built = re.search(r"witness built \(([0-9.]+)s\)", text)
+    saved = re.search(r"snapshot saved to .* \(([0-9]+) bytes, "
+                      r"([0-9.]+)s\)", text)
+    return {"witness_s": float(built.group(1)),
+            "save_s": float(saved.group(2)), "bytes": int(saved.group(1)),
+            "wall_s": time.time() - t0, "waited_s": time.time() - t}
+
+
 def vgg_spans():
     """The spans of a three-pass verify() with the commitment whose peak
     memory and seconds run_entry reads."""
@@ -1853,27 +1905,31 @@ def vgg_spans():
             (hyrax.HyraxPCS, "verify")]
 
 
-def vgg_run(torch, model, pin, smi, main_fn=None, argv=None):
-    """vgg11 or vgg16 (CIFAR 32x32x3, pic_cnt=1) through main_fn(argv),
-    by default the port's demo_vgg entry (--synthetic --seed 17 --log, the
-    inner-product commitment), the peak device memory read by span of
-    verify().  It must verify with WS, PS, POLY_PS and digest equal to
-    `pin`, launch round_ladder (Liu's phase at (2^bl, bl) among its
-    shapes), fold_ladder, g1_msm_table, g1_msm at the commitment's (rows,
-    cols) and one ipa_round a round of the opening, no per-round entry,
-    no cubic_ladder (no convolution of a vgg is an FFT one), no g1_add or
-    g1_scalar_mul (check_run).  Returns the run, its commit's operands
-    moved to the host."""
+def vgg_run(torch, model, pin, smi, main_fn=None, argv=None, pic_cnt=1):
+    """vgg11 or vgg16 (CIFAR 32x32x3, pic_cnt pictures) through
+    main_fn(argv), by default the port's demo_vgg entry (--synthetic --seed
+    17 --pic-cnt pic_cnt --log, the inner-product commitment), the peak
+    device memory read by span of verify().  It must verify with WS, PS,
+    POLY_PS and digest equal to `pin`, launch round_ladder (Liu's phase at
+    (2^bl, bl) among its shapes), fold_ladder, g1_msm_table, g1_msm at the
+    commitment's (rows, cols) and one ipa_round a round of the opening, no
+    per-round entry, no g1_add or g1_scalar_mul (check_run); at pic_cnt=1
+    no cubic_ladder (no convolution is an FFT one), above it cubic_ladder
+    (a DOT_PROD phase 1 an FFT convolution).  Returns the run, its
+    commit's operands moved to the host."""
     from zkcnn_tpu_torch.cli import demo_vgg
     if main_fn is None:
         main_fn, argv = demo_vgg.main, ["--synthetic", "--seed", "17",
-                                        "--model", model, "--log"]
-    r = run_entry(torch, main_fn, argv, f"{model} with the commitment", smi,
-                  spans=vgg_spans())
+                                        "--model", model, "--pic-cnt",
+                                        str(pic_cnt), "--log"]
+    fft = ("cubic_ladder",)
+    run = f"{model} with the commitment" if pic_cnt == 1 else \
+        f"{model} pic_cnt={pic_cnt} with the commitment"
+    r = run_entry(torch, main_fn, argv, run, smi, spans=vgg_spans())
     check_run(r, (pin["WS"], pin["PS"], pin["POLY_PS"], pin["digest"]),
               must=("round_ladder", "fold_ladder", "g1_msm_table", "g1_msm",
-                    "ipa_round"),
-              never=PER_ROUND + FOLD_KERNELS + ("cubic_ladder",))
+                    "ipa_round") + (fft if pic_cnt > 1 else ()),
+              never=PER_ROUND + FOLD_KERNELS + (() if pic_cnt > 1 else fft))
     pcs, shapes = r["committed"]["pcs"], r["shapes"]
     liu, commit = (1 << pcs.logn, pcs.logn), (pcs.n_rows, pcs.n_cols)
     if liu not in shapes["round_ladder"] or \
@@ -2391,39 +2447,64 @@ def run(torch, root):
         f"{torch.version.cuda}")
     say(f"nvidia-smi: {smi}")
 
-    # 2. build the kernels (one nvcc a source, side by side) and, while
-    # they compile, build vgg16's circuit and witness through the port's
-    # proving tool and save them (cli/prove.py --pcs --snapshot
-    # --build-only: host work and plain field ops, no kernel of the
-    # port's); the snapshot is removed at the script's exit
+    # 2. build the kernels (one nvcc a source, side by side) and, beside
+    # them, in a child process of the port's proving tool, vgg16's circuit
+    # and witness, saved (cli/prove.py --pcs --snapshot --build-only: host
+    # work and plain field ops, no kernel of the port's); the child runs
+    # on beside phases 2-5b and is waited for before vgg16's runs; the
+    # snapshot is removed at the script's exit.  Meanwhile vgg11 at
+    # pic_cnt=2 runs here through the port's demo_vgg entry (--synthetic
+    # --seed 17 --pic-cnt 2 --log, the inner-product commitment): every
+    # convolution an FFT one at vgg widths, the witness's zero regions
+    # checked; its witness is built while the kernels compile, and its
+    # Prover waits for them before it is made, outside every timed span;
+    # the counts cover exactly the run, and the commit and the opening
+    # keep their operands for phase 6
     from zkcnn_tpu_torch import cuda_build
     from zkcnn_tpu_torch.cli import prove
     snap = os.path.join(root, SNAPSHOT)
     os.makedirs(os.path.dirname(snap), exist_ok=True)
-    if os.path.exists(snap):
-        os.remove(snap)
+    for path in (snap, snap + ".log"):
+        if os.path.exists(path):
+            os.remove(path)
     atexit.register(lambda: os.path.exists(snap) and os.remove(snap))
-    t0, report = time.time(), []
+    started, report = time.time(), []
+    with open(snap + ".log", "w") as child_log:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "zkcnn_tpu_torch.cli.prove", "vgg16",
+             "--pcs", "--snapshot", snap, "--build-only"], cwd=root,
+            stdout=child_log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: child.poll() is None and child.kill())
+    from zkcnn_tpu_torch.gkr import Prover
+    real_init, waited, compile_s = Prover.__init__, [], []
+
+    def compile_kernels():
+        libs = cuda_build.build(True, report.append)
+        compile_s.append(time.time() - started)
+        return libs
+
+    def init_once_built(self, *args, **kw):
+        t = time.time()
+        compiled.result()
+        waited.append(time.time() - t)
+        real_init(self, *args, **kw)
+
     with ThreadPoolExecutor(1) as compiler:
-        compiled = compiler.submit(cuda_build.build, True, report.append)
-        built = prove.main(["vgg16", "--pcs", "--snapshot", snap,
-                            "--build-only"])
-        built["wall_s"] = time.time() - t0
+        compiled = compiler.submit(compile_kernels)
+        Prover.__init__ = init_once_built
+        try:
+            vgg11 = vgg_run(torch, "vgg11", PINNED_VGG11_PIC2, smi,
+                            pic_cnt=2)
+        finally:
+            Prover.__init__ = real_init
         libs = compiled.result()
     regs = ptxas_summary("\n".join(report))
     say(f"build: {sorted(p.name for p in libs.values())} in "
-        f"{time.time() - t0:.1f}s; registers and spills (ptxas): "
-        + "; ".join(regs))
-    snap_info = built["snapshot"]
-    say(f"vgg16 through cli/prove.py --pcs --snapshot --build-only, beside "
-        f"the build: the witness "
-        f"{built['witness_s'] - snap_info['save_s']:.2f} s, the snapshot "
-        f"saved in {snap_info['save_s']:.2f} s ({snap_info['bytes']} "
-        f"bytes), {built['wall_s']:.1f} s in all ({smi})")
-    if not os.path.exists(snap) or os.path.exists(snap + ".tmp"):
-        raise AssertionError("cli/prove.py left no snapshot, or its .tmp "
-                             "file")
-    lap("build, and beside it vgg16's witness built and saved")
+        f"{compile_s[0]:.1f} s; vgg11 pic_cnt=2's Prover waited "
+        f"{sum(waited):.1f} s for it after the witness; registers and "
+        f"spills (ptxas): " + "; ".join(regs))
+    lap("build, and beside it vgg11 pic_cnt=2 and vgg16's witness in a "
+        "child process")
     from zkcnn_tpu_torch.field import FP, FR, round_kernels as rk
     from zkcnn_tpu_torch.gkr import engine, FiatShamirTape
     from zkcnn_tpu_torch.parallel import reset_counts
@@ -2916,11 +2997,16 @@ def run(torch, root):
 
     lap("lenet with the chunks lowered")
 
-    # 5c. vgg11 through the port's demo_vgg entry (--synthetic --seed 17,
-    # the inner-product commitment); the counts cover exactly the run, and
-    # the commit and the opening keep their operands for phase 6
-    vgg11 = vgg_run(torch, "vgg11", PINNED_VGG11, smi)
-    lap("vgg11")
+    # 5c. (vgg11 at pic_cnt=2 ran in phase 2.)  vgg16's witness, built
+    # by phase 2's child process
+    built = child_build(child, snap, started)
+    say(f"vgg16 through cli/prove.py --pcs --snapshot --build-only, in a "
+        f"child process beside phases 2-5b: the witness "
+        f"{built['witness_s']:.2f} s, the snapshot saved in "
+        f"{built['save_s']:.2f} s ({built['bytes']} bytes), "
+        f"{built['wall_s']:.1f} s in all, {built['waited_s']:.1f} s of it "
+        f"waited for here ({smi})")
+    lap("vgg16's witness waited for")
     # 5c'. vgg16 through the port's proving tool (cli/prove.py): the
     # circuit and witness of phase 2 loaded and proven three-pass on one
     # device (--pcs --snapshot, PINNED_VGG16), loaded again and proven
@@ -2941,8 +3027,7 @@ def run(torch, root):
     lap("vgg16 over the mesh")
     os.remove(snap)
     vgg16["summary"]["snapshot"].update(
-        build_s=built["witness_s"] - snap_info["save_s"],
-        save_s=snap_info["save_s"],
+        build_s=built["witness_s"], save_s=built["save_s"],
         fs_load_s=fs_vgg16["summary"]["witness_s"])
 
     # 5d. LeNet5 pic_cnt=16 and lenetCifar through the port's demo_lenet
@@ -3108,6 +3193,22 @@ def run(torch, root):
             say(f"cubic_ladder at {shape} ({name}): equal to its plain "
                 f"version; kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
                 f"{b_ms:.6f} ms by {b_by} ({smi})")
+    # cubic_ladder at every shape of vgg11 pic_cnt=2 (its 8 DOT_PROD phase
+    # 1s, up to 2^26 rows), the largest first, each against its plain
+    # version once, timed beside its bound, with the plain version's
+    # seconds
+    fft_cubic = []
+    for shape in sorted(set(vgg11["shapes"]["cubic_ladder"]), reverse=True):
+        e, kern, plain = compare(torch, rk, "cubic_ladder", shape, gen, rng)
+        ms, pms = time_ms(torch, kern, 5), plain.ms
+        b_ms, b_by = bound("cubic_ladder", shape)
+        fft_cubic.append({"shape": list(shape), "max_abs_err": e, "ms": ms,
+                          "plain_ms": pms, "bound_ms": b_ms,
+                          "bound_by": b_by})
+        say(f"cubic_ladder at {shape} ({VGG11X2_RUN}): equal to its plain "
+            f"version; kernel {ms:.4f} ms, plain {pms / 1e3:.2f} s, bound "
+            f"{b_ms:.6f} ms by {b_by} ({smi})")
+        del kern, plain
     say("kernels exact (tolerance 0) at every shape of their runs")
 
     lap("round kernels at their runs' shapes")
@@ -3237,15 +3338,16 @@ def run(torch, root):
     # rows against its plain version, exact; fold_round's phase calls at
     # every phase shape of vgg16 under Fiat-Shamir, Liu's among them,
     # word for word on random rows and rows of p - 1; on the runs' own
-    # operands, the commits' g1_msm (vgg11, vgg16, LeNet5 pic_cnt=16)
-    # against Python integers (commit_check), every setup table against
-    # one call of its plain version on vgg16's 8192 generators (the tape's
-    # draws are counter-based, so every other run's generators are its
-    # first n_cols) and random bases at every other shape of the tables,
-    # and every round of each opening (ipa_round) against its plain
-    # version, word for word; each timed beside its bound
+    # operands, the commits' g1_msm (vgg11 pic_cnt=2, vgg16, LeNet5
+    # pic_cnt=16) against Python integers (commit_check), every setup
+    # table against one call of its plain version on vgg16's 8192
+    # generators (the tape's draws are counter-based, so every other
+    # run's generators are its first n_cols) and random bases at every
+    # other shape of the tables, and every round of each opening
+    # (ipa_round) against its plain version, word for word; each timed
+    # beside its bound
     by_name = {k["name"]: k for k in kernels}
-    runs = {"vgg11": vgg11, "vgg16": vgg16, VGG16_MESH_RUN: vgg16_mesh,
+    runs = {VGG11X2_RUN: vgg11, "vgg16": vgg16, VGG16_MESH_RUN: vgg16_mesh,
             VGG16_FS_RUN: fs_vgg16}
     for name, zr in zoo_runs.items():
         runs[name] = zr["pcs"]
@@ -3256,6 +3358,10 @@ def run(torch, root):
                           "device_launches": r["device"][name]}
     for name, measured in zoo_cubic.items():
         by_name["cubic_ladder"][name]["shapes"] = measured
+    top = fft_cubic[0]
+    by_name["cubic_ladder"][VGG11X2_RUN].update(
+        {k: top[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                             "bound_ms", "bound_by")}, shapes=fft_cubic)
     # the mesh runs: their launches under their keys; every round-kernel
     # entry exact at every shape they launched it at (round_ladder and
     # fold_ladder below, with the other runs' shapes), and each run's
@@ -3286,7 +3392,7 @@ def run(torch, root):
             f"plain versions at every shape of the run: "
             f"{ {k: r['shapes'][k] for k in ('cubic_ladder',) + PER_ROUND} }")
     lap("the mesh runs' shapes")
-    for key in ("vgg11", "vgg16", VGG16_MESH_RUN):
+    for key in (VGG11X2_RUN, "vgg16", VGG16_MESH_RUN):
         liu = runs[key]["liu"]
         e, kern, plain = compare(torch, rk, "round_ladder", liu, gen, rng)
         ms, pms = time_ms(torch, kern, 5), plain.ms
@@ -3301,52 +3407,55 @@ def run(torch, root):
         del kern, plain
     lap("the round ladders at the vgg runs' Liu phases")
     # fold_round's phase calls at every phase shape of vgg16 under
-    # Fiat-Shamir, each timed beside its bound; Liu's phase reported,
-    # with its plain version's time
+    # Fiat-Shamir, word for word on random rows and on rows of p - 1, each
+    # timed on its random rows beside its bound; Liu's phase reported,
+    # with its plain version's time on those rows
     fs_shapes, perr = fs_vgg16["phase_shapes"]["fold_round"], 0
+    liu = max(sh for sh in fs_shapes if sh[0] < 0 and not sh[3])
     timed = []
     for shape in fs_shapes:
-        for fill in (rand_fe, pm1_fe):
-            e, kern, plain = phase_compare(torch, rk, "fold_round", shape,
-                                           gen, rng, fill)
-            perr = max(perr, e)
+        e, kern, plain = phase_compare(torch, rk, "fold_round", shape, gen,
+                                       rng)
+        perr = max(perr, e, phase_compare(torch, rk, "fold_round", shape,
+                                          gen, rng, pm1_fe)[0])
         b_ms, b_by = phase_bound("fold_round", shape)
-        timed.append({"shape": list(shape), "ms": time_ms(torch, kern, 3),
+        timed.append({"shape": list(shape),
+                      "ms": time_ms(torch, kern, 5 if shape == liu else 3),
                       "bound_ms": b_ms, "bound_by": b_by})
+        if shape == liu:
+            liu_ms, liu_plain_ms = timed[-1]["ms"], plain.ms
         say(f"fold_round phase {shape} ({VGG16_FS_RUN}): equal to its plain "
             f"version on random rows and rows of p - 1; kernels "
             f"{timed[-1]['ms']:.4f} ms a phase, bound {b_ms:.6f} ms by "
             f"{b_by} ({smi})")
-    liu = max(sh for sh in fs_shapes if sh[0] < 0 and not sh[3])
-    e, kern, plain = phase_compare(torch, rk, "fold_round", liu, gen, rng)
-    ms, pms = time_ms(torch, kern, 5), plain.ms
+        del kern, plain
     b_ms, b_by = phase_bound("fold_round", liu)
     by_name["fold_round"][VGG16_FS_RUN].update(
-        shape=list(liu), max_abs_err=max(perr, e), ms=ms, plain_ms=pms,
+        shape=list(liu), max_abs_err=perr, ms=liu_ms, plain_ms=liu_plain_ms,
         bound_ms=b_ms, bound_by=b_by, phases=timed)
     say(f"fold_round at Liu's phase {liu} of {VGG16_FS_RUN}: kernels "
-        f"{ms:.4f} ms a phase, plain {pms:.4f} ms, bound {b_ms:.6f} ms by "
-        f"{b_by}; all {len(fs_shapes)} phase shapes of the run equal to the "
-        f"plain version ({smi})")
+        f"{liu_ms:.4f} ms a phase, plain {liu_plain_ms:.4f} ms, bound "
+        f"{b_ms:.6f} ms by {b_by}; all {len(fs_shapes)} phase shapes of the "
+        f"run equal to the plain version ({smi})")
     lap("fold_round at the phase shapes of vgg16 under Fiat-Shamir")
-    for key in ("vgg11", "vgg16", "lenet16"):
+    for key in (VGG11X2_RUN, "vgg16", "lenet16"):
         by_name["g1_msm"][key].update(commit_check(
             torch, curve, msm_mod, FR, Tape, runs[key]["committed"],
             runs[key]["run"], smi))
-    lap("the commits of vgg11, vgg16 and lenet16")
+    lap("the commits of vgg11 pic_cnt=2, vgg16 and lenet16")
     # every other shape of those runs that no check above covers: the
     # ladders exact on random rows; g1_msm against py_mul of the discrete
     # logs; the tables on random bases in the tables' one plain call, with
     # the LeNet run's shapes and the edge shapes, which leave groups of a
     # warp and of a block empty and take one and two windows
-    setups = ("vgg11", "vgg16", "lenet16", "lenet-cifar")
+    setups = (VGG11X2_RUN, "vgg16", "lenet16", "lenet-cifar")
     covered = {k: set(shapes[k]) | set(edge[k])
                for k in ("round_ladder", "fold_ladder")}
     covered["round_ladder"] |= {runs[k]["liu"] for k in (
-        "vgg11", "vgg16", VGG16_MESH_RUN)}
+        VGG11X2_RUN, "vgg16", VGG16_MESH_RUN)}
     covered["g1_msm"] = set(g1_shapes["g1_msm"]) | {
         (1, 1), (3, 5), (2, 512), (3, 130)} | {
-        runs[k]["committed"]["shape"] for k in ("vgg11", "vgg16",
+        runs[k]["committed"]["shape"] for k in (VGG11X2_RUN, "vgg16",
                                                 "lenet16")}
     covered["g1_msm_table"] = {(runs[k]["committed"]["gens"].shape[0],
                                 curve.NWIN) for k in setups}
@@ -3446,7 +3555,7 @@ def run(torch, root):
     # 7. results: the lane forms' measurements of phase 3 and the
     # registers of their kernels again, where the end of the output keeps
     # them, then the kernels
-    say(json.dumps({"vgg11": vgg11["summary"]}))
+    say(json.dumps({VGG11X2_RUN: vgg11["summary"]}))
     say(json.dumps({"vgg16": vgg16["summary"]}))
     say(json.dumps({VGG16_MESH_RUN: vgg16_mesh["summary"]}))
     say(json.dumps({"vgg16 under FiatShamirTape": fs_vgg16["summary"]}))

@@ -15,6 +15,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 PKG = pathlib.Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
@@ -22,6 +23,9 @@ SOURCES = {"round": CSRC / "round_kernels.cu", "g1": CSRC / "g1_kernels.cu"}
 BUILD_DIR = PKG.parent / ".cuda_build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
+# one build at a time in a process: a caller that needs a library while
+# another thread compiles waits for that compile
+_BUILDING = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -47,6 +51,11 @@ def build(verbose: bool = False, log=print) -> dict:
     flag set, all at once; returns {name: path}.  verbose: the compiler
     reports each kernel's registers and spills (-Xptxas -v), passed to
     `log`."""
+    with _BUILDING:
+        return _build(verbose, log)
+
+
+def _build(verbose, log):
     paths = library_paths()
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:

@@ -55,16 +55,21 @@ from .source import TensorSource
 
 def padded_from_int64(ival: np.ndarray, bl: int, device):
     """Signed int64 values -> [2^bl, 8] Montgomery words on `device`, zero
-    past the values: `FR.from_int64` of EVAL_CHUNK rows at a time (read
-    at call time) into one preallocated tensor, so that a 2^25-value
-    input layer never holds its conversion's [16-33, rows] temporaries
-    whole.  The words are FR.from_int64's."""
+    past the values: `FR.from_int64` of the nonzero values, EVAL_CHUNK of
+    them at a time (read at call time), scattered into one preallocated
+    tensor of zero words (0's words), so that a 2^25-value input layer
+    never holds its conversion's [16-33, rows] temporaries whole, and a
+    PADDING layer, mostly the zeros that pad its FFT slots and its
+    hypercube, converts only its pictures' and kernels' values.  The
+    words are FR.from_int64's."""
     ival = np.asarray(ival, np.int64).reshape(-1)
     out = FR.zeros(1 << max(bl, 0), device)
+    nz = np.flatnonzero(ival)
     step = circuit_eval.EVAL_CHUNK
-    for s in range(0, ival.size, step):
-        chunk = ival[s:s + step]
-        out[s:s + chunk.size] = FR.from_int64(chunk, device)
+    for s in range(0, nz.size, step):
+        at = nz[s:s + step]
+        out[torch.from_numpy(at).to(device)] = FR.from_int64(ival[at],
+                                                              device)
     return out
 
 
