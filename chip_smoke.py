@@ -9,10 +9,11 @@ Phases; any failure raises and the script exits non-zero:
   1. start: require CUDA, print the card's name and power limit;
   2. build the CUDA kernels from zkcnn_tpu_torch/csrc with nvcc (one
      compiler a source, side by side); beside them, in a child process
-     of the port's proving tool, build vgg16's circuit and witness and
-     save them (cli/prove.py vgg16 --pcs --snapshot .snapshots/vgg16.snap
-     --build-only, its output in .snapshots/vgg16.snap.log; waited for
-     before vgg16's runs in phase 5; the snapshot is removed at the
+     of the port's proving tool, build vgg11 pic_cnt=2's circuit and
+     witness and save them (cli/prove.py vgg11 --pic-cnt 2 --pcs
+     --snapshot .snapshots/vgg11x2.snap --build-only, its output in
+     .snapshots/vgg11x2.snap.log; waited for before its Fiat-Shamir run
+     in phase 5; the snapshot is removed after that run and at the
      script's exit), and in this process run vgg11 at pic_cnt=2 through
      demo_vgg (phase 5 says how it is checked): its witness is built
      while the kernels compile, and its proof waits for them;
@@ -135,38 +136,25 @@ Phases; any failure raises and the script exits non-zero:
      inside ipa_prove, peak device memory under the card's 80 GB; its
      witness time, PT, VT, VT slow, POLY_PT, POLY_VT, the setup's table,
      launches by kernel, peak memory by span and the log's laps printed
-     (vgg11 at pic_cnt=1, PINNED_VGG11, runs in tools/h100_mesh_cards.py
-     --only vgg11; vgg16 at pic_cnt=8, PINNED_VGG16_PIC8, on one card
-     and over four in --only vgg16x8).  Then vgg16 the same way through
-     the port's proving tool from phase 2's snapshot (cli/prove.py vgg16
-     --pcs --snapshot; PINNED_VGG16: WS 20843338(2^25); Liu's phase at
-     (2^25, 25 rounds), g1_msm at (4096, 8192), 13 ipa_round, no
-     cubic_ladder; peak memory by span), then from the snapshot again on
-     one device under
-     FiatShamirTape(b"zkcnn-demo-17") with the inner-product commitment
-     (fs_vgg_run: WS, PS and POLY_PS as PINNED_VGG16's, the tape's final
-     state and counter PINNED_FS_VGG16, fold_round as phase calls only
-     with Liu's (no side, 2^25 rows, 25 rounds, no add_term) among them,
-     one fold_ladder, at most one fetch a phase, at most 4 tables, g1_msm
-     at (4096, 8192), 13 ipa_round, no ladder of a round and no g1_add or
-     g1_scalar_mul, no plain Fr op inside ipa_prove; seconds and peak
-     memory by span of verify(), the host hash-to-curve apart); then from
-     the snapshot three-pass (cli/prove.py vgg16 --pcs --snapshot,
-     PINNED_VGG16: WS 20843338(2^25), PS, POLY_PS, digest) over
-     MESH_SHARDS = 4 shards on the card (vgg16_mesh_run): the witness, the
-     gate classes and the inits' column accumulators split as the sides
-     are, Liu's round_ladder at a shard's (2^23, 23) and never at (2^25,
-     25), one g1_msm a shard for the commit at (1024, 8192) and none at
-     (4096, 8192), 13 ipa_round, no cubic_ladder, split_check against the
-     one-device run (every witness layer that splits as 4 blocks, every
-     gate class of more than GATE_CHUNK rows over 4 shards, each shard's
-     resident high-water of witness, gates and accumulators at most a
-     quarter of the one-device run's plus the tables it reads whole, each
-     split block in a storage of its own), the card's peak within
-     MESH_PEAK_RATIO of the one-device three-pass run's, its PT, VT, VT
-     slow, POLY_PT, bytes copied, indexed gathers, routed gate chunks and
-     each shard's high-water printed beside that run's; the snapshot is
-     removed after.  Then
+     (the vgg runs that tools/h100_mesh_cards.py makes instead: vgg11 at
+     pic_cnt=1, PINNED_VGG11, in --only vgg11; vgg16, PINNED_VGG16,
+     three-pass on card 0 and over 4 cards in --only vgg16, and under
+     FiatShamirTape, PINNED_FS_VGG16, in --only vgg16fs; vgg16 at
+     pic_cnt=8, PINNED_VGG16_PIC8, on card 0 and over 4 cards in --only
+     vgg16x8, and under FiatShamirTape, PINNED_FS_VGG16_PIC8, in --only
+     vgg16x8fs).  Then vgg11 at pic_cnt=2 from phase 2's snapshot under
+     FiatShamirTape(b"zkcnn-demo-17") with the
+     inner-product commitment (fs_vgg_run: WS, PS and POLY_PS as
+     PINNED_VGG11_PIC2's, the tape's final state and counter
+     PINNED_FS_VGG11_PIC2; fold_round and fold_cubic_round as phase
+     calls only, with Liu's (no side, 2^24 rows, 24 rounds, no add_term)
+     and every DOT_PROD phase 1 of the three-pass run, (K, M, log2 K),
+     (2^26, 2^7, 26) the largest, among their shapes; one fold_ladder,
+     no round_ladder, cubic_ladder or fold, at most one fetch a phase, at
+     most 4 tables, g1_msm at (4096, 4096), 12 ipa_round, no g1_add or
+     g1_scalar_mul, no plain Fr op inside ipa_prove; the load, PT, VT,
+     POLY_PT, POLY_VT and seconds and peak memory by span of verify(),
+     the host hash-to-curve apart); that snapshot is removed after.  Then
      LeNet5 pic_cnt=16 and lenetCifar through demo_lenet, --no-pcs and
      with the commitment
      (PINNED_ZOO: the --no-pcs digests the CPU's, pinned in
@@ -207,33 +195,34 @@ Phases; any failure raises and the script exits non-zero:
      least time the card could take for the same work beside it;
      fold_round's and fold_cubic_round's phase calls at every phase
      shape of the Fiat-Shamir LeNet run, timed a phase.  At the shapes of
-     the vgg and zoo runs: round_ladder at Liu's (2^24, 24 rounds), a
-     shard's (2^23, 23 rounds) and vgg16's one-device (2^25, 25 rounds)
-     on random rows against its plain version, exact;
-     fold_round's phase calls at every phase shape of vgg16 under
-     Fiat-Shamir (Liu's among them), random rows and rows of p - 1, each
-     timed beside its bound; cubic_ladder at every shape of the LeNet5
+     the vgg and zoo runs: round_ladder at vgg11 pic_cnt=2's Liu (2^24,
+     24 rounds) on random rows against its plain version, exact;
+     fold_round's and fold_cubic_round's phase calls at every phase
+     shape of vgg11 pic_cnt=2 under Fiat-Shamir, the most rows first, on
+     random rows, and on rows of p - 1 at the largest of each and at
+     Liu's, each timed beside its bound; cubic_ladder at every shape of
+     the LeNet5
      pic_cnt=16, lenetCifar and vgg11 pic_cnt=2 runs (the latter's up to
      2^26 rows, the largest first, the plain version's seconds printed),
      exact; on the runs' own operands, the commits' g1_msm at (4096,
-     4096), (4096, 8192) and (2048, 2048) against Python integers (every
-     row commitment is py_mul of its discrete log, the generators being
-     s_i G for the tape's draws); the
-     tables: one plain call on vgg16's 8192 generators (every other
-     setup's are their first n_cols) and random bases at every other
+     4096) and (2048, 2048) against Python integers (every row
+     commitment is py_mul of its discrete log, the generators being s_i G
+     for the tape's draws); the tables: one plain call on vgg11
+     pic_cnt=2's 4096 generators (every other setup's are their first
+     n_cols) and random bases at every other
      table shape of the runs (LeNet's and the edge shapes, which leave
      groups of a warp and of a block empty and take 1 and 2 windows),
      every table against it entry by entry; every round of the vgg11
-     pic_cnt=2, vgg16 (with and without Fiat-Shamir), LeNet5 pic_cnt=16
-     and lenetCifar openings (ipa_round at L = 4096, 8192, 2048, 512)
+     pic_cnt=2 (with and without Fiat-Shamir), LeNet5 pic_cnt=16 and
+     lenetCifar openings (ipa_round at L = 4096, 2048, 512)
      against its plain version word for word; each timed beside its
      bound; and every other shape those runs and the mesh's launched
      round_ladder, fold_ladder and g1_msm at (the ladders exact on random
      rows, g1_msm against py_mul of the discrete logs); every shape at
      which the mesh runs launched cubic_ladder and the per-round entries,
      exact, and each mesh run's largest round_ladder, cubic_ladder and
-     per-round entry shape (a shard's rows: vgg16's Liu at (2^23, 23);
-     under Fiat-Shamir fold_round, fold_cubic_round and fold) timed beside
+     per-round entry shape (a shard's rows; under Fiat-Shamir
+     fold_round, fold_cubic_round and fold) timed beside
      its plain version and bound.  Then a LeNet
      side's rounds one by one as the one-round form runs them
      (fold_round, a fetch a round) against one ladder and one phase
@@ -241,10 +230,10 @@ Phases; any failure raises and the script exits non-zero:
   7. the seconds each phase took, one JSON line of the mesh phase (the
      split functions checked, each mesh run's times, counts and launches
      beside its one-device run's), one JSON line each of the vgg11
-     pic_cnt=2, vgg16, LeNet5 pic_cnt=16 and lenetCifar runs (their
-     times, sizes, peak memory, launches and digests; vgg16's with its
-     snapshot's bytes and its build, save and load seconds), one of vgg16
-     under FiatShamirTape (the load, PT, VT, POLY_PT, POLY_VT, the host
+     pic_cnt=2, LeNet5 pic_cnt=16 and lenetCifar runs (their times,
+     sizes, peak memory, launches and digests), one of vgg11
+     pic_cnt=2 under FiatShamirTape (its snapshot, the load, PT, VT,
+     POLY_PT, POLY_VT, the host
      hash-to-curve's and the encode-and-absorb's seconds, launches by
      kernel, fetches, phase shapes, seconds and peak memory by span, the
      tape's final state and counter), one JSON line of the
@@ -263,7 +252,9 @@ Phases; any failure raises and the script exits non-zero:
      with the commitment, but g1_add's and g1_scalar_mul's to the
      fold-based opening, with their launches on the main path, 0, beside
      them; a key for each vgg and zoo run with its launches and, at its
-     new shapes, its times and bounds), the nvidia-smi name/power line,
+     new shapes, its times and bounds; under "runs_elsewhere" the runs
+     that tools/h100_mesh_cards.py makes instead, by mode), the
+     nvidia-smi name/power line,
      and the final JSON status line.
 """
 
@@ -364,20 +355,43 @@ PINNED_VGG16_PIC8 = {
 }
 # vgg16 CIFAR 32x32x3, pic_cnt=1, max pool, --synthetic --seed 17, with the
 # inner-product commitment, Tape(b"zkcnn-demo-17"): the port's own pin
-# (an H100 run; no run of the JAX package finished vgg16)
+# (an H100 run; no run of the JAX package finished vgg16), held on card 0
+# and over four by tools/h100_mesh_cards.py --only vgg16
 PINNED_VGG16 = {
     "WS": "20843338(2^25)", "PS": "147.0625", "POLY_PS": "193.2500",
     "digest": "86e1e15008e77957c127175875a569bb956cbc68d5b003c2e4f30512b5e135bb",
 }
 # vgg16 as PINNED_VGG16's run, under FiatShamirTape(b"zkcnn-demo-17") with
 # the inner-product commitment: the tape's final state and counter, the
-# port's own pin (an H100 run; no JAX proof of vgg16 has run)
+# port's own pin (an H100 run; no JAX proof of vgg16 has run), held by
+# tools/h100_mesh_cards.py --only vgg16fs
 PINNED_FS_VGG16 = (
     "9f18af52ef9236176c8a7bb5d73b492bd5c1d35eaa684b88b72b88e5e3dfd778"
     "22f0335dcda63ff8e3e1a48b09748504bbcef7dd33fa863e9ee784fafb20ed97",
     1699)
-# where cli/prove.py saves vgg16's circuit and witness (listed in
-# .gitignore; about 12 GB, removed once the mesh run has loaded it)
+# vgg16 as PINNED_VGG16_PIC8's run, under FiatShamirTape(b"zkcnn-demo-17")
+# with the inner-product commitment, held on one card and over four by
+# tools/h100_mesh_cards.py --only vgg16x8fs: the port's own pin (an H100
+# run)
+PINNED_FS_VGG16_PIC8 = (
+    "03dec2c2080577d9c2e2bb1ab83aaa287b707f071bc85b53c72544c09970ff13"
+    "5cf04376f98743cc7c8daca422af45dad745feab387952e30e701d36e790219e",
+    2775)
+# vgg11 as PINNED_VGG11_PIC2's run, under FiatShamirTape(b"zkcnn-demo-17")
+# with the inner-product commitment: the port's own pin (an H100 run)
+PINNED_FS_VGG11_PIC2 = (
+    "f231959d0cd117ac622dcd6d66e89615b0ce6643233dc409811f807d4b3e4bd4"
+    "b245c3e948f1450acb53a5af52cffa594bfa02f77051db9bd3584b7daae6bcbc",
+    1849)
+# the largest DOT_PROD phase 1 of vgg11 pic_cnt=2 and of vgg16 pic_cnt=8
+# as a Fiat-Shamir phase call (K, M, log2 K): all log2 K rounds in one
+# call, where the three-pass path runs cubic_ladder for log2 M of them
+FS_VGG_CUBIC = (1 << 26, 1 << 7, 26)
+# where cli/prove.py saves vgg11 pic_cnt=2's circuit and witness for its
+# Fiat-Shamir run, and tools/h100_mesh_cards.py vgg16's (listed in
+# .gitignore; about 11.6 GB and 12.0 GB, each removed once its last run
+# has loaded it)
+SNAPSHOT_VGG11X2 = os.path.join(".snapshots", "vgg11x2.snap")
 SNAPSHOT = os.path.join(".snapshots", "vgg16.snap")
 # LeNet5 pic_cnt=16 and lenetCifar pic_cnt=1 (--synthetic --seed 17, max
 # pool, Tape(b"zkcnn-demo-17")): --no-pcs, the port's digests on the CPU,
@@ -459,6 +473,18 @@ LENET_FS_RUN = "lenet under FiatShamirTape with the commitment"
 LENET16_PCS_RUN = "lenet16 with the commitment"
 VGG16_FS_RUN = "vgg16 under FiatShamirTape with the commitment"
 VGG11X2_RUN = "vgg11 pic_cnt=2 with the commitment"
+VGG11X2_FS_RUN = "vgg11 pic_cnt=2 under FiatShamirTape with the commitment"
+# the runs of the port's kernels that tools/h100_mesh_cards.py makes, not
+# this script (their time would push it past its clock)
+RUNS_ELSEWHERE = {
+    "vgg11 with the commitment": "tools/h100_mesh_cards.py --only vgg11",
+    "vgg16 with the commitment, on card 0 and over 4 cards":
+        "tools/h100_mesh_cards.py --only vgg16",
+    VGG16_FS_RUN: "tools/h100_mesh_cards.py --only vgg16fs",
+    "vgg16 pic_cnt=8 with the commitment, on card 0 and over 4 cards":
+        "tools/h100_mesh_cards.py --only vgg16x8",
+    "vgg16 pic_cnt=8 under FiatShamirTape with the commitment, on card 0 "
+    "and over 4 cards": "tools/h100_mesh_cards.py --only vgg16x8fs"}
 FOLDS_RUN = "ipa_prove_by_folds on the opening of lenet with the commitment"
 ENGINES_RUN = "the per-round engines at lenet's largest phases"
 # curve kernels that the LeNet opening no longer runs: their shapes and
@@ -1943,115 +1969,127 @@ def vgg_run(torch, model, pin, smi, main_fn=None, argv=None, pic_cnt=1):
     return r
 
 
-def fs_vgg_run(torch, snapshot, smi):
-    """vgg16 under FiatShamirTape(b"zkcnn-demo-17") with the inner-product
-    commitment, its circuit and witness loaded from the snapshot that
-    cli/prove.py saved (fs_main), the peak memory and the seconds read by
-    span of verify() (the setup, whose host hash-to-curve is its time less
-    its table's, the commit, the per-round proof and check, the opening;
-    the commitment's encode-and-absorb lies between the commit and the
-    per-round path).  It must verify with WS, PS and POLY_PS equal to
-    PINNED_VGG16's (the challenges move, not the count of messages) and
-    the tape's final state and counter equal to PINNED_FS_VGG16; launch
-    fold_round as phase calls only, Liu's phase (no side, 2^bl rows, bl
-    rounds, no add_term) among its PHASE_SHAPES, one fold_ladder (the
-    output layer's MLE at its point), at most TABLES_FIAT_SHAMIR tables,
-    g1_msm at the commitment's (rows, cols) and one ipa_round a round;
-    make at most one round fetch a phase; launch no round_ladder,
-    cubic_ladder, fold, fold_cubic_round, g1_add or g1_scalar_mul, no
-    curve operation past the kernels and no plain Fr op inside ipa_prove
-    (check_run).  Returns the run, without the setup's table."""
+def fs_spans():
+    """The spans of a Fiat-Shamir verify() with the commitment whose peak
+    memory and seconds run_entry reads: the setup (its host hash-to-curve
+    is its time less its table's), the commit, the per-round proof and
+    check, the opening; the commitment's encode-and-absorb lies between
+    the commit and the per-round path."""
     from zkcnn_tpu_torch.gkr import Verifier
     from zkcnn_tpu_torch.pcs import hyrax
-    r = run_entry(torch, fs_main, ["vgg16", "--snapshot", snapshot],
-                  VGG16_FS_RUN, smi,
-                  spans=[(hyrax.HyraxPCS, "setup"),
-                         (hyrax.HyraxPCS, "commit"),
-                         (Verifier, "_verify_per_round"),
-                         (Verifier, "verify_input")])
-    check_run(r, (PINNED_VGG16["WS"], PINNED_VGG16["PS"],
-                  PINNED_VGG16["POLY_PS"], "/".join(map(str,
-                                                        PINNED_FS_VGG16))),
+    return [(hyrax.HyraxPCS, "setup"), (hyrax.HyraxPCS, "commit"),
+            (Verifier, "_verify_per_round"), (Verifier, "verify_input")]
+
+
+def fs_vgg_run(torch, argv, run, pin, fs_pin, smi, cubic=()):
+    """A vgg under FiatShamirTape(b"zkcnn-demo-17") with the inner-product
+    commitment through fs_main(argv) (built, or loaded from the snapshot
+    that cli/prove.py saved), the peak memory and the seconds read by span
+    of verify() (fs_spans).  It must verify with WS, PS and POLY_PS equal
+    to the three-pass pin's (the challenges move, not the count of
+    messages) and the tape's final state and counter equal to fs_pin;
+    launch fold_round as phase calls only, Liu's phase (no side, 2^bl
+    rows, bl rounds, no add_term) among its PHASE_SHAPES, and, with
+    `cubic` (the FFT convolutions' DOT_PROD phase 1s as phase shapes (K,
+    M, log2 K)), fold_cubic_round as phase calls only, each of `cubic`
+    among its PHASE_SHAPES (without, none); one fold_ladder (the output
+    layer's MLE at its point), at most TABLES_FIAT_SHAMIR tables, g1_msm
+    at the commitment's (rows, cols) and one ipa_round a round; make at
+    most one round fetch a phase; launch no round_ladder, cubic_ladder,
+    fold, g1_add or g1_scalar_mul, no curve operation past the kernels
+    and no plain Fr op inside ipa_prove (check_run).  Returns the run,
+    without the setup's table."""
+    r = run_entry(torch, fs_main, argv, run, smi, spans=fs_spans())
+    fft = ("fold_cubic_round",)
+    check_run(r, (pin["WS"], pin["PS"], pin["POLY_PS"],
+                  "/".join(map(str, fs_pin))),
               must=("fold_round", "fold_ladder", "g1_msm_table", "g1_msm",
-                    "ipa_round"),
-              never=("round_ladder", "cubic_ladder", "fold",
-                     "fold_cubic_round") + FOLD_KERNELS)
+                    "ipa_round") + (fft if cubic else ()),
+              never=("round_ladder", "cubic_ladder", "fold") + FOLD_KERNELS
+              + (() if cubic else fft))
     pcs, launches = r.pop("committed")["pcs"], r["launches"]
     r["seen"].pop("gen_msm")
     liu = (-1, pcs.logn, pcs.logn, False)
     commit = (pcs.n_rows, pcs.n_cols)
-    if r["shapes"]["fold_round"] or \
-            liu not in r["phase_shapes"]["fold_round"] or \
-            launches["fold_ladder"] != 1 or \
-            r["fetches"] > launches["fold_round"] or \
+    phases = launches["fold_round"] + launches["fold_cubic_round"]
+    calls = r["phase_shapes"]
+    if r["shapes"]["fold_round"] or r["shapes"]["fold_cubic_round"] or \
+            liu not in calls["fold_round"] or \
+            not set(cubic) <= set(calls["fold_cubic_round"]) or \
+            launches["fold_ladder"] != 1 or r["fetches"] > phases or \
             launches["g1_msm_table"] > TABLES_FIAT_SHAMIR or \
             commit not in r["shapes"]["g1_msm"] or \
             launches["ipa_round"] != pcs.l_col:
         raise AssertionError(
-            f"{VGG16_FS_RUN}: one-round fold_round shapes "
-            f"{r['shapes']['fold_round']}, Liu's phase {liu} in "
-            f"{r['phase_shapes']['fold_round']}, {r['fetches']} fetches for "
-            f"{launches['fold_round']} phases, g1_msm at {commit} in "
+            f"{run}: one-round shapes {r['shapes']['fold_round']} / "
+            f"{r['shapes']['fold_cubic_round']}, Liu's phase {liu} and the "
+            f"cubic phases {sorted(cubic)} in {calls}, {r['fetches']} "
+            f"fetches for {phases} phases, g1_msm at {commit} in "
             f"{r['shapes']['g1_msm']}, launches {launches}")
-    calls, summary = r["span_calls"], r["summary"]
+    spans, summary = r["span_calls"], r["summary"]
     summary["hash_to_curve_s"] = summary["seconds_by_span"]["setup"] - \
         summary["table_s"]
-    summary["absorb_s"] = calls["_verify_per_round"][0][0] - \
-        calls["commit"][0][1]
+    summary["absorb_s"] = spans["_verify_per_round"][0][0] - \
+        spans["commit"][0][1]
     summary["fingerprint"] = summary.pop("digest")
-    summary["phase_shapes"] = r["phase_shapes"]["fold_round"]
-    say(f"{VGG16_FS_RUN}: the tape's final state and counter equal "
-        f"PINNED_FS_VGG16; {launches['fold_round']} phase calls of "
-        f"fold_round (Liu's at {liu}) with {r['fetches']} round fetches; "
-        f"the setup's host hash-to-curve {summary['hash_to_curve_s']:.4f} "
-        f"s, the encode-and-absorb of the commitment "
-        f"{summary['absorb_s']:.4f} s ({smi})")
+    summary["phase_shapes"] = calls
+    say(f"{run}: the tape's final state and counter equal the pin; "
+        f"{launches['fold_round']} phase calls of fold_round (Liu's at "
+        f"{liu}) and {launches['fold_cubic_round']} of fold_cubic_round "
+        f"(the largest {max(calls['fold_cubic_round'], default=None)}) "
+        f"with {r['fetches']} round fetches; the setup's host "
+        f"hash-to-curve {summary['hash_to_curve_s']:.4f} s, the "
+        f"encode-and-absorb of the commitment {summary['absorb_s']:.4f} s "
+        f"({smi})")
     return r
 
 
-def vgg16_mesh_run(torch, snapshot, one, smi):
-    """vgg16 from phase 2's snapshot through the port's proving tool
-    (cli/prove.py vgg16 --pcs --snapshot: three-pass, the inner-product
-    commitment) over MESH_SHARDS shards on the machine's cards, the peak
-    memory and seconds read by span of verify() (mesh_entry).  It must
-    verify with WS, PS, POLY_PS and digest equal to PINNED_VGG16; run as
-    a split run must (mesh_check against the one-device vgg16 run `one`:
-    Liu's 2^25-row side at a shard's (2^25 / D, 25 - log2 D) and never at
-    (2^25, 25), the gathered tail, one g1_msm a shard for the commit at
-    (4096 / D, 8192), never at (4096, 8192); the witness, every gate
-    class of more than GATE_CHUNK rows and the accumulators split, each
-    shard's resident high-water at most 1/D of one's plus its replicated
-    tables, D - 1 more g1_msm launches than one); and keep the card's
-    peak within MESH_PEAK_RATIO of one's.  `one` is vgg16 three-pass on
-    one device in the same call (vgg_run), whose commit's operands are
-    this run's, so this run keeps none.  Returns the run."""
-    from zkcnn_tpu_torch.cli import prove
-    D = MESH_SHARDS
-    r = mesh_entry(torch, prove.main, ["vgg16", "--pcs", "--snapshot",
-                                       snapshot], VGG16_MESH_RUN, smi,
-                   mesh_on_cards(torch, D), spans=vgg_spans())
-    check_run(r, (PINNED_VGG16["WS"], PINNED_VGG16["PS"],
-                  PINNED_VGG16["POLY_PS"], PINNED_VGG16["digest"]),
-              must=("round_ladder", "fold_ladder", "g1_msm_table", "g1_msm",
-                    "ipa_round"),
-              never=PER_ROUND + FOLD_KERNELS + ("cubic_ladder",))
-    pcs = r["committed"]["pcs"]
-    mesh_check(r, one, D, split=(pcs.logn,), commits=D - 1)
-    # the commit a shard's rows at a time, never the whole matrix
-    commit = (pcs.n_rows // D, pcs.n_cols)
-    if commit not in r["shapes"]["g1_msm"] or \
-            (pcs.n_rows, pcs.n_cols) in r["shapes"]["g1_msm"]:
-        raise AssertionError(f"{VGG16_MESH_RUN}: g1_msm not at a shard's "
-                             f"commit rows {commit}: {r['shapes']['g1_msm']}")
-    if r["peak"] > MESH_PEAK_RATIO * one["peak"]:
-        raise AssertionError(f"{VGG16_MESH_RUN}: peak {r['peak']} bytes, "
-                             f"over {MESH_PEAK_RATIO} x the one-device run's "
-                             f"{one['peak']}")
-    logD = D.bit_length() - 1
-    r["committed"].clear()
-    r["seen"].pop("gen_msm")
-    r.update(liu=(1 << pcs.logn - logD, pcs.logn - logD))
-    return r
+def fs_phase_checks(torch, rk, r, gen, rng, smi, pm1_everywhere=False,
+                    largest_only=False):
+    """fold_round_phase and fold_cubic_round_phase at the phase shapes of
+    Fiat-Shamir run r (fs_vgg_run), the most rows first, each against its
+    plain version word for word on random rows and timed beside its bound
+    (largest_only: at the largest shape of each alone); rows of p - 1 too
+    at the largest of each and at Liu's phase (pm1_everywhere: at every
+    shape).  Returns {name: the largest shape's measurements, with each
+    shape's time under "phases"}."""
+    out = {}
+    for name, shapes in r["phase_shapes"].items():
+        if not shapes:
+            continue
+        rows = (lambda sh: (sum(1 << nb for nb in sh[:2] if nb >= 0), sh)) \
+            if name == "fold_round" else (lambda sh: sh)
+        shapes = sorted(shapes, key=rows, reverse=True)
+        big = shapes[0]
+        liu = [sh for sh in shapes if name == "fold_round" and sh[0] < 0
+               and not sh[3]][:1]
+        timed, err = [], 0
+        for shape in shapes[:1] if largest_only else shapes:
+            e, kern, plain = phase_compare(torch, rk, name, shape, gen, rng)
+            err = max(err, e)
+            if pm1_everywhere or shape == big or shape in liu:
+                err = max(err, phase_compare(torch, rk, name, shape, gen,
+                                             rng, pm1_fe)[0])
+            b_ms, b_by = phase_bound(name, shape)
+            timed.append({"shape": list(shape),
+                          "ms": time_ms(torch, kern, 3),
+                          "plain_ms": plain.ms, "bound_ms": b_ms,
+                          "bound_by": b_by})
+            say(f"{name} phase {shape} ({r['run']}): equal to its plain "
+                f"version on random rows"
+                + (" and rows of p - 1" if pm1_everywhere or shape == big
+                   or shape in liu else "")
+                + f"; kernels {timed[-1]['ms']:.4f} ms a phase, plain "
+                f"{plain.ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({smi})")
+            del kern, plain
+        top = timed[0]
+        out[name] = {**top, "max_abs_err": err, "phases": timed}
+        say(f"{name} at the largest phase {big} of {r['run']}: kernels "
+            f"{top['ms']:.4f} ms a phase, plain {top['plain_ms']:.4f} ms, "
+            f"bound {top['bound_ms']:.6f} ms by {top['bound_by']}; "
+            f"{len(timed)} of its {len(shapes)} phase shapes equal to the "
+            f"plain version ({smi})")
+    return out
 
 
 def zoo_lenet_runs(torch, name, pin, smi):
@@ -2168,10 +2206,6 @@ def opening_rounds_check(torch, ipa, seen, run, smi):
 # the mesh phase: shards of the proof's mesh, the split functions' row
 # counts and shard counts, the split MSM's (rows, bases)
 MESH_SHARDS = 4
-# vgg16 over the mesh's shards, and how far above the one-device run's
-# the card's peak may go (the blocks are the same bytes)
-VGG16_MESH_RUN = f"vgg16 with the commitment over {MESH_SHARDS} shards"
-MESH_PEAK_RATIO = 1.15
 MESH_ROWS = (1 << 12, 1 << 18)
 MESH_SIZES = (2, 4)
 MESH_MSM = (8, 512)
@@ -2180,12 +2214,13 @@ MESH_SEGMENTS = 1 << 10
 
 def fs_main(argv):
     """A model of cli/runner.py's build_model (argv[0]: random_source(17),
-    max pool, pic_cnt=1), or its circuit and witness loaded from the
-    snapshot that cli/prove.py saved (argv[1:] = ["--snapshot", PATH]),
-    proven on the card under FiatShamirTape(b"zkcnn-demo-17") with the
-    inner-product commitment, as a demo's result for run_entry: the row's
-    sizes and times, the witness (or the load) and the proof's times, the
-    peak memory, and as its digest the tape's final state and counter."""
+    max pool, --pic-cnt N pictures, 1 by default), or its circuit and
+    witness loaded from the snapshot that cli/prove.py saved (--snapshot
+    PATH), proven on the card under FiatShamirTape(b"zkcnn-demo-17") with
+    the inner-product commitment, as a demo's result for run_entry: the
+    row's sizes and times, the witness (or the load) and the proof's
+    times, the peak memory, and as its digest the tape's final state and
+    counter."""
     import argparse
     import torch
     from zkcnn_tpu_torch.cli.prove import load_snapshot
@@ -2193,12 +2228,17 @@ def fs_main(argv):
     from zkcnn_tpu_torch.gkr import Prover, Verifier, FiatShamirTape
     from zkcnn_tpu_torch.nn import random_source
     from zkcnn_tpu_torch.pcs import HyraxPCS
+    ap = argparse.ArgumentParser(prog="fs_main")
+    ap.add_argument("model")
+    ap.add_argument("--pic-cnt", type=int, default=1)
+    ap.add_argument("--snapshot")
+    args = ap.parse_args(argv)
     t0 = time.time()
-    if argv[1:2] == ["--snapshot"]:
-        C, vals = load_snapshot(argv[2], "cuda")
+    if args.snapshot:
+        C, vals = load_snapshot(args.snapshot, "cuda")
     else:
-        nn, _, _ = build_model(argv[0], argparse.Namespace(pool="max",
-                                                           pic_cnt=1))
+        nn, _, _ = build_model(args.model, argparse.Namespace(
+            pool="max", pic_cnt=args.pic_cnt))
         C, vals = nn.create(random_source(17))
         del nn
     torch.cuda.synchronize()
@@ -2208,8 +2248,8 @@ def fs_main(argv):
     pcs, tape = HyraxPCS(mode="ipa"), FiatShamirTape(b"zkcnn-demo-17")
     v = Verifier(p, C, tape, pcs=pcs)
     if not v.verify():
-        raise AssertionError(f"{argv[0]} under FiatShamirTape: verification "
-                             f"failed on cuda")
+        raise AssertionError(f"{args.model} under FiatShamirTape: "
+                             f"verification failed on cuda")
     torch.cuda.synchronize()
     size = C.layers[0].size
     row = {"WS": f"{size}(2^{(size - 1).bit_length()})",
@@ -2448,11 +2488,12 @@ def run(torch, root):
     say(f"nvidia-smi: {smi}")
 
     # 2. build the kernels (one nvcc a source, side by side) and, beside
-    # them, in a child process of the port's proving tool, vgg16's circuit
-    # and witness, saved (cli/prove.py --pcs --snapshot --build-only: host
-    # work and plain field ops, no kernel of the port's); the child runs
-    # on beside phases 2-5b and is waited for before vgg16's runs; the
-    # snapshot is removed at the script's exit.  Meanwhile vgg11 at
+    # them, in a child process of the port's proving tool, vgg11
+    # pic_cnt=2's circuit and witness, saved (cli/prove.py --pcs
+    # --snapshot --build-only: host work and plain field ops, no kernel of
+    # the port's) for its run under Fiat-Shamir; the child runs on beside
+    # phases 2-5b and is waited for before that run; the snapshot is
+    # removed after it, and at the script's exit.  Meanwhile vgg11 at
     # pic_cnt=2 runs here through the port's demo_vgg entry (--synthetic
     # --seed 17 --pic-cnt 2 --log, the inner-product commitment): every
     # convolution an FFT one at vgg widths, the witness's zero regions
@@ -2461,8 +2502,7 @@ def run(torch, root):
     # the counts cover exactly the run, and the commit and the opening
     # keep their operands for phase 6
     from zkcnn_tpu_torch import cuda_build
-    from zkcnn_tpu_torch.cli import prove
-    snap = os.path.join(root, SNAPSHOT)
+    snap = os.path.join(root, SNAPSHOT_VGG11X2)
     os.makedirs(os.path.dirname(snap), exist_ok=True)
     for path in (snap, snap + ".log"):
         if os.path.exists(path):
@@ -2471,9 +2511,9 @@ def run(torch, root):
     started, report = time.time(), []
     with open(snap + ".log", "w") as child_log:
         child = subprocess.Popen(
-            [sys.executable, "-m", "zkcnn_tpu_torch.cli.prove", "vgg16",
-             "--pcs", "--snapshot", snap, "--build-only"], cwd=root,
-            stdout=child_log, stderr=subprocess.STDOUT)
+            [sys.executable, "-m", "zkcnn_tpu_torch.cli.prove", "vgg11",
+             "--pic-cnt", "2", "--pcs", "--snapshot", snap, "--build-only"],
+            cwd=root, stdout=child_log, stderr=subprocess.STDOUT)
     atexit.register(lambda: child.poll() is None and child.kill())
     from zkcnn_tpu_torch.gkr import Prover
     real_init, waited, compile_s = Prover.__init__, [], []
@@ -2503,8 +2543,8 @@ def run(torch, root):
         f"{compile_s[0]:.1f} s; vgg11 pic_cnt=2's Prover waited "
         f"{sum(waited):.1f} s for it after the witness; registers and "
         f"spills (ptxas): " + "; ".join(regs))
-    lap("build, and beside it vgg11 pic_cnt=2 and vgg16's witness in a "
-        "child process")
+    lap("build, and beside it vgg11 pic_cnt=2, and its witness again in "
+        "a child process")
     from zkcnn_tpu_torch.field import FP, FR, round_kernels as rk
     from zkcnn_tpu_torch.gkr import engine, FiatShamirTape
     from zkcnn_tpu_torch.parallel import reset_counts
@@ -2997,38 +3037,34 @@ def run(torch, root):
 
     lap("lenet with the chunks lowered")
 
-    # 5c. (vgg11 at pic_cnt=2 ran in phase 2.)  vgg16's witness, built
-    # by phase 2's child process
+    # 5c. (vgg11 at pic_cnt=2 ran in phase 2.)  Its witness again, built
+    # and saved by phase 2's child process, proven under
+    # FiatShamirTape(b"zkcnn-demo-17") with the inner-product commitment:
+    # every DOT_PROD phase 1 of the three-pass run (cubic_ladder at (K, M,
+    # log2 M)) a phase call of all its log2 K rounds (fold_cubic_round at
+    # (K, M, log2 K)), every other phase a fold_round phase call; then the
+    # snapshot is removed.  (vgg16 runs in tools/h100_mesh_cards.py: --only
+    # vgg16 three-pass on card 0 and over 4 cards, --only vgg16fs under
+    # FiatShamirTape.)
     built = child_build(child, snap, started)
-    say(f"vgg16 through cli/prove.py --pcs --snapshot --build-only, in a "
-        f"child process beside phases 2-5b: the witness "
+    say(f"vgg11 pic_cnt=2 through cli/prove.py --pcs --snapshot "
+        f"--build-only, in a child process beside phases 2-5b: the witness "
         f"{built['witness_s']:.2f} s, the snapshot saved in "
         f"{built['save_s']:.2f} s ({built['bytes']} bytes), "
         f"{built['wall_s']:.1f} s in all, {built['waited_s']:.1f} s of it "
         f"waited for here ({smi})")
-    lap("vgg16's witness waited for")
-    # 5c'. vgg16 through the port's proving tool (cli/prove.py): the
-    # circuit and witness of phase 2 loaded and proven three-pass on one
-    # device (--pcs --snapshot, PINNED_VGG16), loaded again and proven
-    # under FiatShamirTape (PINNED_FS_VGG16), and loaded a third time and
-    # proven three-pass over MESH_SHARDS shards, the witness, the gate
-    # classes and the inits' accumulators split as the sides are
-    # (vgg16_mesh_run), beside the one-device three-pass run; then the
-    # snapshot is removed
-    vgg16 = vgg_run(torch, "vgg16", PINNED_VGG16, smi, prove.main,
-                    ["vgg16", "--pcs", "--snapshot", snap])
-    lap("vgg16 from the snapshot")
-    fs_vgg16 = fs_vgg_run(torch, snap, smi)
-    lap("vgg16 under Fiat-Shamir")
-    mesh_results = {}
-    vgg16_mesh = vgg16_mesh_run(torch, snap, vgg16, smi)
-    mesh_results[VGG16_MESH_RUN] = mesh_line(VGG16_MESH_RUN, vgg16_mesh,
-                                             vgg16["summary"], smi)
-    lap("vgg16 over the mesh")
+    lap("vgg11 pic_cnt=2's witness waited for")
+    fs_vgg11 = fs_vgg_run(
+        torch, ["vgg11", "--pic-cnt", "2", "--snapshot", snap],
+        VGG11X2_FS_RUN, PINNED_VGG11_PIC2, PINNED_FS_VGG11_PIC2, smi,
+        cubic={(K, M, K.bit_length() - 1)
+               for K, M, _ in vgg11["shapes"]["cubic_ladder"]})
     os.remove(snap)
-    vgg16["summary"]["snapshot"].update(
-        build_s=built["witness_s"], save_s=built["save_s"],
-        fs_load_s=fs_vgg16["summary"]["witness_s"])
+    fs_vgg11["summary"]["snapshot"] = {
+        "path": SNAPSHOT_VGG11X2, "bytes": built["bytes"],
+        "build_s": built["witness_s"], "save_s": built["save_s"],
+        "load_s": fs_vgg11["summary"]["witness_s"]}
+    lap("vgg11 pic_cnt=2 under Fiat-Shamir")
 
     # 5d. LeNet5 pic_cnt=16 and lenetCifar through the port's demo_lenet
     # entry, --no-pcs and with the commitment
@@ -3086,7 +3122,7 @@ def run(torch, root):
          dict(split=(22,), cubic=((1 << 16, 1 << 11, 11),
                                   (1 << 17, 1 << 9, 9)),
               commits=MESH_SHARDS - 1))]
-    mesh_runs = {}
+    mesh_runs, mesh_results = {}, {}
     for run, main_fn, argv, want, must, never, how in mesh_plan:
         key = f"{run} over {MESH_SHARDS} shards"
         r = mesh_entry(torch, main_fn, argv, key, smi, mesh)
@@ -3334,21 +3370,22 @@ def run(torch, root):
         "every shape of their run")
 
     # 6b. the kernels at the vgg and zoo runs' shapes: round_ladder at
-    # each vgg's Liu phase (2^24 and 2^25 rows, as many rounds) on random
-    # rows against its plain version, exact; fold_round's phase calls at
-    # every phase shape of vgg16 under Fiat-Shamir, Liu's among them,
-    # word for word on random rows and rows of p - 1; on the runs' own
-    # operands, the commits' g1_msm (vgg11 pic_cnt=2, vgg16, LeNet5
-    # pic_cnt=16) against Python integers (commit_check), every setup
-    # table against one call of its plain version on vgg16's 8192
-    # generators (the tape's draws are counter-based, so every other
-    # run's generators are its first n_cols) and random bases at every
-    # other shape of the tables, and every round of each opening
+    # vgg11 pic_cnt=2's Liu phase (2^24 rows, as many rounds) on random
+    # rows against its plain version, exact; the phase calls
+    # (fold_round's, fold_cubic_round's) at every phase shape of vgg11
+    # pic_cnt=2 under Fiat-Shamir, word for word (fs_phase_checks); on
+    # the runs' own operands, the commits' g1_msm (vgg11 pic_cnt=2,
+    # LeNet5 pic_cnt=16) against Python integers (commit_check), every
+    # setup table against one call of its plain version on vgg11
+    # pic_cnt=2's 4096 generators (the tape's draws are counter-based, so
+    # every other run's generators are its first n_cols) and random bases
+    # at every other shape of the tables, and every round of each opening
     # (ipa_round) against its plain version, word for word; each timed
     # beside its bound
     by_name = {k["name"]: k for k in kernels}
-    runs = {VGG11X2_RUN: vgg11, "vgg16": vgg16, VGG16_MESH_RUN: vgg16_mesh,
-            VGG16_FS_RUN: fs_vgg16}
+    for entry in kernels:
+        entry["runs_elsewhere"] = RUNS_ELSEWHERE
+    runs = {VGG11X2_RUN: vgg11, VGG11X2_FS_RUN: fs_vgg11}
     for name, zr in zoo_runs.items():
         runs[name] = zr["pcs"]
         runs[name + " --no-pcs"] = zr["no_pcs"]
@@ -3392,7 +3429,7 @@ def run(torch, root):
             f"plain versions at every shape of the run: "
             f"{ {k: r['shapes'][k] for k in ('cubic_ladder',) + PER_ROUND} }")
     lap("the mesh runs' shapes")
-    for key in (VGG11X2_RUN, "vgg16", VGG16_MESH_RUN):
+    for key in (VGG11X2_RUN,):
         liu = runs[key]["liu"]
         e, kern, plain = compare(torch, rk, "round_ladder", liu, gen, rng)
         ms, pms = time_ms(torch, kern, 5), plain.ms
@@ -3405,58 +3442,34 @@ def run(torch, root):
             f"its plain version; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
             f"bound {b_ms:.6f} ms by {b_by} ({smi})")
         del kern, plain
-    lap("the round ladders at the vgg runs' Liu phases")
-    # fold_round's phase calls at every phase shape of vgg16 under
-    # Fiat-Shamir, word for word on random rows and on rows of p - 1, each
-    # timed on its random rows beside its bound; Liu's phase reported,
-    # with its plain version's time on those rows
-    fs_shapes, perr = fs_vgg16["phase_shapes"]["fold_round"], 0
-    liu = max(sh for sh in fs_shapes if sh[0] < 0 and not sh[3])
-    timed = []
-    for shape in fs_shapes:
-        e, kern, plain = phase_compare(torch, rk, "fold_round", shape, gen,
-                                       rng)
-        perr = max(perr, e, phase_compare(torch, rk, "fold_round", shape,
-                                          gen, rng, pm1_fe)[0])
-        b_ms, b_by = phase_bound("fold_round", shape)
-        timed.append({"shape": list(shape),
-                      "ms": time_ms(torch, kern, 5 if shape == liu else 3),
-                      "bound_ms": b_ms, "bound_by": b_by})
-        if shape == liu:
-            liu_ms, liu_plain_ms = timed[-1]["ms"], plain.ms
-        say(f"fold_round phase {shape} ({VGG16_FS_RUN}): equal to its plain "
-            f"version on random rows and rows of p - 1; kernels "
-            f"{timed[-1]['ms']:.4f} ms a phase, bound {b_ms:.6f} ms by "
-            f"{b_by} ({smi})")
-        del kern, plain
-    b_ms, b_by = phase_bound("fold_round", liu)
-    by_name["fold_round"][VGG16_FS_RUN].update(
-        shape=list(liu), max_abs_err=perr, ms=liu_ms, plain_ms=liu_plain_ms,
-        bound_ms=b_ms, bound_by=b_by, phases=timed)
-    say(f"fold_round at Liu's phase {liu} of {VGG16_FS_RUN}: kernels "
-        f"{liu_ms:.4f} ms a phase, plain {liu_plain_ms:.4f} ms, bound "
-        f"{b_ms:.6f} ms by {b_by}; all {len(fs_shapes)} phase shapes of the "
-        f"run equal to the plain version ({smi})")
-    lap("fold_round at the phase shapes of vgg16 under Fiat-Shamir")
-    for key in (VGG11X2_RUN, "vgg16", "lenet16"):
+    lap("the round ladder at vgg11 pic_cnt=2's Liu phase")
+    # the phase calls at every phase shape of vgg11 pic_cnt=2 under
+    # Fiat-Shamir (fold_cubic_round's DOT_PROD phase 1s up to (2^26, 2^7,
+    # 26); fold_round's, Liu's among them), the most rows first, word for
+    # word on random rows, and on rows of p - 1 at the largest of each and
+    # at Liu's, each timed beside its bound
+    for name, got in fs_phase_checks(torch, rk, fs_vgg11, gen, rng,
+                                     smi).items():
+        by_name[name][VGG11X2_FS_RUN].update(got)
+    lap("the phase calls at the phase shapes of vgg11 pic_cnt=2 under "
+        "Fiat-Shamir")
+    for key in (VGG11X2_RUN, "lenet16"):
         by_name["g1_msm"][key].update(commit_check(
             torch, curve, msm_mod, FR, Tape, runs[key]["committed"],
             runs[key]["run"], smi))
-    lap("the commits of vgg11 pic_cnt=2, vgg16 and lenet16")
+    lap("the commits of vgg11 pic_cnt=2 and lenet16")
     # every other shape of those runs that no check above covers: the
     # ladders exact on random rows; g1_msm against py_mul of the discrete
     # logs; the tables on random bases in the tables' one plain call, with
     # the LeNet run's shapes and the edge shapes, which leave groups of a
     # warp and of a block empty and take one and two windows
-    setups = (VGG11X2_RUN, "vgg16", "lenet16", "lenet-cifar")
+    setups = (VGG11X2_RUN, "lenet16", "lenet-cifar")
     covered = {k: set(shapes[k]) | set(edge[k])
                for k in ("round_ladder", "fold_ladder")}
-    covered["round_ladder"] |= {runs[k]["liu"] for k in (
-        VGG11X2_RUN, "vgg16", VGG16_MESH_RUN)}
+    covered["round_ladder"].add(runs[VGG11X2_RUN]["liu"])
     covered["g1_msm"] = set(g1_shapes["g1_msm"]) | {
         (1, 1), (3, 5), (2, 512), (3, 130)} | {
-        runs[k]["committed"]["shape"] for k in (VGG11X2_RUN, "vgg16",
-                                                "lenet16")}
+        runs[k]["committed"]["shape"] for k in (VGG11X2_RUN, "lenet16")}
     covered["g1_msm_table"] = {(runs[k]["committed"]["gens"].shape[0],
                                 curve.NWIN) for k in setups}
     other = {k: sorted(set().union(*(r["shapes"][k] for r in runs.values()))
@@ -3464,8 +3477,7 @@ def run(torch, root):
     for name in ("round_ladder", "fold_ladder"):
         for shape in other[name]:
             compare(torch, rk, name, shape, gen, rng)
-    # g1_msm at each other shape timed beside its bound (a shard's rows of
-    # the commit among them: (1024, 8192) in vgg16 over 4 shards)
+    # g1_msm at each other shape timed beside its bound
     by_name["g1_msm"]["other_shapes"] = []
     for shape in other["g1_msm"]:
         scalars, kern = g1_log_check(torch, curve, msm_mod, FR, "g1_msm",
@@ -3479,7 +3491,7 @@ def run(torch, root):
             f"bound {b_ms:.6f} ms by {b_by} ({smi})")
     # the tables: one plain call on all their bases, every table held
     # against it entry by entry
-    gens = vgg16["committed"]["gens"]
+    gens = vgg11["committed"]["gens"]
     base = curve.base_point("cuda")
     tables = sorted(set(other["g1_msm_table"]) | set(g1_shapes[
         "g1_msm_table"]) | set(TABLE_EDGES))
@@ -3504,7 +3516,8 @@ def run(torch, root):
         n = mine.shape[0]
         if not bool(msm_mod.points_equal(mine, gens[:n]).all()):
             raise AssertionError(f"the generators of {runs[key]['run']} are "
-                                 f"not the first {n} of vgg16's")
+                                 f"not the first {n} of vgg11 "
+                                 f"pic_cnt=2's")
         shape = (n, curve.NWIN)
         same_points(msm_mod, curve.table_kernel(mine), want[:n],
                     f"g1_msm_table at {shape} ({runs[key]['run']})")
@@ -3519,10 +3532,10 @@ def run(torch, root):
             f"bound {b_ms:.6f} ms by {b_by} ({smi})")
     del want, bases, extra
     lap("the other shapes of the vgg and zoo runs and the tables")
-    for key in setups + (VGG16_FS_RUN,):
+    for key in setups + (VGG11X2_FS_RUN,):
         by_name["ipa_round"][key].update(opening_rounds_check(
             torch, ipa, runs[key]["seen"], runs[key]["run"], smi))
-    del runs, vgg11["committed"], vgg16["committed"], zoo_runs
+    del runs, vgg11["committed"], zoo_runs
 
     lap("the openings of the vgg and zoo runs")
 
@@ -3556,9 +3569,7 @@ def run(torch, root):
     # registers of their kernels again, where the end of the output keeps
     # them, then the kernels
     say(json.dumps({VGG11X2_RUN: vgg11["summary"]}))
-    say(json.dumps({"vgg16": vgg16["summary"]}))
-    say(json.dumps({VGG16_MESH_RUN: vgg16_mesh["summary"]}))
-    say(json.dumps({"vgg16 under FiatShamirTape": fs_vgg16["summary"]}))
+    say(json.dumps({VGG11X2_FS_RUN: fs_vgg11["summary"]}))
     for name, zr in zoo_summaries.items():
         say(json.dumps({name: zr}))
     say(json.dumps({"round_loops_s": {"phase_calls": round_s[0],

@@ -29,14 +29,35 @@ shard a card.  Two parts, both by default:
     DOT_PROD layers' witness as 4 blocks, one a card;
   * vgg11 (only when asked for; one card): vgg11 pic_cnt=1 through
     demo_vgg with the inner-product commitment to PINNED_VGG11, as
-    chip_smoke.py ran it before it took vgg11 at pic_cnt=2.
+    chip_smoke.py ran it before it took vgg11 at pic_cnt=2;
+  * vgg16fs (only when asked for; one card): vgg16 pic_cnt=1's snapshot,
+    built as for vgg16, proven under FiatShamirTape(b"zkcnn-demo-17")
+    with the inner-product commitment to PINNED_FS_VGG16 (chip_smoke.py's
+    fs_vgg_run: WS, PS and POLY_PS those of PINNED_VGG16, fold_round as
+    phase calls only, Liu's at (no side, 2^25, 25 rounds)), then
+    fold_round_phase at every phase shape of the run against its plain
+    version, random rows and rows of p - 1, each timed beside its bound,
+    as chip_smoke.py did before it took vgg11 pic_cnt=2 under
+    Fiat-Shamir;
+  * vgg16x8fs (only when asked for): vgg16 pic_cnt=8's snapshot, built as
+    for vgg16x8, proven under FiatShamirTape on card 0 to
+    PINNED_FS_VGG16_PIC8 (WS, PS and POLY_PS those of PINNED_VGG16_PIC8;
+    every DOT_PROD phase 1 a fold_cubic_round phase call, (2^26, 2^7, 26)
+    among them) and over 4 cards to the same pin (mesh_check with
+    fiat_shamir: the split phases on the host tape, a phase call only for
+    a phase whose operands stayed whole), with the phases on the host
+    tape and the phase calls counted, the bytes between cards and each
+    card's peak memory by span of verify(); then fold_cubic_round_phase
+    and fold_round_phase at the run's largest cubic and quadratic phase
+    against their plain versions, random rows and rows of p - 1.
 
 The mesh parts need 4 CUDA cards; run from the repository root:
 
-    python3 tools/h100_mesh_cards.py [--only lenet|vgg16|vgg16x8|vgg11]
+    python3 tools/h100_mesh_cards.py
+        [--only lenet|vgg16|vgg16x8|vgg11|vgg16fs|vgg16x8fs]
 
 Writes its results to chiprun_out/cards4.json; exits 1 if a run failed.
-The snapshots (about 12 GB for vgg16, 30 GB for vgg16x8, under
+The snapshots (about 12 GB for vgg16, 30 GB for vgg16 pic_cnt=8, under
 .snapshots/) are removed at exit.
 """
 
@@ -85,33 +106,49 @@ def card_spans(torch, spans, devices):
     return peaks, undo
 
 
-def vgg16_cards(torch, cs, smi, out, failed, pic_cnt):
-    """vgg16 at pic_cnt pictures from a snapshot on card 0, then over 4
-    cards (module docstring): PINNED_VGG16 at pic_cnt=1, PINNED_VGG16_PIC8
-    at pic_cnt=8."""
+def vgg16_names(pic_cnt):
+    """vgg16's run name and its three-pass pin's name at pic_cnt."""
+    if pic_cnt == 1:
+        return "vgg16", "PINNED_VGG16"
+    return f"vgg16 pic_cnt={pic_cnt}", f"PINNED_VGG16_PIC{pic_cnt}"
+
+
+def vgg16_snapshot(cs, pic_cnt):
+    """vgg16's circuit and witness at pic_cnt pictures built and saved
+    through the port's proving tool (cli/prove.py vgg16 --pcs --snapshot
+    --build-only), the kernels compiling beside it; the snapshot is
+    removed at exit.  Returns its path and the tool's result."""
     import atexit
     from concurrent.futures import ThreadPoolExecutor
     from zkcnn_tpu_torch import cuda_build
-    from zkcnn_tpu_torch.circuit import LayerType
     from zkcnn_tpu_torch.cli import prove
-    from zkcnn_tpu_torch.parallel import make_mesh
-    name = "vgg16" if pic_cnt == 1 else f"vgg16 pic_cnt={pic_cnt}"
-    pin_name = "PINNED_VGG16" if pic_cnt == 1 else \
-        f"PINNED_VGG16_PIC{pic_cnt}"
     snap = cs.SNAPSHOT if pic_cnt == 1 else \
         os.path.join(".snapshots", f"vgg16x{pic_cnt}.snap")
     os.makedirs(os.path.dirname(snap), exist_ok=True)
     atexit.register(lambda: os.path.exists(snap) and os.remove(snap))
-    argv = ["vgg16", "--pic-cnt", str(pic_cnt), "--pcs", "--snapshot", snap]
     t0 = time.time()
     with ThreadPoolExecutor(1) as compiler:
         compiled = compiler.submit(cuda_build.build)
-        built = prove.main(argv + ["--build-only"])
+        built = prove.main(["vgg16", "--pic-cnt", str(pic_cnt), "--pcs",
+                            "--snapshot", snap, "--build-only"])
         compiled.result()
-    cs.say(f"{name}'s witness built and saved beside the build in "
-           f"{time.time() - t0:.1f} s (the witness "
+    cs.say(f"{vgg16_names(pic_cnt)[0]}'s witness built and saved beside "
+           f"the build in {time.time() - t0:.1f} s (the witness "
            f"{built['witness_s'] - built['snapshot']['save_s']:.1f} s, "
            f"{built['snapshot']['bytes']} bytes)")
+    return snap, built
+
+
+def vgg16_cards(torch, cs, smi, out, failed, pic_cnt):
+    """vgg16 at pic_cnt pictures from a snapshot on card 0, then over 4
+    cards (module docstring): PINNED_VGG16 at pic_cnt=1, PINNED_VGG16_PIC8
+    at pic_cnt=8."""
+    from zkcnn_tpu_torch.circuit import LayerType
+    from zkcnn_tpu_torch.cli import prove
+    from zkcnn_tpu_torch.parallel import make_mesh
+    name, pin_name = vgg16_names(pic_cnt)
+    snap, built = vgg16_snapshot(cs, pic_cnt)
+    argv = ["vgg16", "--pic-cnt", str(pic_cnt), "--pcs", "--snapshot", snap]
     pin = getattr(cs, pin_name)
     want = (pin["WS"], pin["PS"], pin["POLY_PS"], pin["digest"])
     # above one picture every convolution is an FFT one: its DOT_PROD
@@ -184,6 +221,82 @@ def vgg16_cards(torch, cs, smi, out, failed, pic_cnt):
     os.remove(snap)
 
 
+def vgg16_fs_cards(torch, cs, smi, out, failed, pic_cnt):
+    """vgg16 at pic_cnt pictures under FiatShamirTape from a snapshot
+    (module docstring): on card 0 to PINNED_FS_VGG16 (pic_cnt=1) or
+    PINNED_FS_VGG16_PIC8, at pic_cnt=8 then over 4 cards to the same
+    pin; then the phase calls against their plain versions."""
+    from zkcnn_tpu_torch.field import round_kernels as rk
+    from zkcnn_tpu_torch.parallel import make_mesh
+    name, pin_name = vgg16_names(pic_cnt)
+    fs_name = "PINNED_FS_VGG16" + ("" if pic_cnt == 1 else
+                                   f"_PIC{pic_cnt}")
+    pin, fs_pin = getattr(cs, pin_name), getattr(cs, fs_name)
+    snap, built = vgg16_snapshot(cs, pic_cnt)
+    argv = ["vgg16", "--pic-cnt", str(pic_cnt), "--snapshot", snap]
+    run = f"{name} under FiatShamirTape with the commitment"
+    key1 = run if pic_cnt == 1 else f"{run} on card 0"
+    key = f"{run} over 4 cards"
+    try:
+        one = cs.fs_vgg_run(torch, argv, key1, pin, fs_pin, smi,
+                            cubic=(cs.FS_VGG_CUBIC,) if pic_cnt > 1 else ())
+        cs.say(f"{key1}: {fs_name} held; " + json.dumps(
+            {k: one["summary"][k] for k in (
+                "pt_s", "vt_s", "poly_pt_s", "poly_vt_s", "witness_s",
+                "hash_to_curve_s", "wall_s", "peak_gib", "peak_gib_by_span",
+                "seconds_by_span")}))
+        out[key1] = {**one["summary"],
+                     "snapshot_bytes": built["snapshot"]["bytes"],
+                     "build_s": built["witness_s"]
+                     - built["snapshot"]["save_s"]}
+        if pic_cnt > 1:
+            mesh = make_mesh(4)
+            peaks, undo = card_spans(torch, cs.fs_spans(), mesh.devices)
+            try:
+                for d in mesh.devices:
+                    torch.cuda.reset_peak_memory_stats(d)
+                r = cs.mesh_entry(torch, cs.fs_main, argv, key, smi, mesh)
+            finally:
+                undo()
+            cs.check_run(r, (pin["WS"], pin["PS"], pin["POLY_PS"],
+                             "/".join(map(str, fs_pin))),
+                         must=("fold_round", "fold_cubic_round",
+                               "fold_ladder", "g1_msm_table", "g1_msm",
+                               "ipa_round"),
+                         never=("round_ladder", "cubic_ladder")
+                         + cs.FOLD_KERNELS)
+            pcs = r.pop("committed")["pcs"]
+            r.pop("seen")
+            cs.mesh_check(r, one, 4, split=(pcs.logn,), fiat_shamir=True)
+            if not r["mesh"]["peer_bytes"]:
+                raise AssertionError(f"{key}: nothing moved between cards")
+            by_card = {d: {k: v / 2 ** 30 for k, v in p.items()}
+                       for d, p in peaks.items()}
+            line = cs.mesh_line(key, r, one["summary"], smi)
+            c = r["mesh"]
+            cs.say(f"{key}: {fs_name} held; {c['host_tape_phases']} phases "
+                   f"on the host tape, {c['device_tape_phases']} phase calls "
+                   f"on a card ({r['phase_shapes']}), {c['peer_bytes']} "
+                   f"bytes between cards; peak GiB by span of verify() a "
+                   f"card: {json.dumps(by_card)} ({smi})")
+            out[key] = {**line, "peak_gib_by_span_a_card": by_card,
+                        "shapes": r["shapes"],
+                        "phase_shapes": r["phase_shapes"]}
+            del r
+        # the proofs' tensors freed: the plain versions (at pic_cnt=8 the
+        # DOT_PROD phase 1 at 2^26 rows alone needs over 30 GiB)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(17)
+        out[key1]["phase_checks"] = cs.fs_phase_checks(
+            torch, rk, one, gen, random.Random(17), smi,
+            pm1_everywhere=pic_cnt == 1, largest_only=pic_cnt > 1)
+    except Exception as e:
+        traceback.print_exc()
+        cs.say(f"FAILED {key1}: {e!r}"[:3000])
+        failed.append(key1)
+    os.remove(snap)
+
+
 def vgg11_card(torch, cs, smi, out, failed):
     """vgg11 pic_cnt=1 on card 0 to PINNED_VGG11 (module docstring)."""
     from zkcnn_tpu_torch import cuda_build
@@ -208,17 +321,24 @@ def main():
     from zkcnn_tpu_torch.parallel.dryrun import dryrun_multichip
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["lenet", "vgg16", "vgg16x8",
-                                       "vgg11"])
+                                       "vgg11", "vgg16fs", "vgg16x8fs"])
     args = ap.parse_args()
     smi = cs.smi_line()
     out, failed = {}, []
     if args.only == "vgg11":
         vgg11_card(torch, cs, smi, out, failed)
         return finish(cs, out, failed)
+    if args.only == "vgg16fs":
+        vgg16_fs_cards(torch, cs, smi, out, failed, 1)
+        return finish(cs, out, failed)
     if torch.cuda.device_count() < 4:
         sys.exit("h100_mesh_cards: 4 CUDA cards needed, "
                  f"{torch.cuda.device_count()} present")
     n = torch.cuda.device_count()
+    if args.only == "vgg16x8fs":
+        cs.say(f"cards {n}; {smi}")
+        vgg16_fs_cards(torch, cs, smi, out, failed, 8)
+        return finish(cs, out, failed)
     if args.only != "lenet":
         cs.say(f"cards {n}; {smi}")
         vgg16_cards(torch, cs, smi, out, failed,
