@@ -170,13 +170,18 @@ Phases; any failure raises and the script exits non-zero:
      also as group elements); then LeNet5 --no-pcs, with the commitment
      and under FiatShamirTape with it, and LeNet5 pic_cnt=16 with the
      commitment, each proven over the mesh through the same entry as its
-     one-device run above, counts reset just before and read just after: its
-     one-device pin (digest, or the tape's final state and counter),
+     one-device run above (LeNet with the commitment instead through the
+     port's proving tool, cli/prove.py lenet --pcs, from a snapshot that
+     the tool saved with --build-only just before: the same circuit,
+     witness and tape as demo_lenet's), counts reset just before and read
+     just after: its one-device pin (digest, or the tape's final state
+     and counter),
      every split operand gathered once, round_ladder at the shards'
      shapes ((2^16, 16) for the 2^18 side, (2^20, 20) for LeNet16's
      2^22 one) and the gathered tail (4, 2), never at the whole side's,
      cubic_ladder at a quarter of each cubic phase's rows, three more
-     g1_msm than one device (one a shard for the commit), under
+     g1_msm than one device (one a shard for the commit; under either
+     tape), under
      Fiat-Shamir a phase with a split operand on the host tape with
      fold_round at a shard's rows, a phase call only for a phase whose
      operands stayed whole, and split_check against the one-device run;
@@ -252,9 +257,9 @@ Phases; any failure raises and the script exits non-zero:
      with the commitment, but g1_add's and g1_scalar_mul's to the
      fold-based opening, with their launches on the main path, 0, beside
      them; a key for each vgg and zoo run with its launches and, at its
-     new shapes, its times and bounds; under "runs_elsewhere" the runs
-     that tools/h100_mesh_cards.py makes instead, by mode), the
-     nvidia-smi name/power line,
+     new shapes, its times and bounds), before it one JSON line of the
+     runs that tools/h100_mesh_cards.py makes instead, by mode
+     ("runs_elsewhere"), the nvidia-smi name/power line,
      and the final JSON status line.
 """
 
@@ -393,6 +398,9 @@ FS_VGG_CUBIC = (1 << 26, 1 << 7, 26)
 # has loaded it)
 SNAPSHOT_VGG11X2 = os.path.join(".snapshots", "vgg11x2.snap")
 SNAPSHOT = os.path.join(".snapshots", "vgg16.snap")
+# where cli/prove.py saves LeNet5's circuit and witness for its proof over
+# the mesh (a few MB, removed after that run)
+SNAPSHOT_LENET = os.path.join(".snapshots", "lenet.snap")
 # LeNet5 pic_cnt=16 and lenetCifar pic_cnt=1 (--synthetic --seed 17, max
 # pool, Tape(b"zkcnn-demo-17")): --no-pcs, the port's digests on the CPU,
 # pinned in tests/test_torch_zoo.py; with the inner-product commitment, the
@@ -1998,7 +2006,8 @@ def fs_vgg_run(torch, argv, run, pin, fs_pin, smi, cubic=()):
     most one round fetch a phase; launch no round_ladder, cubic_ladder,
     fold, g1_add or g1_scalar_mul, no curve operation past the kernels
     and no plain Fr op inside ipa_prove (check_run).  Returns the run,
-    without the setup's table."""
+    without the setup's table; of its commit only the generators are kept
+    (committed["gens"])."""
     r = run_entry(torch, fs_main, argv, run, smi, spans=fs_spans())
     fft = ("fold_cubic_round",)
     check_run(r, (pin["WS"], pin["PS"], pin["POLY_PS"],
@@ -2008,6 +2017,7 @@ def fs_vgg_run(torch, argv, run, pin, fs_pin, smi, cubic=()):
               never=("round_ladder", "cubic_ladder", "fold") + FOLD_KERNELS
               + (() if cubic else fft))
     pcs, launches = r.pop("committed")["pcs"], r["launches"]
+    r["committed"] = {"gens": pcs.gens}
     r["seen"].pop("gen_msm")
     liu = (-1, pcs.logn, pcs.logn, False)
     commit = (pcs.n_rows, pcs.n_cols)
@@ -2345,7 +2355,8 @@ def mesh_check(r, one, D, split, cubic=(), commits=0, fiat_shamir=False):
     and not (2^k, k), and the gathered tail (D, log2 D)), the cubic
     phases in `cubic` ((K, M, R) of one device) at (K / D, M, R), and
     `commits` more g1_msm launches than the one-device run `one` (one a
-    shard for the commit; None: not counted), split_check against one;
+    shard for the commit, under either tape; None: not counted),
+    split_check against one;
     under Fiat-Shamir phases on the host tape,
     round 1 of each side of `split` as fold_round on the shards' rows
     (2^k / D, no fold), not on 2^k, and phase calls (counted in
@@ -2358,6 +2369,11 @@ def mesh_check(r, one, D, split, cubic=(), commits=0, fiat_shamir=False):
     if not counts["splits"] or counts["gathers"] != counts["splits"]:
         raise AssertionError(f"{run}: {counts['splits']} operands split, "
                              f"{counts['gathers']} gathered")
+    if commits is not None and \
+            r["launches"]["g1_msm"] != one["launches"]["g1_msm"] + commits:
+        raise AssertionError(f"{run}: {r['launches']['g1_msm']} g1_msm "
+                             f"launches, the one-device run's "
+                             f"{one['launches']['g1_msm']} + {commits}")
     if fiat_shamir:
         rounds, calls = shapes["fold_round"], r["phase_shapes"]
         whole = all(nb <= logD for shape in calls.get("fold_round", ())
@@ -2385,11 +2401,6 @@ def mesh_check(r, one, D, split, cubic=(), commits=0, fiat_shamir=False):
                 (K, M, R) in shapes["cubic_ladder"]:
             raise AssertionError(f"{run}: the cubic phase {(K, M, R)} did "
                                  f"not run split: {shapes['cubic_ladder']}")
-    if commits is not None and \
-            r["launches"]["g1_msm"] != one["launches"]["g1_msm"] + commits:
-        raise AssertionError(f"{run}: {r['launches']['g1_msm']} g1_msm "
-                             f"launches, the one-device run's "
-                             f"{one['launches']['g1_msm']} + {commits}")
 
 
 def mesh_entry(torch, main_fn, argv, run, smi, mesh, spans=()):
@@ -2730,7 +2741,7 @@ def run(torch, root):
     lap("per-round engines")
 
     # 5. LeNet through the demo entry; counts cover exactly this run
-    from zkcnn_tpu_torch.cli import demo_lenet
+    from zkcnn_tpu_torch.cli import demo_lenet, prove
     r = run_entry(torch, demo_lenet.main, ["--synthetic", "--seed", "17",
                                            "--no-pcs", "--pic-cnt", "1"],
                   LENET_RUN, smi)
@@ -3080,7 +3091,10 @@ def run(torch, root):
     # i % count.  The split functions against their unsplit counterparts;
     # then LeNet5 pic_cnt=1 (--no-pcs, with the commitment, under
     # FiatShamirTape) and LeNet5 pic_cnt=16 with the commitment proven over
-    # the mesh through the same entries, each to its one-device pin, with
+    # the mesh through the same entries (LeNet with the commitment through
+    # the port's proving tool instead, cli/prove.py lenet --pcs, from a
+    # snapshot that the tool saved with --build-only: the same circuit,
+    # witness and tape as demo_lenet's), each to its one-device pin, with
     # its ladders at the shards' shapes and the gathered tails, one g1_msm
     # a shard for the commit, every split operand gathered once, under
     # Fiat-Shamir a phase call only for a phase whose operands stayed
@@ -3093,13 +3107,18 @@ def run(torch, root):
     mesh_fns = mesh_functions(torch, gen, rng, smi)
     lap("mesh: the split functions")
     lenet_argv = ["--synthetic", "--seed", "17", "--pic-cnt", "1"]
+    lenet_snap = os.path.join(root, SNAPSHOT_LENET)
+    atexit.register(lambda: os.path.exists(lenet_snap)
+                    and os.remove(lenet_snap))
+    prove.main(["lenet", "--pcs", "--snapshot", lenet_snap, "--build-only"])
     lenet16 = PINNED_ZOO["lenet16"]
     lenet_want = (PINNED_LENET["WS"], PINNED_LENET["PS"], "0.0000",
                   PINNED_LENET["digest"])
     mesh_plan = [
         (LENET_RUN, demo_lenet.main, lenet_argv + ["--no-pcs"], lenet_want,
          LADDERS, PER_ROUND, dict(split=(18,), cubic=((1 << 16, 1 << 9, 9),))),
-        (LENET_PCS_RUN, demo_lenet.main, lenet_argv,
+        (LENET_PCS_RUN, prove.main,
+         ["lenet", "--pcs", "--snapshot", lenet_snap],
          (PINNED_LENET["WS"], PINNED_LENET["PS"],
           PINNED_LENET_PCS["POLY_PS"], PINNED_LENET_PCS["digest"]),
          LADDERS + ("g1_msm_table", "g1_msm", "ipa_round"),
@@ -3112,7 +3131,7 @@ def run(torch, root):
          ("fold_round", "fold", "fold_cubic_round", "fold_ladder",
           "g1_msm_table", "g1_msm", "ipa_round"),
          ("round_ladder", "cubic_ladder") + FOLD_KERNELS,
-         dict(split=(18,), fiat_shamir=True)),
+         dict(split=(18,), fiat_shamir=True, commits=MESH_SHARDS - 1)),
         (LENET16_PCS_RUN, demo_lenet.main,
          ["--synthetic", "--seed", "17"] + lenet16["argv"],
          (lenet16["WS"], lenet16["PS"], lenet16["POLY_PS"],
@@ -3124,7 +3143,8 @@ def run(torch, root):
               commits=MESH_SHARDS - 1))]
     mesh_runs, mesh_results = {}, {}
     for run, main_fn, argv, want, must, never, how in mesh_plan:
-        key = f"{run} over {MESH_SHARDS} shards"
+        key = f"{run} over {MESH_SHARDS} shards" + (
+            " through cli/prove.py" if main_fn is prove.main else "")
         r = mesh_entry(torch, main_fn, argv, key, smi, mesh)
         check_run(r, want, must=must, never=never)
         mesh_check(r, one_device[run], MESH_SHARDS, **how)
@@ -3134,6 +3154,7 @@ def run(torch, root):
         r.pop("seen")
         mesh_runs[key] = r
         lap(key)
+    os.remove(lenet_snap)
     if torch.cuda.device_count() >= 2:
         key = f"{LENET_RUN} over 2 cards"
         r = mesh_entry(torch, demo_lenet.main, lenet_argv + ["--no-pcs"],
@@ -3383,8 +3404,6 @@ def run(torch, root):
     # (ipa_round) against its plain version, word for word; each timed
     # beside its bound
     by_name = {k["name"]: k for k in kernels}
-    for entry in kernels:
-        entry["runs_elsewhere"] = RUNS_ELSEWHERE
     runs = {VGG11X2_RUN: vgg11, VGG11X2_FS_RUN: fs_vgg11}
     for name, zr in zoo_runs.items():
         runs[name] = zr["pcs"]
@@ -3590,6 +3609,7 @@ def run(torch, root):
                              "cards": torch.cuda.device_count(),
                              "functions": mesh_fns, "runs": mesh_results,
                              "device": smi}}))
+    say(json.dumps({"runs_elsewhere": RUNS_ELSEWHERE}))
     say(json.dumps({"kernels": kernels}))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {

@@ -14,16 +14,15 @@ vgg16 at pic_cnt=8 take on the card:
   * the short tiny vgg of tests/test_torch_vgg_fft.py at pic_cnt=2
     (tiny_vgg_fft, random_source(41)), FiatShamirTape(b"vgg-fft-fs"):
     the final state, counter and proof size equal FS_TINY_VGG_FFT_PIN,
-    the port's own (its three-pass proof equals the JAX package's,
-    TINY_VGG_FFT_PIN; a JAX proof of it under FiatShamirTape runs out of
-    memory on a CPU host of 62 GB while XLA compiles);
+    made by the JAX package's own Prover and Verifier too (XLA:CPU's
+    programs released at every layer, as for TINY_VGG_FFT_PIN);
   * the same proof over 4 CPU shards gives the same fingerprint, its
     split phases on the host tape.
 
 About 110 s on one core (the tiny vgg's proof about 40 s, over 4 shards
 about 55 s).  `JAX_PLATFORMS=cpu python -m tests.test_torch_fs_vgg_fft`,
-from the repository root, remakes FS_CCNN_FFT_PIN with the JAX package
-and prints the port's FS_TINY_VGG_FFT_PIN (about 8 minutes in all).
+from the repository root, remakes both pins with the JAX package (about
+5 minutes for the ccnn, 20 for the tiny vgg, on 4 cores).
 """
 
 import pytest
@@ -51,8 +50,8 @@ FS_CCNN_FFT_PIN = {
              "e5214309f246fd60221e3ed76fc4da24132cafafc9def046f45852e78faee322",
     "counter": 157, "proof_size": 12128,
 }
-# the short tiny vgg at pic_cnt=2 under FiatShamirTape(VGG_SEED): the
-# port's own run on the CPU
+# the short tiny vgg at pic_cnt=2 under FiatShamirTape(VGG_SEED): the JAX
+# package's run (python -m tests.test_torch_fs_vgg_fft)
 FS_TINY_VGG_FFT_PIN = {
     "state": "7f8b98647f09a8a9af010a693d050f1eda6624a2086398536101805178974034"
              "112acfe6c15ae0b3ac071ceb94f6fc804da9a3de61c567cbe4de9f223e608b13",
@@ -139,8 +138,9 @@ if __name__ == "__main__":
                        JFiatShamirTape, log=release)
     assert ok
     print("FS_CCNN_FFT_PIN", pin, flush=True)
-    from zkcnn_tpu_torch.nn import models
-    C, vals = tiny_vgg_fft(models, 2).create(random_source(41), device="cpu")
-    ok, pin = fs_proof(C, vals, VGG_SEED, Prover, Verifier, FiatShamirTape)
+    del Cj, vj
+    Cj, vj = tiny_vgg_fft(j_models, 2).create(j_random_source(41))
+    ok, pin = fs_proof(Cj, vj, VGG_SEED, JProver, JVerifier,
+                       JFiatShamirTape, log=release)
     assert ok
     print("FS_TINY_VGG_FFT_PIN", pin, flush=True)

@@ -1,57 +1,69 @@
 #!/usr/bin/env python3
-"""The mesh (zkcnn_tpu_torch/parallel/) over the machine's cards, one
-shard a card.  Two parts, both by default:
+"""The mesh (zkcnn_tpu_torch/parallel/) over the machine's cards, and the
+vgg16 runs that chip_smoke.py leaves out for its clock.  Two parts, both
+by default:
 
-  * lenet: every function of parallel/sharding.py against its unsplit
-    counterpart over 2 and 4 cards, the tiny models' dryrun over the
-    first 4 cards, and LeNet5 pic_cnt=1 (--no-pcs over 4 and over 2
+  * lenet (4 cards): every function of parallel/sharding.py against its
+    unsplit counterpart over 2 and 4 cards, the tiny models' dryrun over
+    the first 4 cards, and LeNet5 pic_cnt=1 (--no-pcs over 4 and over 2
     cards; with the IPA commitment and under FiatShamirTape over 4
     cards), each held to its one-device pin and checked as chip_smoke.py's
     mesh phase checks a run (`mesh_check`: every split operand gathered
     once, the ladders at the shards' shapes, the witness, the gates and
-    the accumulators split), with bytes copied between cards; PT, VT and
-    POLY_PT beside the same process's one-device run;
-  * vgg16: its circuit and witness built and saved through the port's
-    proving tool (cli/prove.py vgg16 --pcs --snapshot --build-only, the
-    kernels compiling beside it), then proven from the snapshot
-    three-pass with the inner-product commitment on card 0 and over 4
-    cards, each to PINNED_VGG16; over the cards mesh_check against the
-    card-0 run (split_check and storage_check: the witness, the gates and
-    the accumulators a quarter a shard, each block in its own storage;
-    Liu's phase at a card's (2^23, 23) only; one g1_msm more a card for
-    the commit, at a quarter of its rows), each card's peak memory by
-    span of verify(), the bytes copied between cards and each shard's
-    resident high-water;
+    the accumulators split, one g1_msm more a card for the commit), with
+    bytes copied between cards; PT, VT and POLY_PT beside the same
+    process's one-device run;
+  * vgg16 (vgg16_cards): its circuit and witness built and saved through
+    the port's proving tool (cli/prove.py vgg16 --pcs --snapshot
+    --build-only, the kernels compiling beside it), then proven from the
+    snapshot three-pass through cli/prove.py with the inner-product
+    commitment on card 0 (chip_smoke.vgg_run: Liu's phase at (2^25, 25),
+    g1_msm at the commit's (4096, 8192), 13 ipa_round) and over 4 shards,
+    shard i on card i % count, each to PINNED_VGG16; over the shards
+    mesh_check against the card-0 run (split_check and storage_check: the
+    witness, the gates and the accumulators a quarter a shard, each block
+    in its own storage; Liu's phase at a shard's (2^23, 23) only; one
+    g1_msm more a shard for the commit, at a quarter of its rows, never
+    the whole matrix), the highest card peak within MESH_PEAK_RATIO of
+    card 0's, each card's peak memory by span of verify(), the bytes
+    copied between cards and each shard's resident high-water; then
+    kernel_checks, the checks chip_smoke.py made at these runs' shapes
+    while it ran them: every round-kernel entry at every shape of both
+    runs against its plain version (round_ladder at (2^25, 25) and (2^23,
+    23) timed), the commit's g1_msm at (4096, 8192) and every other g1_msm
+    shape (the shard's (1024, 8192) among them) against py_mul of the
+    discrete logs, the setup's table of 8192 generators against the plain
+    table, and the 13 rounds of card 0's opening against the plain
+    ipa_round;
   * vgg16x8 (only when asked for: BASELINE.json config 5, vgg16 at
     pic_cnt=8, every convolution an FFT one): the same to
     PINNED_VGG16_PIC8, and besides the 13 DOT_PROD phase 1s at a quarter
-    of their rows, Liu's at a card's (2^24, 24), the FFT, IFFT and
-    DOT_PROD layers' witness as 4 blocks, one a card;
+    of their rows, Liu's at a shard's (2^24, 24), the FFT, IFFT and
+    DOT_PROD layers' witness as 4 blocks, one a shard (the peak ratio
+    printed, not held: card 0 holds the loaded witness whole);
+  * vgg16fs (only when asked for; card 0 alone): the same snapshot as
+    vgg16, proven under FiatShamirTape(b"zkcnn-demo-17") with the
+    inner-product commitment through chip_smoke.fs_main to
+    PINNED_FS_VGG16 (chip_smoke.fs_vgg_run: WS, PS and POLY_PS those of
+    PINNED_VGG16, fold_round as phase calls only, Liu's at (no side,
+    2^25, 25 rounds)); kernel_checks with fold_round_phase at every phase
+    shape of the run, random rows and rows of p - 1;
+  * vgg16x8fs (only when asked for): vgg16x8's snapshot under
+    FiatShamirTape on card 0 to PINNED_FS_VGG16_PIC8 (every DOT_PROD
+    phase 1 a fold_cubic_round phase call, (2^26, 2^7, 26) among them)
+    and over 4 shards to the same pin, with vgg16x8's checks of the split
+    run under the tape's rules (mesh_check with fiat_shamir: the split
+    phases on the host tape, a phase call only for a phase whose operands
+    stayed whole), the phases on the host tape and the phase calls
+    counted; kernel_checks with fold_cubic_round_phase and
+    fold_round_phase at the run's largest cubic and quadratic phase;
   * vgg11 (only when asked for; one card): vgg11 pic_cnt=1 through
     demo_vgg with the inner-product commitment to PINNED_VGG11, as
-    chip_smoke.py ran it before it took vgg11 at pic_cnt=2;
-  * vgg16fs (only when asked for; one card): vgg16 pic_cnt=1's snapshot,
-    built as for vgg16, proven under FiatShamirTape(b"zkcnn-demo-17")
-    with the inner-product commitment to PINNED_FS_VGG16 (chip_smoke.py's
-    fs_vgg_run: WS, PS and POLY_PS those of PINNED_VGG16, fold_round as
-    phase calls only, Liu's at (no side, 2^25, 25 rounds)), then
-    fold_round_phase at every phase shape of the run against its plain
-    version, random rows and rows of p - 1, each timed beside its bound,
-    as chip_smoke.py did before it took vgg11 pic_cnt=2 under
-    Fiat-Shamir;
-  * vgg16x8fs (only when asked for): vgg16 pic_cnt=8's snapshot, built as
-    for vgg16x8, proven under FiatShamirTape on card 0 to
-    PINNED_FS_VGG16_PIC8 (WS, PS and POLY_PS those of PINNED_VGG16_PIC8;
-    every DOT_PROD phase 1 a fold_cubic_round phase call, (2^26, 2^7, 26)
-    among them) and over 4 cards to the same pin (mesh_check with
-    fiat_shamir: the split phases on the host tape, a phase call only for
-    a phase whose operands stayed whole), with the phases on the host
-    tape and the phase calls counted, the bytes between cards and each
-    card's peak memory by span of verify(); then fold_cubic_round_phase
-    and fold_round_phase at the run's largest cubic and quadratic phase
-    against their plain versions, random rows and rows of p - 1.
+    chip_smoke.py ran it before it took vgg11 at pic_cnt=2.
 
-The mesh parts need 4 CUDA cards; run from the repository root:
+The lenet part needs 4 CUDA cards; the vgg16 modes run their 4 shards on
+whatever cards there are (on one card, all four on it).  Run from the
+repository root:
 
     python3 tools/h100_mesh_cards.py
         [--only lenet|vgg16|vgg16x8|vgg11|vgg16fs|vgg16x8fs]
@@ -62,6 +74,7 @@ The snapshots (about 12 GB for vgg16, 30 GB for vgg16 pic_cnt=8, under
 """
 
 import json
+import multiprocessing
 import os
 import random
 import sys
@@ -139,162 +152,251 @@ def vgg16_snapshot(cs, pic_cnt):
     return snap, built
 
 
-def vgg16_cards(torch, cs, smi, out, failed, pic_cnt):
-    """vgg16 at pic_cnt pictures from a snapshot on card 0, then over 4
-    cards (module docstring): PINNED_VGG16 at pic_cnt=1, PINNED_VGG16_PIC8
-    at pic_cnt=8."""
+VGG16_MODES = {"vgg16": (1, False), "vgg16x8": (8, False),
+               "vgg16fs": (1, True), "vgg16x8fs": (8, True)}
+# how far above the card-0 run's a card's peak may go over the mesh at one
+# picture, where the 4 shards may share a card (the blocks are the same
+# bytes; on an H100, vgg16 over 4 shards on one card peaked at 0.87-0.88x
+# the one-device run).
+# At pic_cnt=8 the loaded witness stays whole on card 0 until the prover
+# splits it, so there the ratio is printed, not held.
+MESH_PEAK_RATIO = 1.15
+
+
+def vgg16_cards(torch, cs, smi, out, failed, pic_cnt, fiat_shamir=False,
+                split=True):
+    """vgg16 at pic_cnt pictures from a snapshot on card 0, then (split)
+    over 4 shards, shard i on card i % count (module docstring):
+    three-pass through cli/prove.py to PINNED_VGG16 or PINNED_VGG16_PIC8,
+    or under FiatShamirTape through chip_smoke.fs_main to PINNED_FS_VGG16
+    or PINNED_FS_VGG16_PIC8; then the kernels at the runs' shapes against
+    their plain versions (kernel_checks)."""
     from zkcnn_tpu_torch.circuit import LayerType
     from zkcnn_tpu_torch.cli import prove
-    from zkcnn_tpu_torch.parallel import make_mesh
     name, pin_name = vgg16_names(pic_cnt)
-    snap, built = vgg16_snapshot(cs, pic_cnt)
-    argv = ["vgg16", "--pic-cnt", str(pic_cnt), "--pcs", "--snapshot", snap]
     pin = getattr(cs, pin_name)
-    want = (pin["WS"], pin["PS"], pin["POLY_PS"], pin["digest"])
+    snap, built = vgg16_snapshot(cs, pic_cnt)
+    argv = ["vgg16", "--pic-cnt", str(pic_cnt), "--snapshot", snap]
+    must = ("fold_ladder", "g1_msm_table", "g1_msm", "ipa_round")
+    if fiat_shamir:
+        pin_name = pin_name.replace("PINNED_", "PINNED_FS_")
+        fs_pin = getattr(cs, pin_name)
+        want = (pin["WS"], pin["PS"], pin["POLY_PS"],
+                "/".join(map(str, fs_pin)))
+        entry, spans = cs.fs_main, cs.fs_spans()
+        run = f"{name} under FiatShamirTape with the commitment"
+        must += ("fold_round",)
+        never = ("round_ladder", "cubic_ladder") + cs.FOLD_KERNELS
+        fft = ("fold_cubic_round",)
+    else:
+        want = (pin["WS"], pin["PS"], pin["POLY_PS"], pin["digest"])
+        entry, spans = prove.main, cs.vgg_spans()
+        argv.append("--pcs")
+        run = f"{name} with the commitment"
+        must += ("round_ladder",)
+        never = cs.PER_ROUND + cs.FOLD_KERNELS
+        fft = ("cubic_ladder",)
     # above one picture every convolution is an FFT one: its DOT_PROD
-    # phase 1 runs cubic_ladder
-    fft = ("cubic_ladder",)
-    must = ("round_ladder", "fold_ladder", "g1_msm", "ipa_round") + \
-        (fft if pic_cnt > 1 else ())
-    never = cs.PER_ROUND + cs.FOLD_KERNELS + (() if pic_cnt > 1 else fft)
-    key1 = f"{name} with the commitment on card 0"
-    key = f"{name} with the commitment over 4 cards"
+    # phase 1 runs the cubic kernel
+    must += fft if pic_cnt > 1 else ()
+    never += () if pic_cnt > 1 else fft
+    mesh = cs.mesh_on_cards(torch, 4)
+    cards = len(set(map(str, mesh.devices)))
+    key1 = f"{run} on card 0"
+    key = f"{run} over 4 shards on {cards} card{'s' * (cards > 1)}"
+    runs = {}
     try:
-        one = cs.run_entry(torch, prove.main, argv, key1, smi,
-                           spans=cs.vgg_spans())
-        cs.check_run(one, want, must=must, never=never)
-        pcs = one.pop("committed")["pcs"]
-        one.pop("seen")
-        cs.say(f"{key1}: {pin_name} held; "
-               + json.dumps({k: one["summary"][k] for k in (
-                   "pt_s", "vt_s", "vt_slow_s", "poly_pt_s", "witness_s",
-                   "wall_s", "peak_gib", "peak_gib_by_span",
-                   "seconds_by_span")}))
+        if fiat_shamir:
+            one = cs.fs_vgg_run(torch, argv, key1, pin, fs_pin, smi,
+                                cubic=(cs.FS_VGG_CUBIC,) if pic_cnt > 1
+                                else ())
+        else:
+            one = cs.vgg_run(torch, "vgg16", pin, smi, prove.main, argv,
+                             pic_cnt)
+        cs.say(f"{key1}: {pin_name} held; " + json.dumps(
+            {k: v for k, v in one["summary"].items() if k in (
+                "pt_s", "vt_s", "vt_slow_s", "poly_pt_s", "poly_vt_s",
+                "witness_s", "hash_to_curve_s", "wall_s", "peak_gib",
+                "peak_gib_by_span", "seconds_by_span")}))
         out[key1] = {**one["summary"], "shapes": one["shapes"],
                      "snapshot_bytes": built["snapshot"]["bytes"],
                      "build_s": built["witness_s"]
                      - built["snapshot"]["save_s"]}
-        cubic = one["shapes"]["cubic_ladder"]
-        mesh = make_mesh(4)
-        peaks, undo = card_spans(torch, cs.vgg_spans(), mesh.devices)
-        try:
-            for d in mesh.devices:
-                torch.cuda.reset_peak_memory_stats(d)
-            r = cs.mesh_entry(torch, prove.main, argv, key, smi, mesh)
-        finally:
-            undo()
-        cs.check_run(r, want, must=must, never=never)
-        cs.mesh_check(r, one, 4, split=(pcs.logn,), cubic=cubic, commits=3)
-        r.pop("committed")
-        r.pop("seen")
-        if (pcs.n_rows // 4, pcs.n_cols) not in r["shapes"]["g1_msm"]:
-            raise AssertionError(f"{key}: the commit not a quarter of its "
-                                 f"rows a card: g1_msm shapes "
-                                 f"{r['shapes']['g1_msm']}")
-        # the FFT path's layers: each one's witness as one block a card
-        kinds = (LayerType.FFT, LayerType.IFFT, LayerType.DOT_PROD)
-        fft_blocks = sorted((lid, rows, n) for lid, rows, n, _ in
-                            r["split"]["val"]
-                            if r["split"]["kinds"][lid] in kinds)
-        convs = sum(k == LayerType.DOT_PROD
-                    for k in r["split"]["kinds"].values())
-        if convs != (13 if pic_cnt > 1 else 0) or \
-                len(fft_blocks) != 3 * convs or \
-                any(n != 4 for _, _, n in fft_blocks):
-            raise AssertionError(f"{key}: the FFT path's layers held as "
-                                 f"{fft_blocks}")
-        if not r["mesh"]["peer_bytes"]:
-            raise AssertionError(f"{key}: nothing moved between cards")
-        by_card = {d: {k: v / 2 ** 30 for k, v in p.items()}
-                   for d, p in peaks.items()}
-        line = cs.mesh_line(key, r, one["summary"], smi)
-        cs.say(f"{key}: {pin_name} held; the DOT_PROD phase 1s at "
-               f"{r['shapes']['cubic_ladder']} (one card {cubic}); the FFT "
-               f"path's {len(fft_blocks)} layers as 4 blocks each; peak GiB "
-               f"by span of verify() a card: {json.dumps(by_card)} ({smi})")
-        out[key] = {**line, "peak_gib_by_span_a_card": by_card,
-                    "shapes": r["shapes"], "fft_path_blocks": fft_blocks}
-    except Exception as e:
-        traceback.print_exc()
-        cs.say(f"FAILED {key}: {e!r}"[:3000])
-        failed.append(key)
-    os.remove(snap)
-
-
-def vgg16_fs_cards(torch, cs, smi, out, failed, pic_cnt):
-    """vgg16 at pic_cnt pictures under FiatShamirTape from a snapshot
-    (module docstring): on card 0 to PINNED_FS_VGG16 (pic_cnt=1) or
-    PINNED_FS_VGG16_PIC8, at pic_cnt=8 then over 4 cards to the same
-    pin; then the phase calls against their plain versions."""
-    from zkcnn_tpu_torch.field import round_kernels as rk
-    from zkcnn_tpu_torch.parallel import make_mesh
-    name, pin_name = vgg16_names(pic_cnt)
-    fs_name = "PINNED_FS_VGG16" + ("" if pic_cnt == 1 else
-                                   f"_PIC{pic_cnt}")
-    pin, fs_pin = getattr(cs, pin_name), getattr(cs, fs_name)
-    snap, built = vgg16_snapshot(cs, pic_cnt)
-    argv = ["vgg16", "--pic-cnt", str(pic_cnt), "--snapshot", snap]
-    run = f"{name} under FiatShamirTape with the commitment"
-    key1 = run if pic_cnt == 1 else f"{run} on card 0"
-    key = f"{run} over 4 cards"
-    try:
-        one = cs.fs_vgg_run(torch, argv, key1, pin, fs_pin, smi,
-                            cubic=(cs.FS_VGG_CUBIC,) if pic_cnt > 1 else ())
-        cs.say(f"{key1}: {fs_name} held; " + json.dumps(
-            {k: one["summary"][k] for k in (
-                "pt_s", "vt_s", "poly_pt_s", "poly_vt_s", "witness_s",
-                "hash_to_curve_s", "wall_s", "peak_gib", "peak_gib_by_span",
-                "seconds_by_span")}))
-        out[key1] = {**one["summary"],
-                     "snapshot_bytes": built["snapshot"]["bytes"],
-                     "build_s": built["witness_s"]
-                     - built["snapshot"]["save_s"]}
-        if pic_cnt > 1:
-            mesh = make_mesh(4)
-            peaks, undo = card_spans(torch, cs.fs_spans(), mesh.devices)
+        runs[key1] = one
+        if split:
+            devices = list(dict.fromkeys(mesh.devices))
+            peaks, undo = card_spans(torch, spans, devices)
             try:
-                for d in mesh.devices:
+                for d in devices:
                     torch.cuda.reset_peak_memory_stats(d)
-                r = cs.mesh_entry(torch, cs.fs_main, argv, key, smi, mesh)
+                r = cs.mesh_entry(torch, entry, argv, key, smi, mesh)
             finally:
                 undo()
-            cs.check_run(r, (pin["WS"], pin["PS"], pin["POLY_PS"],
-                             "/".join(map(str, fs_pin))),
-                         must=("fold_round", "fold_cubic_round",
-                               "fold_ladder", "g1_msm_table", "g1_msm",
-                               "ipa_round"),
-                         never=("round_ladder", "cubic_ladder")
-                         + cs.FOLD_KERNELS)
+            cs.check_run(r, want, must=must, never=never)
             pcs = r.pop("committed")["pcs"]
             r.pop("seen")
-            cs.mesh_check(r, one, 4, split=(pcs.logn,), fiat_shamir=True)
-            if not r["mesh"]["peer_bytes"]:
+            cs.mesh_check(r, one, 4, split=(pcs.logn,),
+                          cubic=one["shapes"]["cubic_ladder"], commits=3,
+                          fiat_shamir=fiat_shamir)
+            # the commit a quarter of its rows a shard, never the whole
+            # matrix
+            commits = r["shapes"]["g1_msm"]
+            if (pcs.n_rows // 4, pcs.n_cols) not in commits or \
+                    (pcs.n_rows, pcs.n_cols) in commits:
+                raise AssertionError(f"{key}: the commit not a quarter of "
+                                     f"its rows a shard: g1_msm shapes "
+                                     f"{commits}")
+            # the FFT path's layers: each one's witness as one block a shard
+            kinds = (LayerType.FFT, LayerType.IFFT, LayerType.DOT_PROD)
+            fft_blocks = sorted((lid, rows, n) for lid, rows, n, _ in
+                                r["split"]["val"]
+                                if r["split"]["kinds"][lid] in kinds)
+            convs = sum(k == LayerType.DOT_PROD
+                        for k in r["split"]["kinds"].values())
+            if convs != (13 if pic_cnt > 1 else 0) or \
+                    len(fft_blocks) != 3 * convs or \
+                    any(n != 4 for _, _, n in fft_blocks):
+                raise AssertionError(f"{key}: the FFT path's layers held as "
+                                     f"{fft_blocks}")
+            if cards > 1 and not r["mesh"]["peer_bytes"]:
                 raise AssertionError(f"{key}: nothing moved between cards")
+            worst = max([r["peak"]] + [v for p in peaks.values()
+                                       for v in p.values()])
+            ratio = worst / one["peak"]
+            if pic_cnt == 1 and ratio > MESH_PEAK_RATIO:
+                raise AssertionError(f"{key}: a card's peak {worst} bytes, "
+                                     f"over {MESH_PEAK_RATIO} x card 0's "
+                                     f"{one['peak']}")
             by_card = {d: {k: v / 2 ** 30 for k, v in p.items()}
                        for d, p in peaks.items()}
             line = cs.mesh_line(key, r, one["summary"], smi)
             c = r["mesh"]
-            cs.say(f"{key}: {fs_name} held; {c['host_tape_phases']} phases "
-                   f"on the host tape, {c['device_tape_phases']} phase calls "
-                   f"on a card ({r['phase_shapes']}), {c['peer_bytes']} "
-                   f"bytes between cards; peak GiB by span of verify() a "
-                   f"card: {json.dumps(by_card)} ({smi})")
+            cs.say(f"{key}: {pin_name} held; "
+                   + (f"{c['host_tape_phases']} phases on the host tape, "
+                      f"{c['device_tape_phases']} phase calls on a card "
+                      f"({r['phase_shapes']})" if fiat_shamir else
+                      f"the DOT_PROD phase 1s at "
+                      f"{r['shapes']['cubic_ladder']} (card 0 "
+                      f"{one['shapes']['cubic_ladder']})")
+                   + f"; the FFT path's {len(fft_blocks)} layers as 4 "
+                   f"blocks each; {c['peer_bytes']} bytes between cards; "
+                   f"the highest card peak {ratio:.3f} x card 0's; peak GiB "
+                   f"by span of verify() a card: {json.dumps(by_card)} "
+                   f"({smi})")
             out[key] = {**line, "peak_gib_by_span_a_card": by_card,
-                        "shapes": r["shapes"],
-                        "phase_shapes": r["phase_shapes"]}
-            del r
-        # the proofs' tensors freed: the plain versions (at pic_cnt=8 the
-        # DOT_PROD phase 1 at 2^26 rows alone needs over 30 GiB)
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(17)
-        out[key1]["phase_checks"] = cs.fs_phase_checks(
-            torch, rk, one, gen, random.Random(17), smi,
-            pm1_everywhere=pic_cnt == 1, largest_only=pic_cnt > 1)
+                        "peak_ratio": ratio, "shapes": r["shapes"],
+                        "phase_shapes": r["phase_shapes"],
+                        "fft_path_blocks": fft_blocks}
+            runs[key] = r
+        out[key1]["kernel_checks"] = kernel_checks(torch, cs, smi, runs,
+                                                   pic_cnt, fiat_shamir)
     except Exception as e:
         traceback.print_exc()
         cs.say(f"FAILED {key1}: {e!r}"[:3000])
         failed.append(key1)
     os.remove(snap)
+
+
+def kernel_checks(torch, cs, smi, runs, pic_cnt, fiat_shamir):
+    """chip_smoke.py's phase 6 at the shapes of this mode's runs (card 0's
+    first), after the proofs: every round-kernel entry at every shape a
+    run launched it at against its plain version, exact on random rows,
+    each run's largest shape of each entry timed beside its plain version
+    and bound (round_ladder's: Liu's phase, on card 0 the whole side, over
+    the mesh a shard's); under Fiat-Shamir the phase calls at card 0's
+    phase shapes (fs_phase_checks: at one picture every shape on random
+    rows and rows of p - 1, at eight the largest of each); g1_msm at every
+    shape against py_mul of the discrete logs (card 0's three-pass commit
+    on its own operands, commit_check; every other shape on random
+    scalars, g1_log_check), each timed beside its bound; the setup's table
+    of the generators and every other table shape of the runs (on random
+    bases) against one call of the plain version, entry by entry; every
+    round of card 0's opening against its plain version word for word
+    (opening_rounds_check).  Returns the measurements."""
+    from zkcnn_tpu_torch.field import FR, round_kernels as rk
+    from zkcnn_tpu_torch.gkr import Tape
+    from zkcnn_tpu_torch.pcs import curve, ipa, msm as msm_mod
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    rng = random.Random(17)
+    one = next(iter(runs.values()))
+    got = {}
+    for key, r in runs.items():
+        for name in cs.LADDERS + cs.PER_ROUND:
+            shapes = sorted(r["shapes"][name], reverse=True)
+            for shape in shapes:
+                e, kern, plain = cs.compare(torch, rk, name, shape, gen, rng)
+                if shape == shapes[0]:
+                    b_ms, b_by = cs.bound(name, shape)
+                    got[f"{name} ({key})"] = {
+                        "shape": list(shape), "max_abs_err": e,
+                        "ms": cs.time_ms(torch, kern, 5),
+                        "plain_ms": plain.ms, "bound_ms": b_ms,
+                        "bound_by": b_by}
+                del kern, plain
+            if shapes:
+                g = got[f"{name} ({key})"]
+                cs.say(f"{name} at its {len(shapes)} shapes of {key}: "
+                       f"equal to its plain version; at {shapes[0]} kernel "
+                       f"{g['ms']:.4f} ms, plain {g['plain_ms']:.4f} ms, "
+                       f"bound {g['bound_ms']:.6f} ms by {g['bound_by']} "
+                       f"({smi})")
+    if fiat_shamir:
+        got.update(cs.fs_phase_checks(torch, rk, one, gen, rng, smi,
+                                      pm1_everywhere=pic_cnt == 1,
+                                      largest_only=pic_cnt > 1))
+    covered = set()
+    if not fiat_shamir:
+        c = one["committed"]
+        got["g1_msm commit"] = cs.commit_check(torch, curve, msm_mod, FR,
+                                               Tape, c, one["run"], smi)
+        covered.add(c["shape"])
+    msms = sorted(set().union(*(r["shapes"]["g1_msm"]
+                                for r in runs.values())) - covered)
+    for shape in msms:
+        scalars, kern = cs.g1_log_check(torch, curve, msm_mod, FR, "g1_msm",
+                                        shape, gen)
+        b_ms, b_by = cs.g1_bound(torch, curve, "g1_msm", shape, scalars)
+        got[f"g1_msm {shape}"] = {"shape": list(shape),
+                                  "ms": cs.time_ms(torch, kern, 3),
+                                  "bound_ms": b_ms, "bound_by": b_by}
+        cs.say(f"g1_msm at {shape}: equal to py_mul of the discrete logs; "
+               f"kernel {got[f'g1_msm {shape}']['ms']:.4f} ms, bound "
+               f"{b_ms:.6f} ms by {b_by} ({smi})")
+        del scalars, kern
+    gens = one["committed"]["gens"]
+    tables = sorted(set().union(*(r["shapes"]["g1_msm_table"]
+                                  for r in runs.values()))
+                    - {(gens.shape[0], curve.NWIN)})
+    extra = [curve.scalar_mul(curve.base_point("cuda"),
+                              cs.rand_fe(torch, n, gen)) for n, _ in tables]
+    bases = torch.cat([gens] + extra)
+    pms, want = cs.time_once_ms(torch,
+                                lambda: msm_mod.msm_table_plain(bases))
+    cs.same_points(msm_mod, curve.table_kernel(gens), want[:gens.shape[0]],
+                   f"g1_msm_table at {(gens.shape[0], curve.NWIN)} (the "
+                   f"setup's of {one['run']})")
+    at = gens.shape[0]
+    for (n, w), pts in zip(tables, extra):
+        cs.same_points(msm_mod, curve.table_kernel(pts, w),
+                       want[at:at + n, :w], f"g1_msm_table at {(n, w)}")
+        at += n
+    shape = (gens.shape[0], curve.NWIN)
+    b_ms, b_by = cs.table_bound(shape)
+    got["g1_msm_table"] = {
+        "shape": list(shape), "max_abs_err": 0,
+        "ms": cs.time_ms(torch, lambda: curve.table_kernel(gens), 5),
+        "plain_ms": pms, "plain_bases": bases.shape[0], "bound_ms": b_ms,
+        "bound_by": b_by, "other_shapes": tables}
+    cs.say(f"g1_msm_table at {shape} (the setup's of {one['run']}) and at "
+           f"{tables}: equal to the plain version entry by entry; kernel "
+           f"{got['g1_msm_table']['ms']:.4f} ms, plain {pms:.4f} ms (one "
+           f"call on all {bases.shape[0]} bases), bound {b_ms:.6f} ms by "
+           f"{b_by} ({smi})")
+    del want, bases, extra
+    got["ipa_round"] = cs.opening_rounds_check(torch, ipa, one["seen"],
+                                               one["run"], smi)
+    return got
 
 
 def vgg11_card(torch, cs, smi, out, failed):
@@ -325,26 +427,27 @@ def main():
     args = ap.parse_args()
     smi = cs.smi_line()
     out, failed = {}, []
+    n = torch.cuda.device_count()
     if args.only == "vgg11":
         vgg11_card(torch, cs, smi, out, failed)
         return finish(cs, out, failed)
-    if args.only == "vgg16fs":
-        vgg16_fs_cards(torch, cs, smi, out, failed, 1)
-        return finish(cs, out, failed)
-    if torch.cuda.device_count() < 4:
-        sys.exit("h100_mesh_cards: 4 CUDA cards needed, "
-                 f"{torch.cuda.device_count()} present")
-    n = torch.cuda.device_count()
-    if args.only == "vgg16x8fs":
-        cs.say(f"cards {n}; {smi}")
-        vgg16_fs_cards(torch, cs, smi, out, failed, 8)
-        return finish(cs, out, failed)
+    if args.only in (None, "lenet") and n < 4:
+        sys.exit(f"h100_mesh_cards: 4 CUDA cards needed, {n} present")
     if args.only != "lenet":
+        # (pictures, Fiat-Shamir) of each vgg16 mode, vgg16 by default;
+        # the py_mul references of kernel_checks on the host's other cores
+        pic_cnt, fs = VGG16_MODES[args.only or "vgg16"]
         cs.say(f"cards {n}; {smi}")
-        vgg16_cards(torch, cs, smi, out, failed,
-                    8 if args.only == "vgg16x8" else 1)
-    if args.only in ("vgg16", "vgg16x8"):
-        return finish(cs, out, failed)
+        workers = max(1, (os.cpu_count() or 2) - 1)
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            cs.HOST_POOL.append(pool)
+            try:
+                vgg16_cards(torch, cs, smi, out, failed, pic_cnt, fs,
+                            split=args.only != "vgg16fs")
+            finally:
+                cs.HOST_POOL.clear()
+        if args.only:
+            return finish(cs, out, failed)
     t0 = time.time()
     cuda_build.build()
     cs.say(f"build {time.time() - t0:.1f}s; cards {n}; {smi}")
@@ -380,7 +483,7 @@ def main():
                 r = cs.mesh_entry(torch, fn, run_argv, key, smi, make_mesh(D))
                 cs.check_run(r, want)
                 checks = dict(how)
-                if "commitment" in run and "Fiat" not in run:
+                if "--no-pcs" not in run:
                     checks["commits"] = D - 1
                 cs.mesh_check(r, one, D, **checks)
                 if not r["mesh"]["peer_bytes"]:
