@@ -44,20 +44,24 @@ Phases; any failure raises and the script exits non-zero:
      products in each form, whose latency it prints; the table's two
      stages apart (zk_g1_table_chain, zk_g1_table_digits) at LeNet's table
      shapes: the chain on lane groups word for word equal to the one-thread
-     chain, chain and digits equal to the table word for word, each timed
-     beside its bound; the curve
-     kernels (g1_add, g1_scalar_mul, g1_msm_table, g1_msm) against
-     their plain versions on the card, as group elements, and against
-     Python integers on the host: the four edge cases of the addition,
-     n = 1, 2, 3, 1554 and 2^18; scalars 0, 1, p - 1 and one with bit
-     254 set at 255 bits against py_mul, random ones at 16 and 32 bits
-     against py_mul of the points' discrete logs at n = 1, 2, 3, 512 and
-     at PLAIN_BITS = 8 bits against the plain version (n = 1 and 512), a
-     shared point (the table route) and a shared scalar; (R, N) = (1, 1),
-     (3, 5), (2, 512) and (3, 130) (a row of several blocks, the last one
-     partly filled) with a repeated base for the MSM on its table (py_mul
-     at full-size and 32-bit scalars, the plain version at 8-bit ones at
-     (2, 512) and (3, 130)); the plain scalar multiplication and MSM run
+     chain, chain, digits and the entries to Z = 1 (g1_table_affine)
+     equal to the table word for word, each timed beside its bound; the
+     curve kernels (g1_add, g1_scalar_mul, g1_msm_table, g1_table_affine,
+     g1_msm) against their plain versions on the card, as group elements
+     (g1_table_affine word for word), and against Python integers on the
+     host: the four edge cases of the addition, n = 1, 2, 3, 1554 and
+     2^18; scalars 0, 1, p - 1 and one with bit 254 set at 255 bits
+     against py_mul, random ones at 16 and 32 bits against py_mul of the
+     points' discrete logs at n = 1, 2, 3, 512 (the plain version at
+     PLAIN_BITS = 8 bits runs in tools/h100_mesh_cards.py), a shared point
+     (the table route) and a shared scalar; (R, N) = (1, 1), (3, 5),
+     (2, 512) and (3, 130) (a row of several warps, the last one partly
+     filled) with a repeated base, an infinite base and the scalars
+     (r - 1)/2, (r + 1)/2, r - 1 and small negative values, where the
+     term's sign turns, for the MSM on its table (py_mul at full-size and
+     32-bit scalars, the plain version at 8-bit ones at (2, 512) and
+     (3, 130)), and the table's normalisation at (5, 2) with a repeated
+     and an infinite base; the plain scalar multiplication and MSM run
      a chain of launches a bit, about 0.3 s a bit whatever the shape, and
      py_mul runs on a pool of host processes (g_muls); a round of the
      inner-product opening
@@ -195,7 +199,9 @@ Phases; any failure raises and the script exits non-zero:
      g1_scalar_mul and g1_msm at every shape on full-size scalars against
      py_mul of the points' discrete logs, and at the largest against the
      plain version on PLAIN_BITS-bit scalars, whose times are the entry's
-     ms_few_bits and plain_ms_few_bits, its plain_ms null), timed with
+     ms_few_bits and plain_ms_few_bits, its plain_ms null;
+     g1_table_affine word for word on random bases, a repeated and an
+     infinite one among them), timed with
      CUDA events (g1_msm with and without building its table), with the
      least time the card could take for the same work beside it;
      fold_round's and fold_cubic_round's phase calls at every phase
@@ -428,6 +434,9 @@ G1_SOURCE = "zkcnn_tpu_torch/csrc/g1_kernels.cu"
 G1_REPLACES = {"g1_add": "zkcnn_tpu/pcs/curve.py:81",         # and pdouble :58
                "g1_scalar_mul": "zkcnn_tpu/pcs/curve.py:147",
                "g1_msm_table": "zkcnn_tpu/pcs/msm.py:100",   # from :269
+               # the table's entries to Z = 1: replaces no JAX function
+               "g1_table_affine": "none: added beside "
+                                  "zkcnn_tpu/pcs/msm.py:100",
                "g1_msm": "zkcnn_tpu/pcs/msm.py:271",  # ipa._msm_small :45
                # the opening's round: folds of b and x (:52), the dots
                # (:94) and the fold of G (:62), whose work the weights
@@ -472,6 +481,10 @@ DOUBLE_PRODUCTS = 7
 ADD_PRODUCTS = 16
 MIXED_ADD_PRODUCTS = 11
 POINT_BYTES = 144
+# a table entry to Z = 1: 3 products of the batch inversion, 4 for x and
+# y; one inversion, a^(p - 2), is 380 squarings and 228 products
+AFFINE_PRODUCTS = 7
+INVERSION_PRODUCTS = 608
 # rows of an MSM's scalars whose digits g1_bound counts at a time
 MSM_BOUND_ROWS = 256
 # the runs that the `launches`, shapes and times of an entry come from
@@ -1034,7 +1047,10 @@ def g1_bound(torch, curve, name, shape, scalars):
     one) and whose digit multiples and normalisation are not counted;
     then every nonzero digit is one addition of a table entry (11
     products), less one for each output, whose first entry is a copy.
-    The row sums of an MSM are among those additions."""
+    The row sums of an MSM are among those additions.  The shared-base
+    kernels take each term's sign (r - k where k > (r - 1)/2, its entries
+    negated for free), so their digits are those of min(k, r - k)
+    (`signed_scalars`), of the scalar cut to its nbits bits."""
     def digit_counts(k, nbits):
         """(bit lengths, nonzero 4-bit digits) of each plain scalar."""
         bits = curve.scalar_bits(k, nbits)
@@ -1054,7 +1070,8 @@ def g1_bound(torch, curve, name, shape, scalars):
         R, N = shape
         longest, adds = None, 0
         for s in range(0, R, MSM_BOUND_ROWS):
-            top, nonzero = digit_counts(scalars[s:s + MSM_BOUND_ROWS], 255)
+            top, nonzero = digit_counts(signed_scalars(
+                torch, scalars[s:s + MSM_BOUND_ROWS]), 255)
             top = top.amax(0)
             longest = top if longest is None else torch.maximum(longest,
                                                                 top)
@@ -1064,6 +1081,8 @@ def g1_bound(torch, curve, name, shape, scalars):
         nbytes = N * POINT_BYTES + R * N * 32 + R * POINT_BYTES
     else:
         nbits = shape[1]
+        if shape[2] == "point":
+            scalars = signed_scalars(torch, scalars, nbits)
         top, nonzero = digit_counts(scalars, nbits)
         adds = (nonzero - 1).clamp(min=0).sum().item()
         if shape[2] == "point":
@@ -1074,6 +1093,54 @@ def g1_bound(torch, curve, name, shape, scalars):
             add_products = ADD_PRODUCTS
         nbytes = shape[0] * (2 * POINT_BYTES + 32)
         products = DOUBLE_PRODUCTS * doublings + add_products * adds
+    by_bytes = nbytes / MEM_BYTES_S * 1e3
+    by_ops = products * FP_MULS / INT32_MULS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def signed_scalars(torch, k, nbits: int = 256):
+    """Plain scalar words [..., 8] (on any device) cut to their low nbits
+    bits, then as g1_msm takes them: r - k where (r - 1)/2 < k < r, else
+    k."""
+    w = k.to(torch.int64) & 0xFFFFFFFF
+    lo = torch.arange(8, device=w.device) * 32
+    keep = ((1 << (nbits - lo).clamp(0, 32)) - 1)
+    w = w & keep
+
+    def above(c):
+        """w > c, for the integer c, word by word from the top."""
+        gt = torch.zeros(w.shape[:-1], dtype=torch.bool, device=w.device)
+        eq = torch.ones_like(gt)
+        for j in range(7, -1, -1):
+            cj = (c >> (32 * j)) & 0xFFFFFFFF
+            gt |= eq & (w[..., j] > cj)
+            eq &= w[..., j] == cj
+        return gt, eq
+
+    half, _ = above((FR_P - 1) // 2)
+    ge_r, eq_r = above(FR_P - 1)              # w > r - 1: w >= r
+    flip = half & ~ge_r
+    r_words = torch.tensor([(FR_P >> (32 * j)) & 0xFFFFFFFF
+                            for j in range(8)], device=w.device)
+    neg, borrow = torch.empty_like(w), torch.zeros_like(w[..., 0])
+    for j in range(8):                        # r - w, word by word
+        d = r_words[j] - w[..., j] - borrow
+        borrow = (d < 0).to(torch.int64)
+        neg[..., j] = d + (borrow << 32)
+    out = torch.where(flip[..., None], neg, w)
+    return (out - ((out >> 31) << 32)).to(torch.int32)
+
+
+def affine_bound(shape):
+    """(bound_ms, bound_by) of g1_table_affine at (N, nwin): its N nwin 15
+    entries read and written once (144 bytes each way) against 7 Fp
+    products an entry and one inversion for the whole table (Montgomery's
+    batch inversion over all of it)."""
+    N, nwin = shape
+    entries = N * nwin * 15
+    nbytes = 2 * POINT_BYTES * entries
+    products = AFFINE_PRODUCTS * entries + INVERSION_PRODUCTS
     by_bytes = nbytes / MEM_BYTES_S * 1e3
     by_ops = products * FP_MULS / INT32_MULS_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
@@ -1189,11 +1256,11 @@ def table_sweep(torch, curve, gen, smi):
     """g1_msm_table's stages apart at TABLE_SHAPES: the chain
     (zk_g1_table_chain) on lane groups and in one thread a base, the lane
     chain's entries d = 1, 2, 4, 8 word for word equal to the one-thread
-    chain's; the digits (zk_g1_table_digits) on the lane chain, which then
-    equals the whole table (zk_g1_msm_table) word for word; each timed
-    beside its bound, and the whole table.  Raises on a mismatch; returns
-    {shape: {"chain": ms, "thread_chain": ms, "digits": ms, "table":
-    ms}}."""
+    chain's; the digits (zk_g1_table_digits) on the lane chain, then its
+    entries to Z = 1 (g1_table_affine), which then equals the whole table
+    (`curve.table_kernel`) word for word; each timed beside its bound, and
+    the whole table.  Raises on a mismatch; returns {shape: {"chain": ms,
+    "thread_chain": ms, "digits": ms, "table": ms}}."""
     lib = curve.g1_lib()
     base = curve.base_point("cuda")
     lanes, per_base = table_lanes(curve)
@@ -1222,6 +1289,7 @@ def table_sweep(torch, curve, gen, smi):
             tab.device, lib.zk_g1_table_digits, tab.data_ptr(), N, nwin,
             stream)
         run()
+        curve.table_affine_kernel(tab)
         if not torch.equal(tab, whole):
             raise AssertionError(f"chain and digits apart differ from "
                                  f"g1_msm_table at {(N, nwin)}")
@@ -1242,6 +1310,44 @@ def table_sweep(torch, curve, gen, smi):
         f"word for word, and chain plus digits the table, at "
         f"{list(TABLE_SHAPES)}")
     return out
+
+
+def raw_table(torch, curve, pts, nwin):
+    """The Jacobian table of CUDA points [N, 3, 12] (zk_g1_msm_table
+    alone, before its entries go to Z = 1)."""
+    import ctypes
+    tab = torch.empty((pts.shape[0], nwin, curve.WTAB, 3, 12),
+                      dtype=torch.int32, device=pts.device)
+    n = ctypes.c_int(0)
+    curve.launch(pts.device, curve.g1_lib().zk_g1_msm_table, pts.data_ptr(),
+                 tab.data_ptr(), pts.shape[0], nwin,
+                 curve.stream_of(pts.device), ctypes.byref(n))
+    return tab
+
+
+def affine_check(torch, curve, msm_mod, shape, gen, time=False):
+    """g1_table_affine at (N, nwin) on the Jacobian table of random bases
+    (from N = 3 on, base 1 repeats base 0 and base 2 is infinity) against
+    its plain version, word for word; raises on a mismatch.  Returns the
+    largest word difference (0), and with `time` the kernel's ms (on the
+    normalised table: the same work) and the plain version's (one call)."""
+    N, nwin = shape
+    logs = rand_fe(torch, N, gen)
+    if N >= 3:
+        logs[1] = logs[0]
+        logs[2] = 0
+    jac = raw_table(torch, curve, curve.scalar_mul(
+        curve.base_point("cuda"), logs), nwin)
+    pms, want = time_once_ms(torch,
+                             lambda: msm_mod.table_affine_plain(jac))
+    got = curve.table_affine_kernel(jac.clone())
+    err = max_err(torch, got, want)
+    if err:
+        raise AssertionError(f"g1_table_affine at {shape} differs from its "
+                             f"plain version by {err}")
+    if not time:
+        return err, None, None
+    return err, time_ms(torch, lambda: curve.table_affine_kernel(got), 5), pms
 
 
 def g1_checks(torch, curve, msm_mod, FR, gen, rng):
@@ -1275,26 +1381,16 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
         "bit 254 set, random; a shared point, a point a thread (infinity "
         "among them), a shared scalar")
     # ... at 16 and 32 bits of full-size scalars (the kernel's nbits)
-    # against py_mul of the points' discrete logs, and against the plain
-    # version on PLAIN_BITS-bit scalars (the plain version runs a chain of
-    # launches a bit, about 0.3 s a bit whatever n)
+    # against py_mul of the points' discrete logs (against the plain
+    # version in tools/h100_mesh_cards.py: scalar_mul_plain_checks)
     for n in (1, 2, 3, 512):
         for shared in ("", "point"):
             for nbits in (16, 32):
                 g1_log_check(torch, curve, msm_mod, FR, "g1_scalar_mul",
                              (n, nbits, shared), gen)
-            if (n, shared) in ((1, ""), (512, ""), (512, "point")):
-                _, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
-                                           "g1_scalar_mul",
-                                           (n, PLAIN_BITS, shared), gen,
-                                           PLAIN_BITS)
-                same_points(msm_mod, kern(), plain(),
-                            f"g1_scalar_mul n={n} nbits={PLAIN_BITS} "
-                            f"{shared}")
-    say(f"g1_scalar_mul (a point a thread) and a shared point (its table "
-        f"and g1_msm) equal py_mul of the discrete logs at 16 and 32 bits "
-        f"and their plain version at {PLAIN_BITS} bits, n = 1, 2, 3, 512 "
-        f"(the plain version at n = 1 and 512, and 512 on a shared point)")
+    say("g1_scalar_mul (a point a thread) and a shared point (its table "
+        "and g1_msm) equal py_mul of the discrete logs at 16 and 32 bits, "
+        "n = 1, 2, 3, 512")
 
     # g1_add: the edge cases against Python integers and the plain
     # version, then random points
@@ -1331,15 +1427,24 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
 
     # g1_msm against Python integers (known discrete logs) at full-size
     # and 32-bit scalars, and against the plain version at PLAIN_BITS-bit
-    # scalars (a 32-bit plain run takes 10-13 s, a 255-bit one minutes)
+    # scalars (a 32-bit plain run takes 10-13 s, a 255-bit one minutes);
+    # a repeated base, an infinite base (log 0) and the scalars where the
+    # term's sign turns, (r - 1)/2 and (r + 1)/2, beside r - 1 and small
+    # negative values
+    half = (FR_P - 1) // 2
+    edge = [half, half + 1, FR_P - 1, FR_P - 3, FR_P - (1 << 40), 1]
     for R, N in ((1, 1), (3, 5), (2, 512), (3, 130)):
         gk = [rng.randrange(FR_P) for _ in range(N)]
         if N > 1:
             gk[1] = gk[0]                      # a repeated base
+        if N > 2:
+            gk[2] = 0                          # an infinite base
         bases = curve.scalar_mul(base, plain_words(torch, gk))
         fixed = msm_mod.FixedBaseMSM(bases)
         for bits in (255, 32):
             coeffs = [rng.getrandbits(bits) % FR_P for _ in range(R * N)]
+            if bits == 255:
+                coeffs[1:1 + len(edge)] = edge[:R * N - 1]
             coeffs[0] = 0
             k = torch.from_numpy(FR.pack_mont_host(coeffs)).cuda().reshape(
                 R, N, 8)
@@ -1360,8 +1465,27 @@ def g1_checks(torch, curve, msm_mod, FR, gen, rng):
                     f"g1_msm ({R}, {N})")
     say(f"g1_msm equals py_mul (255- and 32-bit scalars) at (R, N) = (1, 1), "
         f"(3, 5), (2, 512), (3, 130), and its plain version "
-        f"({PLAIN_BITS}-bit) at (2, 512) and (3, 130), with a zero scalar "
-        f"and a repeated base")
+        f"({PLAIN_BITS}-bit) at (2, 512) and (3, 130), with a zero scalar, "
+        f"a repeated base, an infinite base and the scalars (r - 1)/2, "
+        f"(r + 1)/2, r - 1, r - 3, r - 2^40")
+    affine_check(torch, curve, msm_mod, (5, 2), gen)
+    say("g1_table_affine equals its plain version word for word at (5, 2), "
+        "a repeated and an infinite base among the bases")
+
+
+def scalar_mul_plain_checks(torch, curve, msm_mod, FR, gen):
+    """g1_scalar_mul against its plain version on PLAIN_BITS-bit scalars
+    (the plain version runs a chain of launches a bit, about 0.3 s a bit
+    whatever n): a point a thread at n = 1 and 512, and a shared point
+    (its table and g1_msm) at 512; raises on a mismatch."""
+    for n, shared in ((1, ""), (512, ""), (512, "point")):
+        _, kern, plain = g1_inputs(torch, curve, msm_mod, FR,
+                                   "g1_scalar_mul", (n, PLAIN_BITS, shared),
+                                   gen, PLAIN_BITS)
+        same_points(msm_mod, kern(), plain(),
+                    f"g1_scalar_mul n={n} nbits={PLAIN_BITS} {shared}")
+    say(f"g1_scalar_mul equals its plain version at {PLAIN_BITS} bits: a "
+        f"point a thread at n = 1 and 512, a shared point at 512")
 
 
 def g1_log_check(torch, curve, msm_mod, FR, name, shape, gen):
@@ -1961,8 +2085,9 @@ def vgg_run(torch, model, pin, smi, main_fn=None, argv=None, pic_cnt=1):
         f"{model} pic_cnt={pic_cnt} with the commitment"
     r = run_entry(torch, main_fn, argv, run, smi, spans=vgg_spans())
     check_run(r, (pin["WS"], pin["PS"], pin["POLY_PS"], pin["digest"]),
-              must=("round_ladder", "fold_ladder", "g1_msm_table", "g1_msm",
-                    "ipa_round") + (fft if pic_cnt > 1 else ()),
+              must=("round_ladder", "fold_ladder", "g1_msm_table",
+                    "g1_table_affine", "g1_msm", "ipa_round")
+              + (fft if pic_cnt > 1 else ()),
               never=PER_ROUND + FOLD_KERNELS + (() if pic_cnt > 1 else fft))
     pcs, shapes = r["committed"]["pcs"], r["shapes"]
     liu, commit = (1 << pcs.logn, pcs.logn), (pcs.n_rows, pcs.n_cols)
@@ -2012,8 +2137,9 @@ def fs_vgg_run(torch, argv, run, pin, fs_pin, smi, cubic=()):
     fft = ("fold_cubic_round",)
     check_run(r, (pin["WS"], pin["PS"], pin["POLY_PS"],
                   "/".join(map(str, fs_pin))),
-              must=("fold_round", "fold_ladder", "g1_msm_table", "g1_msm",
-                    "ipa_round") + (fft if cubic else ()),
+              must=("fold_round", "fold_ladder", "g1_msm_table",
+                    "g1_table_affine", "g1_msm", "ipa_round")
+              + (fft if cubic else ()),
               never=("round_ladder", "cubic_ladder", "fold") + FOLD_KERNELS
               + (() if cubic else fft))
     pcs, launches = r.pop("committed")["pcs"], r["launches"]
@@ -3121,7 +3247,8 @@ def run(torch, root):
          ["lenet", "--pcs", "--snapshot", lenet_snap],
          (PINNED_LENET["WS"], PINNED_LENET["PS"],
           PINNED_LENET_PCS["POLY_PS"], PINNED_LENET_PCS["digest"]),
-         LADDERS + ("g1_msm_table", "g1_msm", "ipa_round"),
+         LADDERS + ("g1_msm_table", "g1_table_affine", "g1_msm",
+                    "ipa_round"),
          PER_ROUND + FOLD_KERNELS,
          dict(split=(18,), cubic=((1 << 16, 1 << 9, 9),),
               commits=MESH_SHARDS - 1)),
@@ -3129,14 +3256,15 @@ def run(torch, root):
          (PINNED_LENET["WS"], PINNED_LENET["PS"],
           PINNED_LENET_PCS["POLY_PS"], "/".join(map(str, PINNED_FS_LENET))),
          ("fold_round", "fold", "fold_cubic_round", "fold_ladder",
-          "g1_msm_table", "g1_msm", "ipa_round"),
+          "g1_msm_table", "g1_table_affine", "g1_msm", "ipa_round"),
          ("round_ladder", "cubic_ladder") + FOLD_KERNELS,
          dict(split=(18,), fiat_shamir=True, commits=MESH_SHARDS - 1)),
         (LENET16_PCS_RUN, demo_lenet.main,
          ["--synthetic", "--seed", "17"] + lenet16["argv"],
          (lenet16["WS"], lenet16["PS"], lenet16["POLY_PS"],
           lenet16["pcs_digest"]),
-         LADDERS + ("g1_msm_table", "g1_msm", "ipa_round"),
+         LADDERS + ("g1_msm_table", "g1_table_affine", "g1_msm",
+                    "ipa_round"),
          PER_ROUND + FOLD_KERNELS,
          dict(split=(22,), cubic=((1 << 16, 1 << 11, 11),
                                   (1 << 17, 1 << 9, 9)),
@@ -3277,14 +3405,37 @@ def run(torch, root):
     # discrete logs (g1_log_check), and at the largest shape against the
     # plain version on 8-bit scalars (the plain versions run a chain of
     # launches a scalar bit: about 0.3 s a bit whatever the shape); the
-    # tables against the one plain call of phase 6b; ipa_round word for
-    # word
+    # tables against the one plain call of phase 6b; g1_table_affine and
+    # ipa_round word for word
     for name in curve.NAMES:
         run, seen_shapes, launched = LENET_PCS_RUN, g1_shapes, g1_launches
         if name in FOLD_KERNELS:
             run, seen_shapes, launched = FOLDS_RUN, fold_run[1], fold_run[0]
         say(f"shapes of {name} in its run ({run}): {seen_shapes[name]}")
         shape = max(seen_shapes[name])
+        if name == "g1_table_affine":
+            # every table shape of the run on random bases (a repeated and
+            # an infinite one among them), timed at the largest
+            for sh in seen_shapes[name]:
+                if sh != shape:
+                    affine_check(torch, curve, msm_mod, sh, gen)
+            err, ms, pms = affine_check(torch, curve, msm_mod, shape, gen,
+                                        time=True)
+            b_ms, b_by = affine_bound(shape)
+            kernels.append({"name": name, "route": "cuda",
+                            "source": G1_SOURCE,
+                            "replaces": G1_REPLACES[name],
+                            "launches": launched[name], "max_abs_err": err,
+                            "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": None,
+                            "shape": list(shape), "run": run})
+            say(f"reported time of {name}: the largest shape of its run "
+                f"({run}) {shape}, equal to its plain version word for "
+                f"word at every shape: kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms (one call), bound {b_ms:.6f} ms by {b_by} "
+                f"({smi})")
+            lap(f"{name} at its run's shapes")
+            continue
         if name == "ipa_round":
             # the rounds of the run's own opening, each timed on its own
             # operands; reported at round 0, the largest (L, L)

@@ -30,11 +30,11 @@ by default:
     kernel_checks, the checks chip_smoke.py made at these runs' shapes
     while it ran them: every round-kernel entry at every shape of both
     runs against its plain version (round_ladder at (2^25, 25) and (2^23,
-    23) timed), the commit's g1_msm at (4096, 8192) and every other g1_msm
-    shape (the shard's (1024, 8192) among them) against py_mul of the
-    discrete logs, the setup's table of 8192 generators against the plain
-    table, and the 13 rounds of card 0's opening against the plain
-    ipa_round;
+    23) timed), the commit's g1_msm at (4096, 8192) on the witness and on
+    random 255-bit scalars and every other g1_msm shape (the shard's
+    (1024, 8192) among them) against py_mul of the discrete logs, the
+    setup's table of 8192 generators against the plain table, and the 13
+    rounds of card 0's opening against the plain ipa_round;
   * vgg16x8 (only when asked for: BASELINE.json config 5, vgg16 at
     pic_cnt=8, every convolution an FFT one): the same to
     PINNED_VGG16_PIC8, and besides the 13 DOT_PROD phase 1s at a quarter
@@ -62,11 +62,14 @@ by default:
     chip_smoke.py ran it before it took vgg11 at pic_cnt=2.
 
 The lenet part needs 4 CUDA cards; the vgg16 modes run their 4 shards on
-whatever cards there are (on one card, all four on it).  Run from the
+whatever cards there are (on one card, all four on it).  --only takes one
+part or several: the vgg16 modes of one picture count (vgg16 and
+vgg16fs; vgg16x8 and vgg16x8fs) then share one snapshot, and the later
+mode skips the curve checks the earlier one made.  Run from the
 repository root:
 
     python3 tools/h100_mesh_cards.py
-        [--only lenet|vgg16|vgg16x8|vgg11|vgg16fs|vgg16x8fs]
+        [--only {lenet,vgg11,vgg16,vgg16x8,vgg16fs,vgg16x8fs} ...]
 
 Writes its results to chiprun_out/cards4.json; exits 1 if a run failed.
 The snapshots (about 12 GB for vgg16, 30 GB for vgg16 pic_cnt=8, under
@@ -163,21 +166,24 @@ VGG16_MODES = {"vgg16": (1, False), "vgg16x8": (8, False),
 MESH_PEAK_RATIO = 1.15
 
 
-def vgg16_cards(torch, cs, smi, out, failed, pic_cnt, fiat_shamir=False,
-                split=True):
-    """vgg16 at pic_cnt pictures from a snapshot on card 0, then (split)
-    over 4 shards, shard i on card i % count (module docstring):
-    three-pass through cli/prove.py to PINNED_VGG16 or PINNED_VGG16_PIC8,
-    or under FiatShamirTape through chip_smoke.fs_main to PINNED_FS_VGG16
-    or PINNED_FS_VGG16_PIC8; then the kernels at the runs' shapes against
-    their plain versions (kernel_checks)."""
+def vgg16_cards(torch, cs, smi, out, failed, pic_cnt, snapshot,
+                fiat_shamir=False, split=True, checked=None):
+    """vgg16 at pic_cnt pictures from its snapshot (vgg16_snapshot's
+    (path, result)) on card 0, then (split) over 4 shards, shard i on
+    card i % count (module docstring): three-pass through cli/prove.py to
+    PINNED_VGG16 or PINNED_VGG16_PIC8, or under FiatShamirTape through
+    chip_smoke.fs_main to PINNED_FS_VGG16 or PINNED_FS_VGG16_PIC8; then
+    the kernels at the runs' shapes against their plain versions
+    (kernel_checks; `checked`: what an earlier mode on the same snapshot
+    held already)."""
     from zkcnn_tpu_torch.circuit import LayerType
     from zkcnn_tpu_torch.cli import prove
     name, pin_name = vgg16_names(pic_cnt)
     pin = getattr(cs, pin_name)
-    snap, built = vgg16_snapshot(cs, pic_cnt)
+    snap, built = snapshot
     argv = ["vgg16", "--pic-cnt", str(pic_cnt), "--snapshot", snap]
-    must = ("fold_ladder", "g1_msm_table", "g1_msm", "ipa_round")
+    must = ("fold_ladder", "g1_msm_table", "g1_table_affine", "g1_msm",
+            "ipa_round")
     if fiat_shamir:
         pin_name = pin_name.replace("PINNED_", "PINNED_FS_")
         fs_pin = getattr(cs, pin_name)
@@ -288,16 +294,16 @@ def vgg16_cards(torch, cs, smi, out, failed, pic_cnt, fiat_shamir=False,
                         "phase_shapes": r["phase_shapes"],
                         "fft_path_blocks": fft_blocks}
             runs[key] = r
-        out[key1]["kernel_checks"] = kernel_checks(torch, cs, smi, runs,
-                                                   pic_cnt, fiat_shamir)
+        out[key1]["kernel_checks"] = kernel_checks(
+            torch, cs, smi, runs, pic_cnt, fiat_shamir,
+            set() if checked is None else checked)
     except Exception as e:
         traceback.print_exc()
         cs.say(f"FAILED {key1}: {e!r}"[:3000])
         failed.append(key1)
-    os.remove(snap)
 
 
-def kernel_checks(torch, cs, smi, runs, pic_cnt, fiat_shamir):
+def kernel_checks(torch, cs, smi, runs, pic_cnt, fiat_shamir, checked):
     """chip_smoke.py's phase 6 at the shapes of this mode's runs (card 0's
     first), after the proofs: every round-kernel entry at every shape a
     run launched it at against its plain version, exact on random rows,
@@ -307,12 +313,18 @@ def kernel_checks(torch, cs, smi, runs, pic_cnt, fiat_shamir):
     phase shapes (fs_phase_checks: at one picture every shape on random
     rows and rows of p - 1, at eight the largest of each); g1_msm at every
     shape against py_mul of the discrete logs (card 0's three-pass commit
-    on its own operands, commit_check; every other shape on random
-    scalars, g1_log_check), each timed beside its bound; the setup's table
-    of the generators and every other table shape of the runs (on random
-    bases) against one call of the plain version, entry by entry; every
-    round of card 0's opening against its plain version word for word
-    (opening_rounds_check).  Returns the measurements."""
+    on its own operands, commit_check; every shape, the commit's too, on
+    random 255-bit scalars, g1_log_check), each timed beside its bound;
+    the setup's table of the generators and every other table shape of
+    the runs (on random bases) against one call of the plain version,
+    entry by entry, and the table's normalisation (g1_table_affine) timed
+    at the setup's shape; every round of card 0's opening against its
+    plain version word for word (opening_rounds_check); g1_scalar_mul
+    against its plain version on 8-bit scalars (scalar_mul_plain_checks,
+    out of chip_smoke.py for its clock).  The curve checks skip what
+    `checked` names (the g1_msm shapes, "tables", "opening", "scalar_mul"),
+    which an earlier mode on the same snapshot held, and add to it.
+    Returns the measurements."""
     from zkcnn_tpu_torch.field import FR, round_kernels as rk
     from zkcnn_tpu_torch.gkr import Tape
     from zkcnn_tpu_torch.pcs import curve, ipa, msm as msm_mod
@@ -345,14 +357,15 @@ def kernel_checks(torch, cs, smi, runs, pic_cnt, fiat_shamir):
         got.update(cs.fs_phase_checks(torch, rk, one, gen, rng, smi,
                                       pm1_everywhere=pic_cnt == 1,
                                       largest_only=pic_cnt > 1))
-    covered = set()
     if not fiat_shamir:
         c = one["committed"]
         got["g1_msm commit"] = cs.commit_check(torch, curve, msm_mod, FR,
                                                Tape, c, one["run"], smi)
-        covered.add(c["shape"])
+    # every shape on random 255-bit scalars too: the commit's beside its
+    # time on the witness
     msms = sorted(set().union(*(r["shapes"]["g1_msm"]
-                                for r in runs.values())) - covered)
+                                for r in runs.values())) - checked)
+    checked.update(msms)
     for shape in msms:
         scalars, kern = cs.g1_log_check(torch, curve, msm_mod, FR, "g1_msm",
                                         shape, gen)
@@ -364,6 +377,9 @@ def kernel_checks(torch, cs, smi, runs, pic_cnt, fiat_shamir):
                f"kernel {got[f'g1_msm {shape}']['ms']:.4f} ms, bound "
                f"{b_ms:.6f} ms by {b_by} ({smi})")
         del scalars, kern
+    if "tables" in checked:
+        return got
+    checked.update(("tables", "opening", "scalar_mul"))
     gens = one["committed"]["gens"]
     tables = sorted(set().union(*(r["shapes"]["g1_msm_table"]
                                   for r in runs.values()))
@@ -394,8 +410,22 @@ def kernel_checks(torch, cs, smi, runs, pic_cnt, fiat_shamir):
            f"call on all {bases.shape[0]} bases), bound {b_ms:.6f} ms by "
            f"{b_by} ({smi})")
     del want, bases, extra
+    # the table's entries to Z = 1 at the setup's shape, on its table (the
+    # same work on entries already there), beside its bound; its plain
+    # version, an inversion an entry, is held against it in chip_smoke.py
+    tab = curve.table_kernel(gens)
+    b_ms, b_by = cs.affine_bound(shape)
+    got["g1_table_affine"] = {
+        "shape": list(shape),
+        "ms": cs.time_ms(torch, lambda: curve.table_affine_kernel(tab), 5),
+        "bound_ms": b_ms, "bound_by": b_by}
+    cs.say(f"g1_table_affine at {shape}: kernel "
+           f"{got['g1_table_affine']['ms']:.4f} ms, bound {b_ms:.6f} ms by "
+           f"{b_by} ({smi})")
+    del tab
     got["ipa_round"] = cs.opening_rounds_check(torch, ipa, one["seen"],
                                                one["run"], smi)
+    cs.scalar_mul_plain_checks(torch, curve, msm_mod, FR, gen)
     return got
 
 
@@ -422,32 +452,43 @@ def main():
     from zkcnn_tpu_torch.parallel import make_mesh
     from zkcnn_tpu_torch.parallel.dryrun import dryrun_multichip
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["lenet", "vgg16", "vgg16x8",
-                                       "vgg11", "vgg16fs", "vgg16x8fs"])
+    ap.add_argument("--only", nargs="+",
+                    choices=["lenet", "vgg11"] + list(VGG16_MODES))
     args = ap.parse_args()
+    only = args.only or []
     smi = cs.smi_line()
     out, failed = {}, []
     n = torch.cuda.device_count()
-    if args.only == "vgg11":
+    if "vgg11" in only:
         vgg11_card(torch, cs, smi, out, failed)
-        return finish(cs, out, failed)
-    if args.only in (None, "lenet") and n < 4:
+    if (not only or "lenet" in only) and n < 4:
         sys.exit(f"h100_mesh_cards: 4 CUDA cards needed, {n} present")
-    if args.only != "lenet":
+    modes = [m for m in only if m in VGG16_MODES] or ([] if only
+                                                      else ["vgg16"])
+    if modes:
         # (pictures, Fiat-Shamir) of each vgg16 mode, vgg16 by default;
-        # the py_mul references of kernel_checks on the host's other cores
-        pic_cnt, fs = VGG16_MODES[args.only or "vgg16"]
+        # the modes of one picture count share one snapshot and the curve
+        # checks; the py_mul references of kernel_checks on the host's
+        # other cores
         cs.say(f"cards {n}; {smi}")
         workers = max(1, (os.cpu_count() or 2) - 1)
         with multiprocessing.get_context("spawn").Pool(workers) as pool:
             cs.HOST_POOL.append(pool)
             try:
-                vgg16_cards(torch, cs, smi, out, failed, pic_cnt, fs,
-                            split=args.only != "vgg16fs")
+                for pic_cnt in dict.fromkeys(VGG16_MODES[m][0]
+                                             for m in modes):
+                    snapshot, checked = vgg16_snapshot(cs, pic_cnt), set()
+                    for m in modes:
+                        if VGG16_MODES[m][0] == pic_cnt:
+                            vgg16_cards(torch, cs, smi, out, failed, pic_cnt,
+                                        snapshot, VGG16_MODES[m][1],
+                                        split=m != "vgg16fs",
+                                        checked=checked)
+                    os.remove(snapshot[0])
             finally:
                 cs.HOST_POOL.clear()
-        if args.only:
-            return finish(cs, out, failed)
+    if only and "lenet" not in only:
+        return finish(cs, out, failed)
     t0 = time.time()
     cuda_build.build()
     cs.say(f"build {time.time() - t0:.1f}s; cards {n}; {smi}")

@@ -1,8 +1,10 @@
 // BLS12-381 G1 arithmetic for one thread: Fp on 12 little-endian 32-bit
 // words (Montgomery, R = 2^384), Jacobian points, windowed scalar
 // multiplication, and the fixed-base window table that an MSM sums from;
-// and, at the end, the same table's doublings on groups of lanes of a
-// warp (lane_mul, table_chain_lanes).
+// then the same table's doublings on groups of lanes of a warp
+// (lane_mul, table_chain_lanes); and, at the end, the MSM on the table's
+// entries brought to Z = 1 (their batch inversion, the mixed addition,
+// one warp's share of a row: msm_item).
 //
 // Device functions only, no kernel: g1_kernels.cu includes this file.
 // Every function is plain C++ on integer arrays behind the ZK_DEV,
@@ -10,8 +12,9 @@
 // build the same arithmetic (define the first two empty and ZK_CONST as
 // `static const`; ZK_INLINE defaults to `inline` off nvcc) and hold it
 // against Python integers where there is no nvcc;
-// tests/test_torch_pcs_field.py, tests/test_torch_pcs_table.py and
-// tests/test_torch_pcs_lanes.py do.
+// tests/test_torch_pcs_field.py, tests/test_torch_pcs_table.py,
+// tests/test_torch_pcs_lanes.py and tests/test_torch_pcs_sparse_msm.py
+// do.
 //
 // The point formulas are those of zkcnn_tpu/pcs/curve.py (pdouble, padd
 // with its four edge cases), on canonical residues, so an addition or a
@@ -975,6 +978,363 @@ ZK_INLINE void fp_mul_lanes(u32* out, const u32* a, const u32* b,
 #pragma unroll
   for (int w = 0; w < NP; ++w)
     lstore(out, src * NP + w, x[w], land(live, q == w % S));
+}
+
+// ---------------------------------------------------------------------
+// The MSM on Z = 1 table entries.
+//
+// affine_runs, affine_up, affine_down and affine_back bring a table's
+// entries to Z = 1 in place (x = X / Z^2, y = Y / Z^3, Z = one) by
+// Montgomery's batch inversion: a thread takes a run of entries, a block's
+// threads join their runs' products in a tree, one thread inverts the
+// root (fp_inv, Fermat's a^(p - 2)), and the inverses come back down the
+// tree and along each run: 3 products an entry for the inversion, 4 for
+// the coordinates.  An entry at infinity (Z = 0) becomes zeros and takes
+// no part in the inversion, so nothing inverts zero.
+//
+// pt_madd adds such an entry to a Jacobian accumulator in 11 products:
+// pt_add's formula with Z2 = 1, so its words equal pt_add's on the entry
+// (x, y, one).  Mixed addition is not complete, so it takes the cases
+// apart as pt_add does: an infinite accumulator takes the entry, equal
+// points double, opposite points give infinity; and an entry with y = 0
+// is infinity (no point of the curve has y = 0: the group's order is
+// odd), which adds nothing.
+//
+// msm_scalar reads a term's scalar: out of Montgomery form, cut to its
+// low nbits bits, then its sign: k above (r - 1)/2 and below r is taken as
+// r - k, and every entry the term adds is negated (-(x, y) = (x, -y)).
+// The bases lie in the group of order r, so (r - k) P = -k P; a witness's
+// negative value, stored as r - |v|, then has the few digits of |v| and
+// not 64.  A plain scalar may reach 2^256 > r: there the sign is not
+// taken.
+//
+// msm_item is one warp's share of a row: terms i0 .. i1 - 1, 32 at a
+// time (lane l takes term i0 + l of each), over windows j0 .. j1 - 1.
+// Window by window, the lanes whose digit is nonzero put their table
+// entry (and its sign) into the warp's queue, compacted by ballot and
+// popcount in lane order; whenever the queue holds a whole warp's worth,
+// each of the 32 lanes takes one entry and adds it to its own
+// accumulator.  So a lane never waits while another lane of its warp
+// adds, however sparse the digits; only the last, partial batch of an
+// item leaves lanes idle.  The code runs MSM_L lanes a thread: 1 on the
+// card (each lane its own thread, the ballot and the maximum warp
+// intrinsics, the queue in shared memory), 32 on the host, where one
+// thread runs a whole warp in lock step between the ballots, so a host
+// compiler runs the same code and the tests hold it against Python
+// integers.
+
+ZK_CONST u32 FP_ONE[NP] = {   // R mod p: one in Montgomery form
+    0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau,
+    0x5f489857u, 0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u,
+    0xfa80e493u, 0x15f65ec3u};
+ZK_CONST u32 FR_HALF[NR] = {  // (r - 1) / 2 for the Fr modulus r
+    0x80000000u, 0x7fffffffu, 0x7fff2dffu, 0xa9ded201u,
+    0x04d0ec02u, 0x199cec04u, 0x94cebea4u, 0x39f6d3a9u};
+
+// r = -a mod p
+ZK_DEV inline void fp_neg(u32* r, const u32* a) {
+  u32 zero[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) zero[k] = 0;
+  fp_sub(r, zero, a);
+}
+
+// r = a^-1 for a != 0 (Montgomery in and out): a^(p - 2) by squaring
+// and multiplying from the top bit of p - 2, 380 squarings and 228
+// products.  r may be a.
+template <int U = MUL_UNROLL>
+ZK_DEV_NOINLINE void fp_inv(u32* r, const u32* a) {
+  u32 base[NP], x[NP];
+  fp_copy(base, a);
+  fp_copy(x, a);                           // bit 380, the top bit of p - 2
+  for (int b = 379; b >= 0; --b) {
+    fp_mul<U>(x, x, x);
+    const u32 w = FP_MOD[b >> 5] - (b < 32 ? 2u : 0u);   // no borrow
+    if ((w >> (b & 31)) & 1) fp_mul<U>(x, x, base);
+  }
+  fp_copy(r, x);
+}
+
+// A table entry with Z = 1, or infinity where y = 0.
+struct Aff {
+  u32 x[NP], y[NP];
+};
+
+// The longest run of entries a thread of the normalisation takes: its
+// prefix products sit in the thread's local memory (48 bytes an entry).
+constexpr int AFF_RUN = 32;
+
+// The normalisation of a block of T threads (T a power of two), in steps
+// between the block's barriers (a host compiler loops over the threads
+// between them).  affine_runs: thread t's run of n entries from e0 (n may
+// be 0), the prefix products of their Z into pre (pre[i] = z_0 ...
+// z_(i - 1)) and the run's product into leaf, node[T + t] of the block's
+// product tree node[1 .. 2T - 1]; an entry at infinity counts as 1.
+// affine_up(node, i): node i = node 2i times node 2i + 1, for i = T/2 ..
+// T - 1, then T/4 .., down to the root 1, which thread 0 then inverts
+// (fp_inv).  affine_down(node, i): for i = 1, then 2 .. 3, up to T/2 ..
+// T - 1, the children of i get their own inverses from i's and their
+// sibling's product.  affine_back: thread t's run to Z = 1 from its
+// leaf, now the inverse of the run's product.  One inversion serves the
+// block's T runs; the tree adds 3 products a run.
+ZK_DEV inline void affine_runs(const u32* tab, long long e0, int n,
+                               u32 (*pre)[NP], u32* leaf) {
+  u32 acc[NP], z[NP];
+  fp_copy(acc, FP_ONE);
+  for (int i = 0; i < n; ++i) {
+    fp_copy(z, tab + (e0 + i) * PW + 2 * NP);
+    fp_copy(pre[i], acc);
+    if (!fp_is_zero(z)) fp_mul(acc, acc, z);
+  }
+  fp_copy(leaf, acc);
+}
+
+ZK_DEV inline void affine_up(u32 (*node)[NP], int i) {
+  u32 a[NP], b[NP];
+  fp_copy(a, node[2 * i]);
+  fp_copy(b, node[2 * i + 1]);
+  fp_mul(a, a, b);
+  fp_copy(node[i], a);
+}
+
+ZK_DEV inline void affine_down(u32 (*node)[NP], int i) {
+  u32 inv[NP], l[NP], r[NP];
+  fp_copy(inv, node[i]);
+  fp_copy(l, node[2 * i]);
+  fp_copy(r, node[2 * i + 1]);
+  fp_mul(l, l, inv);                       // (l r)^-1 l = r^-1
+  fp_mul(r, r, inv);                       // l^-1
+  fp_copy(node[2 * i], r);
+  fp_copy(node[2 * i + 1], l);
+}
+
+ZK_DEV inline void affine_back(u32* tab, long long e0, int n,
+                               u32 (*pre)[NP], const u32* leaf) {
+  u32 inv[NP], z[NP];
+  fp_copy(inv, leaf);                      // (z_0 ... z_(n - 1))^-1
+  for (int i = n - 1; i >= 0; --i) {       // inv = (z_0 ... z_i)^-1
+    u32* e = tab + (e0 + i) * PW;
+    u32 x[NP], y[NP], zi[NP], zz[NP];
+    fp_copy(z, e + 2 * NP);
+    if (fp_is_zero(z)) {
+#pragma unroll
+      for (int k = 0; k < NP; ++k) e[k] = e[NP + k] = 0;
+      continue;
+    }
+    fp_copy(x, e);
+    fp_copy(y, e + NP);
+    fp_mul(zi, inv, pre[i]);               // z_i^-1
+    fp_mul(inv, inv, z);
+    fp_mul(zz, zi, zi);
+    fp_mul(x, x, zz);
+    fp_mul(zz, zz, zi);
+    fp_mul(y, y, zz);
+    fp_copy(e, x);
+    fp_copy(e + NP, y);
+    fp_copy(e + 2 * NP, FP_ONE);
+  }
+}
+
+// The entry's x and y at src (a [3, 12] entry of a Z = 1 table), y
+// negated where neg is set.
+ZK_DEV inline void aff_load(Aff* a, const u32* src, bool neg) {
+#ifdef __CUDA_ARCH__
+  // an entry is 144 bytes and the table 16-byte aligned: six 16-byte loads
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+#pragma unroll
+  for (int v = 0; v < 6; ++v) {
+    const uint4 w = __ldg(s + v);
+    u32* d = v < 3 ? a->x + 4 * v : a->y + 4 * (v - 3);
+    d[0] = w.x;
+    d[1] = w.y;
+    d[2] = w.z;
+    d[3] = w.w;
+  }
+#else
+  fp_copy(a->x, src);
+  fp_copy(a->y, src + NP);
+#endif
+  if (neg) fp_neg(a->y, a->y);
+}
+
+// r = p + q for a Jacobian p and a Z = 1 entry q (above).  r may be p.
+template <int U = MUL_UNROLL>
+ZK_DEV_NOINLINE void pt_madd(Pt* r, const Pt* p, const Aff* q) {
+  if (fp_is_zero(q->y)) {
+    if (r != p) pt_copy(r, p);
+    return;
+  }
+  if (fp_is_zero(p->z)) {
+    fp_copy(r->x, q->x);
+    fp_copy(r->y, q->y);
+    fp_copy(r->z, FP_ONE);
+    return;
+  }
+  u32 Z1Z1[NP], U2[NP], S2[NP], H[NP], rr[NP], t[NP];
+  fp_mul<U>(Z1Z1, p->z, p->z);
+  fp_mul<U>(U2, q->x, Z1Z1);
+  fp_mul<U>(S2, q->y, p->z);
+  fp_mul<U>(S2, S2, Z1Z1);
+  fp_sub(H, U2, p->x);
+  fp_sub(rr, S2, p->y);
+  if (fp_is_zero(H)) {
+    if (fp_is_zero(rr))
+      pt_double<U>(r, p);
+    else
+      pt_set_inf(r);
+    return;
+  }
+  u32* HH = Z1Z1;              // Z1Z1, U2, S2 are dead from here
+  u32* HHH = U2;
+  u32* V = S2;
+  fp_mul<U>(HH, H, H);
+  fp_mul<U>(HHH, H, HH);
+  fp_mul<U>(V, p->x, HH);
+  fp_mul<U>(r->z, p->z, H);    // Z3 = Z1 H (p->z not read again)
+  fp_mul<U>(t, rr, rr);
+  fp_sub(t, t, HHH);
+  fp_sub(t, t, V);
+  fp_sub(r->x, t, V);          // X3 = r^2 - HHH - 2V (p->x not read again)
+  fp_sub(t, V, r->x);
+  fp_mul<U>(t, rr, t);
+  fp_mul<U>(HHH, p->y, HHH);
+  fp_sub(r->y, t, HHH);        // Y3 = r (V - X3) - Y1 HHH
+}
+
+// -1, 0 or 1 as a < b, a == b or a > b, for 8-word integers.
+ZK_DEV inline int fr_cmp(const u32* a, const u32* b) {
+  for (int j = NR - 1; j >= 0; --j)
+    if (a[j] != b[j]) return a[j] < b[j] ? -1 : 1;
+  return 0;
+}
+
+// k = the scalar at src, out of Montgomery form where mont is set, cut to
+// its low nbits bits, then taken as r - k where (r - 1)/2 < k < r (the
+// return value: the term's entries are negated).
+ZK_DEV inline bool msm_scalar(u32* k, const u32* src, int nbits, int mont) {
+#pragma unroll
+  for (int j = 0; j < NR; ++j) k[j] = src[j];
+  if (mont) fr_from_mont(k);
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int lo = 32 * j;
+    if (lo >= nbits)
+      k[j] = 0;
+    else if (lo + 32 > nbits)
+      k[j] &= (1u << (nbits - lo)) - 1;
+  }
+  if (fr_cmp(k, FR_HALF) > 0 && fr_cmp(k, fr::P) < 0) {
+    fr::sub_mod(k, fr::P, k);
+    return true;
+  }
+  return false;
+}
+
+// The windows that k's nonzero digits reach: its bit length over 4,
+// rounded up.
+ZK_DEV inline int scalar_windows(const u32* k) {
+  for (int j = NR - 1; j >= 0; --j)
+    if (k[j]) {
+#ifdef __CUDA_ARCH__
+      const int top = 32 - __clz(k[j]);
+#else
+      const int top = 32 - __builtin_clz(k[j]);
+#endif
+      return (32 * j + top + WBITS - 1) / WBITS;
+    }
+  return 0;
+}
+
+// acc += entry e of tab: e holds the entry's index times 2, plus 1 where
+// it is negated.
+ZK_DEV inline void msm_add(Pt* acc, const u32* tab, u32 e) {
+  Aff a;
+  aff_load(&a, tab + (long long)(e >> 1) * PW, e & 1);
+  pt_madd(acc, acc, &a);
+}
+
+// A warp's queue: at most 31 entries left from the last batch and 32 new.
+constexpr int QCAP = 2 * WARP;
+
+#ifdef __CUDACC__
+constexpr int MSM_L = 1;            // lanes a thread: its own
+ZK_INLINE u32 warp_ballot(const bool* on) {
+  return __ballot_sync(0xffffffffu, on[0]);
+}
+ZK_INLINE int warp_max(const int* v) {
+  return (int)__reduce_max_sync(0xffffffffu, (unsigned)v[0]);
+}
+ZK_INLINE void warp_sync() { __syncwarp(); }
+ZK_INLINE int popc(u32 x) { return __popc(x); }
+#else
+constexpr int MSM_L = WARP;         // lanes a thread: the whole warp
+inline u32 warp_ballot(const bool* on) {
+  u32 m = 0;
+  for (int l = 0; l < WARP; ++l) m |= (u32)on[l] << l;
+  return m;
+}
+inline int warp_max(const int* v) {
+  int m = v[0];
+  for (int l = 1; l < WARP; ++l) m = v[l] > m ? v[l] : m;
+  return m;
+}
+inline void warp_sync() {}
+inline int popc(u32 x) { return __builtin_popcount(x); }
+#endif
+
+// One warp's item (above): acc[l], the sum of the entries that lane
+// lane0 + l added (the kernel sums a warp's lanes after it); q: the warp's
+// queue (QCAP words).  ks: [R, N, 8] scalars of which row r is read; tab:
+// the Z = 1 table [N, nwin, 15, 3, 12].
+ZK_DEV inline void msm_item(Pt* acc, u32* q, const u32* tab, const u32* ks,
+                            long long r, long long N, long long i0,
+                            long long i1, int j0, int j1, int nwin,
+                            int nbits, int mont, int lane0) {
+  int qlen = 0;                            // the same on every lane
+  for (int l = 0; l < MSM_L; ++l) pt_set_inf(&acc[l]);
+  for (long long at = i0; at < i1; at += WARP) {
+    u32 k[MSM_L][NR];
+    bool neg[MSM_L];
+    int top[MSM_L];
+    for (int l = 0; l < MSM_L; ++l) {
+      const long long i = at + lane0 + l;
+      neg[l] = false;
+      top[l] = 0;
+      if (i < i1) {
+        neg[l] = msm_scalar(k[l], ks + (r * N + i) * NR, nbits, mont);
+        top[l] = scalar_windows(k[l]);
+      }
+    }
+    const int reach = warp_max(top);
+    const int jt = reach < j1 ? reach : j1;
+    for (int j = j0; j < jt; ++j) {
+      u32 d[MSM_L];
+      bool on[MSM_L];
+      for (int l = 0; l < MSM_L; ++l) {
+        d[l] = top[l] > j ? window_digit(k[l], j, 32 * NR) : 0;
+        on[l] = d[l] != 0;
+      }
+      const u32 mask = warp_ballot(on);
+      for (int l = 0; l < MSM_L; ++l)
+        if (on[l]) {
+          const long long e = ((at + lane0 + l) * nwin + j) * WTAB + d[l] - 1;
+          const int lane = lane0 + l;
+          q[qlen + popc(mask & ((1u << lane) - 1))] =
+              ((u32)e << 1) | (u32)neg[l];
+        }
+      qlen += popc(mask);
+      if (qlen >= WARP) {                  // a batch: one entry a lane
+        warp_sync();
+        qlen -= WARP;
+        for (int l = 0; l < MSM_L; ++l)
+          msm_add(&acc[l], tab, q[qlen + lane0 + l]);
+        warp_sync();                       // read before written again
+      }
+    }
+  }
+  warp_sync();
+  for (int l = 0; l < MSM_L; ++l)          // the last, partial batch
+    if (lane0 + l < qlen) msm_add(&acc[l], tab, q[lane0 + l]);
 }
 
 }  // namespace g1

@@ -54,34 +54,74 @@
 //     and wrapper; one block keeps every step in one launch with no
 //     ticket between blocks, and a round's work grows with L in that one
 //     block (at most IPA_MAX_L generators, zk_ipa_max_l);
-//   * g1_msm_kernel + g1_sum_rows_kernel (zk_g1_msm):
-//     msm.py::FixedBaseMSM.compute and ipa.py::_msm_small on that table,
-//     and curve.py::scalar_mul with one shared point (one base, a row a
-//     scalar).  Row r is the sum over terms i and windows j of
-//     T_i[j][digit_j(k_ri)]: no doubling.  A thread takes one term and
-//     MSM_SPLIT windows of it (at most 16 additions), a block sums its
-//     threads by a tree in shared memory, and a second launch sums a
-//     row's block sums.  The XLA design (a gather of [R, 2N] points a
-//     window, a dense tree and a Horner step of 8 doublings between
-//     windows) exists because XLA is dense; no gathered tensor is made.
+//   * g1_table_affine_kernel (zk_g1_table_affine): replaces no function
+//     of the JAX package, whose table keeps Jacobian entries for XLA's
+//     dense gathers.  It brings a table's entries to Z = 1 in place, so
+//     that g1_msm adds each with an 11-product mixed addition in place of
+//     the 16-product complete one and reads 96 of an entry's 144 bytes.
+//     Montgomery's batch inversion (g1_arith.cuh, affine_runs ..
+//     affine_back): a thread takes a run of up to AFF_RUN entries, the
+//     runs' products of a block of AFF_THREADS meet in a product tree in
+//     shared memory, and one Fermat inversion (608 dependent products, in
+//     one warp while the block's other warps wait) serves the block's
+//     runs; then 7 products an entry.  An inversion a thread would cost
+//     more than its run's 32 entries: a warp issues the inversion's 608
+//     products whether its lanes share one or not.  Bound by its
+//     multiplies (7 products an entry
+//     against 288 bytes read and written); small tables (a base's) are
+//     bound by the inversion's latency, about 0.9 ms.  table_kernel
+//     (pcs/curve.py) launches it on every table
+//     it builds, so every table the MSM sees has Z = 1 entries, also the
+//     joined ones of FixedBaseMSM.extend and ShardedMSM's copies;
+//   * g1_msm_kernel, then g1_sum_rows_kernel once or twice (zk_g1_msm):
+//     zkcnn_tpu/pcs/msm.py:245 FixedBaseMSM (its compute) and
+//     ipa.py::_msm_small on that table, and curve.py::scalar_mul with one
+//     shared point (one base, a row a scalar).  Row r is the sum over
+//     terms i and windows j of T_i[j][digit_j(k_ri)]: no doubling.  Each
+//     term's scalar is taken with its sign (msm_scalar: r - k where k >
+//     (r - 1)/2, its entries negated), so a witness of small signed values
+//     has few nonzero digits a term.  A warp takes a tile of a row's terms
+//     and a range of windows (msm_item): it compacts the (term, window)
+//     digits that are nonzero into a queue in shared memory and adds them
+//     32 at a time, one a lane, each lane into its own accumulator, so no
+//     lane idles while another adds (a warp issues an addition whenever
+//     any of its lanes has one: with a term a lane, one nonzero digit in
+//     32 costs the whole warp's addition); then 5 levels of complete
+//     additions sum the warp's lanes, and the sum kernel adds a row's warp
+//     sums in blocks of SUM_GROUP, once or twice.  msm_plan sizes the items: tiles
+//     of up to 2048 terms for the commit's thousands of rows (few sums, no
+//     tree per 16 terms), down to 32 terms and a few windows a warp for
+//     the opening's one and two rows, so that every shape has thousands
+//     of warps.  Warps are numbered rows first, so the warps in flight at
+//     once share a tile of bases and read its entries from the L2 cache.
+//     No work list grows with the scalars: the queue is 64 words a warp.
+//     Bound by its multiplies (11 products a nonzero digit) for every
+//     shape of a proof; the entries read, 96 bytes a digit, mostly hit
+//     the L2.  The XLA design (a gather of [R, 2N] points a window, a
+//     dense tree and a Horner step of 8 doublings between windows)
+//     exists because XLA is dense; no gathered tensor is made.
 //
 // Data: a point is [3, 12] words (X, Y, Z), each coordinate the canonical
 // Montgomery residue (R = 2^384) in 12 little-endian 32-bit words; Z == 0
 // is infinity.  A scalar is 8 words.  A table is [N, nwin, 15, 3, 12]
-// words (Jacobian entries, 144 bytes each: 70.8 MB for 512 bases).
-// Results are group elements: they equal the plain PyTorch versions and
-// the JAX package as points (after normalising Z), not word for word,
-// because the order of additions differs.
+// words (144 bytes an entry: 70.8 MB for 512 bases), Jacobian until
+// zk_g1_table_affine, then Z = 1 (one in Montgomery form) or all zeros
+// (infinity).  Results are group elements: they equal the plain PyTorch
+// versions and the JAX package as points (after normalising Z), not word
+// for word, because the order of additions differs; the normalised table
+// equals its plain version word for word.
 //
 // What bounds it on this card: 32-bit integer multiplies.  An Fp product
 // is 288 of them (144 for the product, 144 for its reduction), a doubling
-// 7 products, an addition 16.  The table costs 255 doublings a base and
-// 11 additions a window; an MSM then costs one addition a nonzero digit
-// (about 64 a 255-bit term), against 144 bytes a table entry read.  For
-// one or two rows the bound is a chain: the table's 255 dependent
-// doublings (on lane groups, above), then a thread's 16 additions and the
-// trees.  Left for later work: GLV, signed digits, Z = 1 entries with
-// mixed addition (a batch inversion), Pippenger buckets for very large N.
+// 7 products, an addition 16, a mixed addition 11.  The table costs 255
+// doublings a base and 11 additions a window, its normalisation 7
+// products an entry; an MSM then costs one mixed addition a nonzero digit
+// (about 64 a random 255-bit term, a few for a small signed value),
+// against 96 bytes a table entry read.  For one or two rows the bound is
+// a chain: the table's 255 dependent doublings (on lane groups, above),
+// the normalisation's inversion, then a warp's batches and the sums.
+// Left for later work: GLV, signed window digits, Pippenger buckets for
+// very large N.
 
 #include <cstddef>
 #include <cstdint>
@@ -100,8 +140,20 @@ constexpr int TABLE_LANES = 6;     // lanes a product of g1_table_lanes_kernel
 constexpr int TABLE_GROUPS = 3;    // products a doubling level runs at once
 constexpr int TABLE_WARPS = 2;     // warps a block of g1_table_lanes_kernel
 constexpr int ROUND_THREADS = 64;  // a block of g1_table_round_kernel
-constexpr int MSM_SPLIT = 4;       // threads a term: NWIN / 4 windows each
-constexpr int MSM_THREADS = 64;    // the largest block of the MSM kernels
+constexpr int MSM_WARPS = 4;       // warps a block of g1_msm_kernel
+// (msm_plan) warps g1_msm_kernel is given when the shape allows: a few
+// times the card's resident warps, so that its waves balance; and the
+// warps below which a row's windows are cut into ranges: each warp's sum
+// of its lanes costs 5 complete additions a lane, which would outweigh
+// its batches if the opening's one or two rows were cut finer
+constexpr long long MSM_WARPS_WANTED = 8192;
+constexpr long long MSM_RANGE_WARPS = 1024;
+constexpr int MSM_TILE_MAX = 2048;   // terms a warp takes at most
+constexpr int SUM_THREADS = 64;    // the largest block of g1_sum_rows_kernel
+constexpr int SUM_GROUP = 128;     // the partial sums it adds into one
+constexpr int AFF_THREADS = 256;   // a block of g1_table_affine_kernel
+// blocks g1_table_affine_kernel is given before its runs grow past 1
+constexpr long long AFF_BLOCKS_WANTED = 512;
 constexpr int FP_THREADS = 128;    // a block of fp_mul_kernel
 constexpr int IPA_THREADS = 256;   // the one block of ipa_round_kernel
 constexpr long long IPA_MAX_L = 1LL << 16;   // generators ipa_round takes
@@ -184,48 +236,79 @@ __device__ __forceinline__ void block_sum(Pt* sh) {
   }
 }
 
-// Block (r, b) sums terms b * tpb .. b * tpb + tpb - 1 of row r on the
-// table: thread (term, q) adds the entries of windows q * per ..
-// (q + 1) * per - 1, per = nwin / MSM_SPLIT rounded up.  ks: [R, N, 8]
-// scalars, Montgomery (mont) or plain; tab: [N, nwin, 15, 3, 12]; out:
-// [R, blocks_per_row, 3, 12].
-__global__ void g1_msm_kernel(const u32* __restrict__ tab,
-                              const u32* __restrict__ ks,
-                              u32* __restrict__ out, long long N,
-                              int blocks_per_row, int nwin, int nbits,
-                              int mont) {
-  __shared__ Pt sh[MSM_THREADS];
-  const int tpb = blockDim.x / MSM_SPLIT;
-  const long long r = blockIdx.x / blocks_per_row;
-  const int b = blockIdx.x % blocks_per_row;
-  const long long i = (long long)b * tpb + threadIdx.x / MSM_SPLIT;
-  const int q = threadIdx.x % MSM_SPLIT;
-  Pt acc;
-  pt_set_inf(&acc);
-  if (i < N) {
-    u32 k[NR];
-#pragma unroll
-    for (int j = 0; j < NR; ++j) k[j] = ks[(r * N + i) * NR + j];
-    if (mont) fr_from_mont(k);
-    const int per = (nwin + MSM_SPLIT - 1) / MSM_SPLIT;
-    const int j0 = q * per;
-    const int j1 = j0 + per < nwin ? j0 + per : nwin;
-    table_sum(&acc, tab + i * nwin * WTAB * PW, k, j0, j1, nbits);
+// Thread t of block b: entries (b AFF_THREADS + t) run .. + run - 1 (of
+// E) of a table to Z = 1, one inversion for the block (affine_runs,
+// affine_up, fp_inv, affine_down, affine_back).
+__global__ void __launch_bounds__(AFF_THREADS)
+    g1_table_affine_kernel(u32* tab, long long E, int run) {
+  __shared__ u32 node[2 * AFF_THREADS][NP];
+  u32 pre[AFF_RUN][NP];
+  const int t = threadIdx.x;
+  const long long e0 = ((long long)blockIdx.x * AFF_THREADS + t) * run;
+  const int n = e0 >= E ? 0 : (int)(E - e0 < run ? E - e0 : run);
+  affine_runs(tab, e0, n, pre, node[AFF_THREADS + t]);
+  for (int w = AFF_THREADS / 2; w >= 1; w /= 2) {
+    __syncthreads();
+    if (t < w) affine_up(node, w + t);
   }
-  pt_copy(&sh[threadIdx.x], &acc);
-  block_sum(sh);
-  if (threadIdx.x == 0) pt_store(out + (size_t)blockIdx.x * PW, &sh[0]);
+  __syncthreads();
+  if (t == 0) fp_inv(node[1], node[1]);
+  for (int w = 1; w < AFF_THREADS; w *= 2) {
+    __syncthreads();
+    if (t < w) affine_down(node, w + t);
+  }
+  __syncthreads();
+  affine_back(tab, e0, n, pre, node[AFF_THREADS + t]);
 }
 
-// Block r sums the `parts` points of row r: parts [R, parts, 3, 12] ->
-// out [R, 3, 12].
+// Warp w: row w % R, then tile (w / R) % tiles of `tile` terms, then
+// window range w / (R tiles) of `per_win` windows (msm_item); its lanes'
+// sum goes to parts[r, (w / R) % tiles + tiles (w / (R tiles))].  ks:
+// [R, N, 8] scalars, Montgomery (mont) or plain; tab: the Z = 1 table
+// [N, nwin, 15, 3, 12]; parts: [R, tiles * ranges, 3, 12].
+__global__ void __launch_bounds__(MSM_WARPS * WARP)
+    g1_msm_kernel(const u32* __restrict__ tab, const u32* __restrict__ ks,
+                  u32* __restrict__ parts, long long R, long long N,
+                  long long tiles, int tile, int ranges, int per_win,
+                  int nwin, int nbits, int mont) {
+  __shared__ u32 queue[MSM_WARPS][QCAP];
+  const int wi = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const long long w = (long long)blockIdx.x * MSM_WARPS + wi;
+  if (w >= R * tiles * ranges) return;     // the whole warp
+  const long long r = w % R, c = (w / R) % tiles, g = w / (R * tiles);
+  const long long i0 = c * tile;
+  const long long i1 = i0 + tile < N ? i0 + tile : N;
+  const int j0 = (int)g * per_win;
+  const int j1 = j0 + per_win < nwin ? j0 + per_win : nwin;
+  Pt acc, other;
+  msm_item(&acc, queue[wi], tab, ks, r, N, i0, i1, j0, j1, nwin, nbits,
+           mont, lane);
+  for (int off = WARP / 2; off > 0; off >>= 1) {   // lane 0 gets the sum
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      other.x[k] = __shfl_down_sync(0xffffffffu, acc.x[k], off);
+      other.y[k] = __shfl_down_sync(0xffffffffu, acc.y[k], off);
+      other.z[k] = __shfl_down_sync(0xffffffffu, acc.z[k], off);
+    }
+    pt_add(&acc, &acc, &other);
+  }
+  if (lane == 0)
+    pt_store(parts + ((size_t)r * tiles * ranges + g * tiles + c) * PW, &acc);
+}
+
+// Block b: partial sums (b % groups) * SUM_GROUP .. of row b / groups of
+// parts [R, n, 3, 12] into out [R, groups, 3, 12]; blockDim.x a power of
+// two, at most SUM_THREADS.
 __global__ void g1_sum_rows_kernel(const u32* __restrict__ parts,
-                                   u32* __restrict__ out, int n_parts) {
-  __shared__ Pt sh[MSM_THREADS];
-  const u32* row = parts + (size_t)blockIdx.x * n_parts * PW;
+                                   u32* __restrict__ out, long long n,
+                                   long long groups) {
+  __shared__ Pt sh[SUM_THREADS];
+  const long long r = blockIdx.x / groups, g = blockIdx.x % groups;
+  const u32* row = parts + (size_t)r * n * PW;
+  const long long end = (g + 1) * SUM_GROUP < n ? (g + 1) * SUM_GROUP : n;
   Pt acc, t;
   pt_set_inf(&acc);
-  for (int j = threadIdx.x; j < n_parts; j += blockDim.x) {
+  for (long long j = g * SUM_GROUP + threadIdx.x; j < end; j += blockDim.x) {
     pt_load(&t, row + (size_t)j * PW);
     pt_add(&acc, &acc, &t);
   }
@@ -328,12 +411,41 @@ int launch_digits(u32* tab, long long N, int nwin, cudaStream_t s) {
   return 0;
 }
 
-// Threads a block of the MSM for N terms: MSM_SPLIT a term, up to 16
-// terms, a power of two.
-int msm_block(long long N) {
-  int tpb = 1;
-  while (tpb < N && tpb * MSM_SPLIT < MSM_THREADS) tpb *= 2;
-  return tpb * MSM_SPLIT;
+// How g1_msm_kernel cuts an (R, N) MSM over nwin windows into warp
+// items: tiles of `tile` terms (a power of two, 32 .. MSM_TILE_MAX), the
+// largest that leaves MSM_WARPS_WANTED warps, and, where even 32 terms a
+// warp leave fewer than MSM_RANGE_WARPS, the windows in `ranges` ranges
+// of per_win (at least 4 windows each).  parts: a row's warp sums.
+struct MsmPlan {
+  long long tiles, parts;
+  int tile, ranges, per_win;
+};
+
+MsmPlan msm_plan(long long R, long long N, int nwin) {
+  MsmPlan p;
+  p.tile = MSM_TILE_MAX;
+  while (p.tile > WARP && R * ((N + p.tile - 1) / p.tile) < MSM_WARPS_WANTED)
+    p.tile /= 2;
+  p.tiles = (N + p.tile - 1) / p.tile;
+  int ranges = 1;
+  while (R * p.tiles * ranges < MSM_RANGE_WARPS && 8 * ranges <= nwin)
+    ranges *= 2;
+  p.per_win = (nwin + ranges - 1) / ranges;
+  p.ranges = (nwin + p.per_win - 1) / p.per_win;
+  p.parts = p.tiles * p.ranges;
+  return p;
+}
+
+// The partial sums of each level of g1_sum_rows_kernel after the MSM's
+// warp sums (n of them a row): n -> ceil(n / SUM_GROUP) until 1.
+long long sum_groups(long long n) { return (n + SUM_GROUP - 1) / SUM_GROUP; }
+
+// Threads a block of g1_sum_rows_kernel for n partial sums a row: a power
+// of two, each thread 2 of a group (a row of the commit has a few).
+int sum_threads(long long n) {
+  int t = 1;
+  while (t < SUM_THREADS && 2 * t < n) t *= 2;
+  return t;
 }
 
 }  // namespace
@@ -414,43 +526,79 @@ void zk_g1_table_lanes(int* product, int* base) {
   *base = TABLE_LANES * TABLE_GROUPS;
 }
 
-// The block sums a row of N terms is cut into; with 1 the sums of
-// g1_msm_kernel are the result and `parts` is not needed.
-long long zk_g1_msm_parts(long long N) {
-  const int tpb = msm_block(N) / MSM_SPLIT;
-  return (N + tpb - 1) / tpb;
+// The table of N bases over nwin windows (zk_g1_msm_table's) to Z = 1
+// in place: one launch of g1_table_affine_kernel, each thread a run of
+// its entries.
+int zk_g1_table_affine(void* tab, long long N, int nwin, void* stream) {
+  if (N <= 0 || nwin < 1 || nwin > NWIN) return cudaErrorInvalidValue;
+  const long long E = N * nwin * WTAB;
+  const long long per = AFF_BLOCKS_WANTED * AFF_THREADS;
+  long long run = (E + per - 1) / per;
+  run = run > AFF_RUN ? AFF_RUN : run;
+  const long long threads = (E + run - 1) / run;
+  const unsigned blocks = (unsigned)((threads + AFF_THREADS - 1) /
+                                     AFF_THREADS);
+  g1_table_affine_kernel<<<blocks, AFF_THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<u32*>(tab), E, (int)run);
+  return cudaGetLastError();
 }
 
-// out[r] = sum_i ks[r, i] P_i from the table of the P_i.  tab: [N, nwin,
-// 15, 3, 12] (zk_g1_msm_table); ks: [R, N, 8] scalars, Montgomery where
-// mont is 1, else plain, of which the low nbits bits count (nbits <=
-// 4 nwin); out: [R, 3, 12]; parts: [R, zk_g1_msm_parts(N), 3, 12]
-// scratch, or null where that count is 1.  *launches: the kernels
-// launched.
+// The scratch zk_g1_msm needs for an (R, N) MSM over nwin windows cut as
+// plan_rows rows would be, in points: a row's warp sums, and each level
+// of the sums but the last.
+long long zk_g1_msm_parts(long long R, long long N, int nwin,
+                          long long plan_rows) {
+  long long n = msm_plan(plan_rows, N, nwin).parts, total = 0;
+  while (n > 1) {
+    total += n;
+    n = sum_groups(n);
+  }
+  return R * total;
+}
+
+// out[r] = sum_i ks[r, i] P_i from the Z = 1 table of the P_i.  tab:
+// [N, nwin, 15, 3, 12] (zk_g1_msm_table, then zk_g1_table_affine); ks:
+// [R, N, 8] scalars, Montgomery where mont is 1, else plain, of which the
+// low nbits bits count (nbits <= 4 nwin); out: [R, 3, 12]; parts:
+// zk_g1_msm_parts(R, N, nwin, plan_rows) points of scratch, or null where
+// that is 0.  Rows are cut into warp items as an MSM of plan_rows rows
+// cuts them (msm_plan), so a block of a matrix's rows given plan_rows =
+// the matrix's rows gives the words the whole matrix's call gives.
+// *launches: the kernels launched (the MSM's, then a sum kernel a level).
 int zk_g1_msm(const void* tab, const void* ks, void* out, void* parts,
               long long R, long long N, int nwin, int nbits, int mont,
-              void* stream, int* launches) {
+              long long plan_rows, void* stream, int* launches) {
   *launches = 0;
   if (R <= 0 || N <= 0 || nwin < 1 || nwin > NWIN || nbits < 1 ||
-      nbits > WBITS * nwin)
+      nbits > WBITS * nwin || N * nwin * WTAB > 0x7fffffffLL ||
+      plan_rows < 1 || reinterpret_cast<uintptr_t>(tab) % 16)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long per_row = zk_g1_msm_parts(N);
-  if (R * per_row > 0x7fffffffLL) return cudaErrorInvalidValue;
-  u32* first = static_cast<u32*>(per_row == 1 ? out : parts);
-  if (!first) return cudaErrorInvalidValue;
-  g1_msm_kernel<<<(unsigned)(R * per_row), msm_block(N), 0, s>>>(
-      static_cast<const u32*>(tab), static_cast<const u32*>(ks), first, N,
-      (int)per_row, nwin, nbits, mont);
+  const MsmPlan p = msm_plan(plan_rows, N, nwin);
+  const long long warps = R * p.parts;
+  if ((warps + MSM_WARPS - 1) / MSM_WARPS > 0x7fffffffLL ||
+      R * sum_groups(p.parts) > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  u32* level = static_cast<u32*>(p.parts == 1 ? out : parts);
+  if (!level) return cudaErrorInvalidValue;
+  g1_msm_kernel<<<(unsigned)((warps + MSM_WARPS - 1) / MSM_WARPS),
+                  MSM_WARPS * WARP, 0, s>>>(
+      static_cast<const u32*>(tab), static_cast<const u32*>(ks), level, R, N,
+      p.tiles, p.tile, p.ranges, p.per_win, nwin, nbits, mont);
   int err = cudaGetLastError();
   if (err) return err;
   *launches = 1;
-  if (per_row > 1) {
-    g1_sum_rows_kernel<<<(unsigned)R, MSM_THREADS, 0, s>>>(
-        first, static_cast<u32*>(out), (int)per_row);
+  for (long long n = p.parts; n > 1;) {
+    const long long groups = sum_groups(n);
+    u32* next = groups == 1 ? static_cast<u32*>(out) : level + R * n * PW;
+    g1_sum_rows_kernel<<<(unsigned)(R * groups), sum_threads(n), 0, s>>>(
+        level, next, n, groups);
     err = cudaGetLastError();
     if (err) return err;
-    *launches = 2;
+    ++*launches;
+    level = next;
+    n = groups;
   }
   return 0;
 }

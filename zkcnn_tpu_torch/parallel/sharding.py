@@ -192,8 +192,9 @@ class ShardedMSM:
     a mesh: the bases' table on every device of the mesh (`msm`'s own on
     its device, one built on each other device), and shard i computes
     its block of rows on its device with one g1_msm.  A row is the same
-    kernel on the same words, so the result equals `msm.compute` word
-    for word."""
+    kernel on the same words, cut into the kernel's warp items as the
+    whole matrix's rows are (`plan_rows`), so the result equals
+    `msm.compute` word for word."""
 
     def __init__(self, msm, mesh: Mesh):
         from ..pcs.msm import FixedBaseMSM
@@ -215,8 +216,9 @@ class ShardedMSM:
         -> the rows' points joined on the bases' device."""
         if len(blocks) > 1:
             COUNTS["splits"] += 1
-        return gather_rows([self.on[b.device].compute(b) for b in blocks],
-                           self.home)
+        rows = sum(b.shape[0] for b in blocks)
+        return gather_rows([self.on[b.device].compute(b, rows)
+                            for b in blocks], self.home)
 
 
 def sharded_msm(mesh: Mesh, points, scalars_mont):

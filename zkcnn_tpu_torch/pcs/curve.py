@@ -8,7 +8,8 @@ device.  For CUDA tensors they launch kernels of `csrc/g1_kernels.cu`
 or raise: nothing falls back.  `scalar_mul` with one point shared by
 all scalars (the generators, the opening's auxiliary generator) is an
 MSM of one base: it builds that point's fixed-base table (`table_kernel`,
-kernel `g1_msm_table`) and sums a row a scalar from it
+kernel `g1_msm_table`, its entries then brought to Z = 1 by kernel
+`g1_table_affine`, `table_affine_kernel`) and sums a row a scalar from it
 (`table_msm_kernel`, kernel `g1_msm`, which `msm.FixedBaseMSM` also
 runs); with a point a thread it is the windowed `g1_scalar_mul` kernel.
 `base_mul` is the same MSM for the curve's base point G, whose table
@@ -16,7 +17,8 @@ depends on nothing else: it is built once a process and device
 (`base_table`, kept in `BASE_TABLES`), so the tape's generator draws of
 a proof's setup, opening and verification share it.
 Each kernel has a plain PyTorch version (`padd_plain`, `pdouble_plain`,
-`scalar_mul_plain`, and in `msm.py` `msm_table_plain` and `msm_plain`:
+`scalar_mul_plain`, and in `msm.py` `msm_table_plain`,
+`table_affine_plain` and `msm_plain`:
 the JAX formulas on `FP.mul/add/sub` with `torch.where` selects) that
 accepts tensors on either device, which is how a kernel is held against
 it on the card.  For CPU tensors `padd` and `pdouble` run their plain
@@ -37,7 +39,8 @@ wrapper calls that launched kernel `name` (`pdouble` is the `g1_add`
 kernel without a second operand and counts there), `KERNEL_LAUNCHES`
 the device kernels they launched, `SHAPES` the shapes they launched at
 (`g1_scalar_mul`: n, nbits and "scalar" where all threads shared one;
-`g1_msm_table`: bases and windows; `g1_msm`: rows and bases;
+`g1_msm_table` and `g1_table_affine`: bases and windows; `g1_msm`:
+rows and bases;
 `ipa_round`, a round of the inner-product opening of `ipa.py` on the
 same library: generators and terms left after its fold) and
 `PLAIN_CALLS` the calls that did not go to a kernel (the plain and the
@@ -62,8 +65,8 @@ G1_X = 0x17F1D3A73197D7942695638C4FA9AC0FC3688C4F9774B905A14E3A3F171BAC586C55E83
 G1_Y = 0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1
 G1_COFACTOR = 0x396C8C005555E1568C00AAAB0000AAAB
 
-NAMES = ("g1_add", "g1_scalar_mul", "g1_msm_table", "g1_msm",
-         "ipa_round")
+NAMES = ("g1_add", "g1_scalar_mul", "g1_msm_table", "g1_table_affine",
+         "g1_msm", "ipa_round")
 # the fixed-base table: 4-bit windows of a 256-bit scalar, 15 digit
 # multiples a window (csrc/g1_arith.cuh)
 WBITS = 4
@@ -335,9 +338,10 @@ def _flat(x, lead, tail):
 
 def table_kernel(points, nwin: int = NWIN):
     """The fixed-base table of CUDA points [N, 3, 12] over nwin windows:
-    [N, nwin, 15, 3, 12], entry (i, j, d - 1) = d 2^(4j) P_i.  One launch
-    of g1_msm_table (four device kernels: the chain, three rounds of
-    digits)."""
+    [N, nwin, 15, 3, 12], entry (i, j, d - 1) = d 2^(4j) P_i with Z = 1
+    (zeros for infinity).  One launch of g1_msm_table (four device
+    kernels: the chain, three rounds of digits), then its entries to
+    Z = 1 in place (`table_affine_kernel`)."""
     pts = points.contiguous()
     N = pts.shape[0]
     tab = torch.empty((N, nwin, WTAB, 3, FP.n), dtype=torch.int32,
@@ -346,26 +350,50 @@ def table_kernel(points, nwin: int = NWIN):
     launch(pts.device, g1_lib().zk_g1_msm_table, pts.data_ptr(),
            tab.data_ptr(), N, nwin, stream_of(pts.device), ctypes.byref(n))
     count_launch("g1_msm_table", (N, nwin), n.value)
+    return table_affine_kernel(tab)
+
+
+def table_affine_kernel(tab):
+    """A CUDA table [N, nwin, 15, 3, 12] of Jacobian entries brought to
+    Z = 1 in place (one launch of g1_table_affine): x = X / Z^2, y =
+    Y / Z^3, Z = one in Montgomery form; an entry at infinity all zeros.
+    Returns tab."""
+    if tab.device.type != "cuda" or tab.dtype != torch.int32 or \
+            tab.dim() != 5 or tuple(tab.shape[2:]) != (WTAB, 3, FP.n) or \
+            not tab.is_contiguous():
+        raise ValueError(f"table_affine_kernel: expected a contiguous "
+                         f"[N, nwin, {WTAB}, 3, {FP.n}] int32 CUDA table, "
+                         f"got {tuple(tab.shape)} {tab.dtype} on "
+                         f"{tab.device}")
+    N, nwin = tab.shape[:2]
+    launch(tab.device, g1_lib().zk_g1_table_affine, tab.data_ptr(), N, nwin,
+           stream_of(tab.device))
+    count_launch("g1_table_affine", (N, nwin))
     return tab
 
 
-def table_msm_kernel(tab, ks, nbits: int, mont: bool):
-    """[R, 3, 12]: row r is sum_i k[r, i] P_i from the table of the P_i
-    (`table_kernel`), for scalars ks [R, N, 8] on the card, Montgomery
+def table_msm_kernel(tab, ks, nbits: int, mont: bool, plan_rows=None):
+    """[R, 3, 12]: row r is sum_i k[r, i] P_i from the Z = 1 table of the
+    P_i (`table_kernel`), for scalars ks [R, N, 8] on the card, Montgomery
     words (mont) or the low nbits bits of plain ones.  One launch of
-    g1_msm (one or two device kernels)."""
+    g1_msm (the MSM's device kernel, then one or two that sum a row's
+    partial sums).  The kernel cuts each row into warp items as it would
+    for plan_rows rows (default R): a block of a matrix's rows given the
+    matrix's count gives the words of the whole matrix's call."""
     R, N = ks.shape[:2]
+    plan_rows = R if plan_rows is None else plan_rows
     ks = ks.contiguous()
     lib = g1_lib()
+    nwin = tab.shape[1]
     out = torch.empty((R, 3, FP.n), dtype=torch.int32, device=ks.device)
-    per_row = lib.zk_g1_msm_parts(N)
-    parts = torch.empty((R, per_row, 3, FP.n), dtype=torch.int32,
-                        device=ks.device) if per_row > 1 else None
+    scratch = lib.zk_g1_msm_parts(R, N, nwin, plan_rows)
+    parts = torch.empty((scratch, 3, FP.n), dtype=torch.int32,
+                        device=ks.device) if scratch else None
     n = ctypes.c_int(0)
     launch(ks.device, lib.zk_g1_msm, tab.data_ptr(), ks.data_ptr(),
            out.data_ptr(),
            parts.data_ptr() if parts is not None else None, R, N,
-           tab.shape[1], nbits, int(mont), stream_of(ks.device),
+           nwin, nbits, int(mont), plan_rows, stream_of(ks.device),
            ctypes.byref(n))
     count_launch("g1_msm", (R, N), n.value)
     return out

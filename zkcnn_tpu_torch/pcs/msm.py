@@ -9,17 +9,21 @@ with `points_equal`).
 On a CUDA device the JAX package's design is kept where it serves the
 card: the constructor builds a fixed-base table of the bases (kernel
 `g1_msm_table`: d 2^(4j) P_i for 4-bit digits d and 64 windows j, as
-the JAX package's `build_table` does at construction), and `compute` is
+the JAX package's `build_table` does at construction), whose entries
+kernel `g1_table_affine` then brings to Z = 1 in place, and `compute` is
 one launch of kernel `g1_msm`, which adds the table entry of every
-nonzero digit of every term (no doubling), a thread a term's quarter of
-the windows, a tree within a block and a second kernel across a row's
-blocks.  What the JAX package does for XLA's dense model (signed
-radix-256 digits, GLV, a gather a window and a Horner step between
-windows) is not carried over.  `extend(extra)` gives an MSM over the
-bases and a few more that reuses the table: only the extra bases' table
-is built, then joined (the inner-product opening's [generators; Q]).
+nonzero digit of every term (no doubling) with a mixed addition, each
+term's scalar taken as r - k where that is the smaller, a warp's lanes
+adding the nonzero digits of a tile of terms 32 at a time, then the
+partial sums of a row added by one or two more kernels.  What the JAX
+package does for XLA's dense model (signed radix-256 digits, GLV, a
+gather a window and a Horner step between windows) is not carried over.
+`extend(extra)` gives an MSM over the bases and a few more that reuses
+the table: only the extra bases' table is built, then joined (the
+inner-product opening's [generators; Q]); both have Z = 1 entries.
 The plain PyTorch versions,
-`msm_table_plain` (the table from the plain doubling and addition) and
+`msm_table_plain` (the table from the plain doubling and addition),
+`table_affine_plain` (its entries to Z = 1, an inversion an entry) and
 `msm_plain` (the scalars out of Montgomery form, `scalar_mul_plain` a
 term, a tree along each row), take tensors on either device and are
 what the kernels are held against.  For CPU tensors the constructor
@@ -87,6 +91,27 @@ def msm_table_plain(points, nwin: int = curve.NWIN):
     return torch.stack(rows, 2)
 
 
+def table_affine_plain(tab):
+    """[..., 3, 12] Jacobian table entries -> the same with Z = 1: x =
+    X / Z^2, y = Y / Z^3, Z = one in Montgomery form, and all zeros where
+    Z = 0 (the layout `g1_msm` reads).  Z^-1 is Z^(p - 2), squaring and
+    multiplying from the top bit, on every entry at once."""
+    curve.PLAIN_CALLS["g1_table_affine"] += 1
+    X, Y, Z = tab[..., 0, :], tab[..., 1, :], tab[..., 2, :]
+    inf = curve._is_zero(Z)
+    e = FP.p - 2
+    zi = Z
+    for b in range(e.bit_length() - 2, -1, -1):
+        zi = FP.mul(zi, zi)
+        if (e >> b) & 1:
+            zi = FP.mul(zi, Z)
+    zz = FP.mul(zi, zi)
+    out = torch.stack([FP.mul(X, zz), FP.mul(Y, FP.mul(zz, zi)),
+                       FP.const(1, tab.device).expand_as(Z)], dim=-2)
+    return torch.where(inf[..., None, None], torch.zeros_like(out), out)
+
+
+
 class FixedBaseMSM:
     def __init__(self, points):
         on_cuda = curve.check_points("FixedBaseMSM", points)
@@ -112,8 +137,10 @@ class FixedBaseMSM:
             if on_cuda else None
         return out
 
-    def compute(self, scalars_mont):
-        """scalars_mont [R, N, 8] (Montgomery) -> [R, 3, 12] points."""
+    def compute(self, scalars_mont, plan_rows=None):
+        """scalars_mont [R, N, 8] (Montgomery) -> [R, 3, 12] points.
+        plan_rows: on the card, the rows whose cut into the kernel's warp
+        items each row takes (default R; `curve.table_msm_kernel`)."""
         pts = self.points
         if scalars_mont.dtype != torch.int32 or scalars_mont.dim() != 3 \
                 or scalars_mont.shape[1:] != (self.n_points, FR.n) \
@@ -126,7 +153,8 @@ class FixedBaseMSM:
         if self.table is None:
             return msm_host(pts, scalars_mont)
         return curve.table_msm_kernel(self.table, scalars_mont,
-                                      curve.WBITS * curve.NWIN, True)
+                                      curve.WBITS * curve.NWIN, True,
+                                      plan_rows)
 
 
 def points_equal(p, q):
